@@ -1,0 +1,48 @@
+"""Bank parameters: from the host (numpy) pytree to the port's tensors.
+
+Both packages build a bank's parameters the same way: per-chain numpy
+leaves (filter taps, loop and AGC constants, slicer rates) stacked along a
+leading chain axis, plus the switches ``space_scale`` (a pure space-gain
+AFSK sweep, demodulated once and scaled per chain) and ``pre_shared`` (a
+coherent carrier sweep whose pre-loop stages are identical across chains).
+``bank_params_from_jax`` turns the pytree that
+``pymodem_tpu.runtime.bank.group_chains(chains, jnp.float32)`` builds into
+the port's dict of tensors; the port's own ``group_chains`` goes through it
+too, so the two agree leaf for leaf.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .dsp.loops import nco_sine_table
+
+
+def _leaf(v, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, copy=True)).to(device)
+
+
+def _tree(node, device):
+    if hasattr(node, "_asdict"):  # NamedTuple (e.g. the AGC constants)
+        node = node._asdict()
+    if isinstance(node, dict):
+        return {k: _tree(v, device) for k, v in node.items()}
+    return _leaf(node, device)
+
+
+def bank_params_from_jax(jax_bank_params: dict, sine_table=None,
+                         device: str | torch.device = "cpu") -> dict:
+    """The port's bank parameters from a JAX-package bank pytree.
+
+    Leaves keep their dtype (float32 for the f32 bank).  Coherent banks
+    (those with ``loop`` leaves) also get ``sine_table``: the NCO's
+    256-entry f32 sine table, ``nco_sine_table()`` unless one is given
+    (for instance XLA's own ``sin`` of the same angles, to run the twin
+    against the JAX package's f32 loop).
+    """
+    params = _tree(dict(jax_bank_params), device)
+    if "loop" in params:
+        table = nco_sine_table() if sine_table is None else sine_table
+        params["sine_table"] = _leaf(np.asarray(table, np.float32), device)
+    return params

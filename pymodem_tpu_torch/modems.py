@@ -1,0 +1,140 @@
+"""Modem parameters, built once on the host (numpy).
+
+Port of the host side of ``pymodem_tpu.modems`` for the families this
+slice carries: the AFSK tone correlator (``afsk``) and the coherent AFSK
+PLL (``afsk_pll``).  Filter design goes through the jax-free
+``pymodem_tpu.dsp.window_design``, so taps are identical to the JAX
+package's.  The demod itself runs banked, in ``runtime/bank.py``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from pymodem_tpu.dsp import window_design as wd
+
+from .config import AFSKModemSpec, AFSKPLLModemSpec, AGCSpec
+from .dsp.loops import LoopParams
+
+TWO_PI = 2.0 * np.pi
+
+
+def _round_taps(rate: float, span: float, per: float) -> int:
+    """Tap count = round(rate * span / per) with Python banker's rounding,
+    as every reference tune() uses (e.g. afsk.py:103-108)."""
+    return round(rate * span / per)
+
+
+class AGCParams(NamedTuple):
+    scaled_attack: np.float64
+    scaled_decay: np.float64
+    sustain_time: np.float64
+    sustain_increment: np.float64
+    target: np.float64
+
+
+def _agc_params(spec: AGCSpec, sample_rate: float) -> AGCParams:
+    return AGCParams(
+        np.float64(spec.attack_rate / sample_rate),
+        np.float64(spec.decay_rate / sample_rate),
+        np.float64(spec.sustain_time),
+        np.float64(1.0 / sample_rate),
+        np.float64(spec.target_amplitude),
+    )
+
+
+def _loop_params_host(spec, integral_init: float | None = None) -> LoopParams:
+    """Loop constants of a coherent modem as numpy scalars (and the
+    reference's 256-entry wavetable)."""
+    b0, a1 = wd.iir1_lpf_coefs(spec.sample_rate, spec.loop_lpf_cutoff, 1.0)
+    pi = spec.pi
+    return LoopParams(
+        wavetable=wd.nco_wavetable(256, 1.0),
+        set_frequency=np.float64(spec.carrier_freq),
+        phase_scale=np.float64(TWO_PI / spec.sample_rate),
+        index_scale=np.float64(256.0 / TWO_PI),
+        iir_b0=np.float64(b0),
+        iir_a1=np.float64(a1),
+        pi_gp=np.float64(pi.gain * pi.p),
+        pi_gain=np.float64(pi.gain),
+        pi_i=np.float64(pi.i),
+        pi_limit=np.float64(pi.i_limit),
+        pi_integral0=np.float64(
+            pi.integral_init if integral_init is None else integral_init
+        ),
+    )
+
+
+class AFSKParams(NamedTuple):
+    input_bpf: np.ndarray
+    output_lpf: np.ndarray
+    mark_i: np.ndarray
+    mark_q: np.ndarray
+    space_i: np.ndarray
+    space_q: np.ndarray
+    # polyphase upsample filter for output_oversample > 1 (afsk.py:164-165);
+    # zero-length array when the branch is off (the common case)
+    resample_taps: np.ndarray = np.zeros(0)
+    oversample: int = 1
+
+
+def _resample_poly_taps(up: int) -> np.ndarray:
+    """The anti-imaging filter scipy.signal.resample_poly(x, up, 1) designs:
+    kaiser(beta=5.0)-windowed sinc, cutoff 1/up, 2*10*up+1 taps, scaled by
+    up."""
+    from scipy.signal import firwin
+
+    half_len = 10 * up
+    return up * firwin(2 * half_len + 1, 1.0 / up, window=("kaiser", 5.0))
+
+
+def afsk_params(spec: AFSKModemSpec) -> AFSKParams:
+    n_in = _round_taps(spec.sample_rate, spec.input_bpf_span, spec.symbol_rate)
+    n_out = _round_taps(spec.sample_rate, spec.output_lpf_span, spec.symbol_rate)
+    mark_i, mark_q, space_i, space_q = wd.tone_correlators(
+        spec.sample_rate, spec.symbol_rate, spec.correlator_span,
+        spec.mark_freq, spec.space_freq, spec.space_gain, spec.correlator_offset,
+    )
+    oversample = int(spec.output_oversample)
+    return AFSKParams(
+        input_bpf=wd.bandpass_taps(
+            n_in, spec.input_bpf_low_cutoff, spec.input_bpf_high_cutoff, spec.sample_rate
+        ),
+        output_lpf=wd.lowpass_taps(n_out, spec.output_lpf_cutoff, spec.sample_rate),
+        mark_i=mark_i, mark_q=mark_q, space_i=space_i, space_q=space_q,
+        resample_taps=(
+            _resample_poly_taps(oversample) if oversample > 1 else np.zeros(0)
+        ),
+        oversample=oversample,
+    )
+
+
+class PLLParams(NamedTuple):
+    input_bpf: np.ndarray
+    output_lpf: np.ndarray
+    agc: AGCParams
+
+
+def afsk_pll_params(spec: AFSKPLLModemSpec) -> PLLParams:
+    n_in = _round_taps(spec.sample_rate, spec.input_bpf_span, spec.symbol_rate)
+    n_out = _round_taps(spec.sample_rate, spec.output_lpf_span, spec.symbol_rate)
+    return PLLParams(
+        input_bpf=wd.bandpass_taps(
+            n_in, spec.input_bpf_low_cutoff, spec.input_bpf_high_cutoff,
+            spec.sample_rate, scale=True,
+        ),
+        output_lpf=wd.lowpass_taps(n_out, spec.output_lpf_cutoff, spec.sample_rate),
+        agc=_agc_params(spec.agc, spec.sample_rate),
+    )
+
+
+def build_params(spec):
+    if spec.kind == "afsk":
+        return afsk_params(spec)
+    if spec.kind == "afsk_pll":
+        return afsk_pll_params(spec)
+    raise NotImplementedError(
+        f"modem {spec.kind!r} is not ported yet (ROADMAP Queue 1 item 11)"
+    )

@@ -1,0 +1,202 @@
+"""The binary symbol-timing slicer: kernel K1, its plain twin, compaction.
+
+Port of ``pymodem_tpu.ops.slicers`` (``binary_slice``, ``compact_bytes``,
+``compact_windowed``, ``safe_compact_window``) and of the Pallas kernel
+that replaces the scan on the TPU,
+``pymodem_tpu.ops.pallas_slicers._binary_kernel``
+(``binary_slice_lanes_pallas``, ``decode_emissions``).
+
+The slicer is a per-sample FSM (reference slicer.py:59-107): a phase clock
+advances by 1.0 per sample, a bit decision fires when it crosses
+``sps/2 - 0.5`` (then the clock rewinds by ``sps``), and a zero crossing
+multiplies the clock by ``lock_rate``.  Lanes are (chain, block) streams
+handed over as ``(L, T)`` rows; per-lane constants come as two rows
+``(sps, lock_rate)``.
+
+Emission encoding, shared by kernel and twin (the Pallas kernel's): with
+``window == 1`` an (L, T) int32 stream, ``0x100 | byte`` on the sample that
+completed a byte and 0 elsewhere; with ``window == w > 1`` an
+(L, ceil(T/w)) stream holding each window's single emission as
+``(pos_in_window << 16) | 0x100 | byte``.  Compare/select/shift arithmetic
+only, so kernel and twin agree bitwise.
+
+Compaction (cumsum + scatter) packs the emissions into dense
+(bytes, addresses, count) rows, bitwise as the JAX package does.
+Addresses are 1-based sample indices of the demod stream (slicer.py:75).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+class SlicerOut(NamedTuple):
+    """Per-sample emission stream (valid, byte)."""
+
+    valid: torch.Tensor  # (..., N) bool
+    byte: torch.Tensor  # (..., N) uint8
+
+
+def safe_compact_window(samples_per_symbol: float, lock_rate: float,
+                        bits_per_symbol: int) -> int:
+    """Largest power-of-two window guaranteed to hold at most one byte
+    emission: a byte takes 8/bps symbol decisions, each at least
+    ~samples_per_symbol * lock_rate samples after the previous."""
+    spacing = (8.0 / bits_per_symbol) * samples_per_symbol * lock_rate
+    w = 1
+    while w * 2 <= max(spacing * 0.45, 1.0):
+        w *= 2
+    return min(w, 256)
+
+
+def binary_slice(x: torch.Tensor, lane_params: torch.Tensor,
+                 window: int = 1) -> torch.Tensor:
+    """Plain PyTorch twin of kernel K1: vectorised over lanes, a loop over
+    time.  x: (L, T) float; lane_params: (2, L) rows (sps, lock_rate) of the
+    same dtype.  Returns the int32 emission stream (module docstring)."""
+    L, T = x.shape
+    dev = x.device
+    sps, lock_rate = lane_params.to(x.dtype)
+    rollover = sps / 2.0 - 0.5
+    xt = x.t()
+    # the per-sample inputs of the recurrence that depend on x alone --
+    # the decided bit and the zero crossing against the previous sample
+    # (0 before the first) -- are computed for all t up front
+    last = torch.cat([torch.zeros_like(xt[:1]), xt[:-1]])
+    bits = (xt >= 0).to(torch.int32).unbind(0)
+    crossings = (((last < 0.0) & (xt >= 0.0))
+                 | ((last >= 0.0) & (xt < 0.0))).unbind(0)
+    clock = torch.zeros(L, dtype=x.dtype, device=dev)
+    byte = torch.zeros(L, dtype=torch.int32, device=dev)
+    bit_count = torch.zeros_like(byte)
+    emits, bytes_ = [], []
+    for t in range(T):
+        clock = clock + 1.0
+        decide = clock >= rollover
+        clock = torch.where(decide, clock - sps, clock)
+        byte = torch.where(decide, ((byte << 1) & 0xFF) | bits[t], byte)
+        # bit_count counts decisions and resets at 8, so reaching 8 marks
+        # a decision that completed a byte (decide & bit_count >= 8)
+        bit_count = bit_count + decide
+        emit = bit_count >= 8
+        bit_count = torch.where(emit, 0, bit_count)
+        clock = torch.where(crossings[t], clock * lock_rate, clock)
+        emits.append(emit)
+        bytes_.append(byte)
+    emit = torch.stack(emits)
+    enc = torch.where(emit, 0x100 | torch.stack(bytes_), 0)  # (T, L)
+    if window > 1:
+        # one code per window: OR of the window's per-sample codes, the
+        # in-window position in bits 16+
+        n_out = -(-T // window)
+        pos = (torch.arange(T, device=dev, dtype=torch.int32)
+               % window)[:, None] << 16
+        enc = torch.where(emit, enc | pos, 0)
+        enc = F.pad(enc, (0, 0, 0, n_out * window - T))
+        enc = enc.reshape(n_out, window, L)
+        acc = enc[:, 0]
+        for k in range(1, window):
+            acc = acc | enc[:, k]
+        enc = acc
+    return enc.t().contiguous()
+
+
+def binary_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor,
+                       window: int = 1) -> torch.Tensor:
+    """Kernel K1 (``csrc/binary_slicer.cu``) over (L, T) lanes.
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    only a CPU tensor takes the plain twin ``binary_slice``."""
+    if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} "
+                         f"lane_params {tuple(lane_params.shape)}")
+    if window < 1 or window & (window - 1) or window > 256:
+        raise ValueError(f"window must be a power of two <= 256: {window}")
+    if x.device.type == "cpu":
+        return binary_slice(x, lane_params, window)
+    if x.device.type != "cuda":
+        raise ValueError(f"binary_slice_lanes: unsupported device {x.device}")
+    from .. import _ext
+
+    for name, t in (("x", x), ("lane_params", lane_params)):
+        if t.device != x.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous float32 tensor on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
+    L, T = x.shape
+    out = torch.empty((L, -(-T // window)), dtype=torch.int32,
+                      device=x.device)
+    fn = _ext.kernel("binary_slice_lanes", (ctypes.c_void_p,) * 3
+                     + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _ext.check("binary_slice_lanes", fn(
+            x.data_ptr(), lane_params.data_ptr(), out.data_ptr(), L, T,
+            window, stream))
+    binary_slice_lanes.launches += 1
+    return out
+
+
+binary_slice_lanes.launches = 0
+
+
+def decode_emissions(enc: torch.Tensor) -> SlicerOut:
+    """(..., T) int32 encoded emissions (window 1) -> SlicerOut."""
+    return SlicerOut((enc & 0x100) != 0, (enc & 0xFF).to(torch.uint8))
+
+
+def _scatter_dense(valid: torch.Tensor, byte: torch.Tensor,
+                   address: torch.Tensor, capacity: int):
+    """Rank the valid slots (cumsum) and scatter bytes and addresses into
+    (..., capacity) rows; slots past capacity drop, count stays the full
+    number of valid slots (the JAX scatter's mode="drop")."""
+    idx = valid.to(torch.int64).cumsum(-1) - 1
+    pos = torch.where(valid & (idx < capacity), idx, capacity)
+    shape = valid.shape[:-1] + (capacity + 1,)
+    data = torch.zeros(shape, dtype=torch.int32, device=valid.device)
+    addr = torch.zeros(shape, dtype=torch.int32, device=valid.device)
+    zero = torch.zeros_like(address)
+    data.scatter_(-1, pos, torch.where(valid, byte, zero))
+    addr.scatter_(-1, pos, torch.where(valid, address, zero))
+    count = valid.sum(-1, dtype=torch.int32)
+    return data[..., :capacity], addr[..., :capacity], count
+
+
+def compact_bytes(out: SlicerOut, capacity: int, window: int = 1):
+    """Pack valid slots of a per-sample emission stream into dense
+    (bytes, addresses, count) arrays; with ``window > 1`` emissions are
+    first reduced over non-overlapping windows (each holds at most one
+    emission, see safe_compact_window)."""
+    valid, byte = out.valid, out.byte.to(torch.int32)
+    n = valid.shape[-1]
+    if window > 1:
+        pad = (-n) % window
+        if pad:
+            valid = F.pad(valid, (0, pad))
+            byte = F.pad(byte, (0, pad))
+        v = valid.reshape(*valid.shape[:-1], -1, window)
+        byte = torch.where(v, byte.reshape(v.shape), 0).sum(
+            -1, dtype=torch.int32)
+        base = torch.arange(v.shape[-2], dtype=torch.int32,
+                            device=v.device) * window
+        address = base + v.to(torch.int32).argmax(-1).to(torch.int32) + 1
+        valid = v.any(-1)
+    else:
+        address = torch.arange(1, n + 1, dtype=torch.int32,
+                               device=valid.device).expand(valid.shape)
+    return _scatter_dense(valid, byte, address, capacity)
+
+
+def compact_windowed(enc: torch.Tensor, window: int, capacity: int):
+    """compact_bytes for kernel-windowed emissions: enc (..., NW) int32
+    holds each window's single emission as
+    ``(pos_in_window << 16) | 0x100 | byte`` (0 = none)."""
+    valid = (enc & 0x100) != 0
+    nw = enc.shape[-1]
+    base = torch.arange(nw, dtype=torch.int32, device=enc.device) * window
+    address = base + (enc >> 16) + 1
+    return _scatter_dense(valid, enc & 0xFF, address, capacity)

@@ -1,0 +1,723 @@
+"""Banked, block-parallel chain execution on one GPU: the host-codec route.
+
+Port of the parts of ``pymodem_tpu.runtime.bank`` that the AFSK-300
+IL2P+CRC decode runs on ``run_banked(codec="host")``:
+
+* **Chain bank axis**: chains with the same static structure (modem family
+  and parameter shapes, slicer, rates) stack into one bank, whose
+  parameters carry a leading chain axis.
+* **Time-block axis**: the recording is cut into overlapped blocks.  FIR
+  stages read ``trim`` extra input samples per block (exact, like
+  overlap-save); the recurrent stages (AGC, PLL, slicer clock) warm up in
+  the ``overlap`` halo, which covers loop acquisition plus the longest
+  packet, and each packet belongs to exactly one block by its stream
+  address.  Sequential scans thus become ``chains x blocks`` independent
+  lanes: one thread each in kernels K1 and K2.
+
+Per bank, every device stage runs on the GPU: framing (``unfold``), the
+modem demod (FIRs as ``conv1d``; for ``afsk_pll`` kernel K2), the binary
+slicer (kernel K1), compaction, ``descramble_bytes_multi`` and
+``il2p_sync_candidates``.  The byte streams and sync maps then come back to
+the host, where the reference-exact IL2P state machines decode each block
+(``codecs/host.py``), and ``PacketAggregate`` correlates and reports.
+
+Deliberate differences from the JAX package: float32 only; no sequential
+executor, so a failing bank raises instead of being retried on the CPU;
+the device IL2P codec is not ported yet (ROADMAP Queue 1 item 8); block
+geometry drops the TPU lane-tile snapping of ``plan_bank_run``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import modems
+from ..config import BinarySlicerSpec, ChainSpec, IL2PCodecSpec
+from ..convert import bank_params_from_jax
+from ..device import resolve
+from ..dsp.fir import fir_valid_multi, fir_valid_nd, fir_valid_per_chain
+from ..dsp.loops import afsk_pll_lanes, agc_lane_params, lane_params_from_loop
+from ..ops.lfsr import descramble_bytes_multi
+from ..ops.slicers import (
+    binary_slice_lanes,
+    compact_bytes,
+    compact_windowed,
+    decode_emissions,
+    safe_compact_window,
+)
+from ..ops.sync import il2p_sync_candidates, pack_bits
+
+# ---------------------------------------------------------------------------
+# Block plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BlockPlan:
+    """Time-block layout over the demodulated stream (copied from the JAX
+    package, plain Python).
+
+    Block ``b`` computes demod indices ``[b*block_len - overlap,
+    b*block_len + block_len)``; the leading ``overlap`` is warm-up halo and
+    packets are kept only when their stream address lands in
+    ``(b*block_len, (b+1)*block_len]``.  ``up > 1`` models AFSK
+    output_oversample: ``block_len``/``overlap`` stay in demod units
+    (multiples of ``up``), ``trim`` is the input-rate FIR trim before the
+    polyphase upsample and ``trim_post`` the demod-rate trim after it.
+    """
+
+    n_audio: int
+    trim: int  # input-rate FIR trim of the modem cascade (sum of taps-1)
+    block_len: int
+    overlap: int
+    up: int = 1  # demod-output rate multiple (AFSK output_oversample)
+    trim_post: int = 0  # demod-rate FIR trim after the upsample (up > 1)
+
+    @property
+    def n_demod(self) -> int:
+        if self.up == 1:
+            return self.n_audio - self.trim
+        return (self.n_audio - self.trim) * self.up - self.trim_post
+
+    @property
+    def n_blocks(self) -> int:
+        return -(-self.n_demod // self.block_len)
+
+    @property
+    def stride_in(self) -> int:
+        """Input samples between consecutive block starts."""
+        return self.block_len // self.up
+
+    @property
+    def front_pad(self) -> int:
+        """Zero pad ahead of the audio (block 0's halo), input units."""
+        return self.overlap // self.up + (10 if self.up > 1 else 0)
+
+    @property
+    def block_input_len(self) -> int:
+        if self.up == 1:
+            return self.block_len + self.overlap + self.trim
+        return (
+            (self.block_len + self.overlap) // self.up + self.trim
+            + 20 + -(-self.trim_post // self.up)
+        )
+
+    def keep_range(self, b: int) -> tuple[int, int]:
+        """(lo, hi]: stream addresses owned by block b (1-based addresses)."""
+        lo = b * self.block_len
+        return lo, min(lo + self.block_len, self.n_demod)
+
+
+def frame_blocks(audio: torch.Tensor, plan: BlockPlan) -> torch.Tensor:
+    """(n,) -> (n_blocks, block_input_len) overlapped frames, stride
+    ``stride_in``: front-padded with block 0's halo, tail-padded to fill the
+    last block.  ``unfold`` returns a view, so nothing is copied; audio
+    keeps its wire dtype (int16) until the caller casts the frames."""
+    ext = plan.block_input_len - plan.stride_in
+    total = plan.n_blocks * plan.stride_in + ext
+    padded = F.pad(audio, (plan.front_pad,
+                           total - plan.front_pad - plan.n_audio))
+    return padded.unfold(0, plan.block_input_len, plan.stride_in)
+
+
+# ---------------------------------------------------------------------------
+# Bank grouping
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Bank:
+    """A group of chains executable as one batched device program."""
+
+    kind: str  # modem family
+    specs: list[ChainSpec]
+    params: Any  # dict of tensors with a leading chain axis on every leaf
+    trim: int
+    slicer_kind: str
+    # per-chain descrambler settings -- data, not grouping keys
+    # (ops/lfsr.descramble_bytes_multi)
+    stream_polys: tuple[int, ...] = ()
+    stream_inverts: tuple[bool, ...] = ()
+    up: int = 1
+    trim_post: int = 0
+
+
+def check_chain_supported(chain: ChainSpec) -> None:
+    """Raise NotImplementedError for chains outside the ported slice."""
+    kind = chain.modem.kind
+    if kind not in ("afsk", "afsk_pll"):
+        raise NotImplementedError(
+            f"chain {chain.name!r}: modem {kind!r} is not ported yet "
+            "(ROADMAP Queue 1 item 11)")
+    if not isinstance(chain.slicer, BinarySlicerSpec):
+        raise NotImplementedError(
+            f"chain {chain.name!r}: slicer {chain.slicer.kind!r} is not "
+            "ported yet (ROADMAP Queue 1 item 11, kernels K7/K8)")
+    if not isinstance(chain.codec, IL2PCodecSpec):
+        raise NotImplementedError(
+            f"chain {chain.name!r}: codec {chain.codec.kind!r} is not ported "
+            "yet (ROADMAP Queue 1 item 12)")
+
+
+def _modem_geometry(kind: str, p) -> tuple[int, int, int]:
+    """(input-rate trim, demod-rate trim_post, up) for the block plan."""
+    if kind == "afsk":
+        if p.oversample > 1:
+            trim_pre = (p.input_bpf.shape[-1] - 1) + (p.mark_i.shape[-1] - 1)
+            return trim_pre, p.output_lpf.shape[-1] - 1, int(p.oversample)
+        trim = ((p.input_bpf.shape[-1] - 1) + (p.mark_i.shape[-1] - 1)
+                + (p.output_lpf.shape[-1] - 1))
+        return trim, 0, 1
+    return (p.input_bpf.shape[-1] - 1) + (p.output_lpf.shape[-1] - 1), 0, 1
+
+
+def _chain_device_params(chain: ChainSpec) -> dict:
+    """Per-chain numpy float32 leaves: modem + loop + slicer constants, in
+    the JAX package's pytree layout."""
+
+    def to_host(a):
+        a = np.asarray(a)
+        return a.astype(np.float32) if a.dtype.kind == "f" else a
+
+    mp = modems.build_params(chain.modem)
+    modem = {k: to_host(v) for k, v in mp._asdict().items() if k != "agc"}
+    if chain.modem.kind == "afsk_pll":
+        modem["agc"] = {k: to_host(v) for k, v in mp.agc._asdict().items()}
+    d: dict[str, Any] = {"modem": modem}
+    if chain.modem.kind == "afsk_pll":
+        d["loop"] = {k: to_host(v) for k, v in
+                     modems._loop_params_host(chain.modem)._asdict().items()}
+    sl = chain.slicer
+    d["sps"] = np.float32(sl.sample_rate / sl.symbol_rate)
+    d["lock_rate"] = np.float32(sl.lock_rate)
+    return d
+
+
+def _stack(trees: list):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _afsk_shared_scales(specs: list[ChainSpec]):
+    """(C,) space-gain ratios when an AFSK bank is a pure space_gain sweep
+    (every other modem field equal, all gains > 0): then the demod is linear
+    in the gain, and one chain's convolutions plus a per-chain
+    ``mark - s_c * space`` combine replace C demods.  None otherwise."""
+    if len(specs) < 2:
+        return None
+    fields = (
+        "sample_rate", "symbol_rate", "correlator_span", "correlator_offset",
+        "mark_freq", "space_freq", "input_bpf_low_cutoff",
+        "input_bpf_high_cutoff", "input_bpf_span", "output_lpf_cutoff",
+        "output_lpf_span", "output_oversample",
+    )
+    m0 = specs[0].modem
+    for c in specs[1:]:
+        if any(getattr(c.modem, k) != getattr(m0, k) for k in fields):
+            return None
+    g0 = float(m0.space_gain)
+    gains = [float(c.modem.space_gain) for c in specs]
+    if g0 <= 0 or any(g <= 0 for g in gains):
+        return None
+    return np.asarray([g / g0 for g in gains])
+
+
+def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
+    """[(kind, specs, numpy pytree, trim, trim_post, up)] per bank, in the
+    JAX package's grouping and leaf layout (float32)."""
+    banks: dict[tuple, list] = {}
+    for chain in chains:
+        check_chain_supported(chain)
+        params = _chain_device_params(chain)
+        sl = chain.slicer
+        shapes = tuple((np.shape(v), str(np.asarray(v).dtype))
+                       for v in _leaves(params))
+        rates = (chain.modem.sample_rate, sl.sample_rate, sl.symbol_rate)
+        key = (chain.modem.kind, shapes, sl.kind, rates)
+        banks.setdefault(key, []).append((chain, params))
+    out = []
+    for members in banks.values():
+        specs = [c for c, _ in members]
+        kind = specs[0].modem.kind
+        tree = _stack([p for _, p in members])
+        if kind == "afsk":
+            scales = _afsk_shared_scales(specs)
+            if scales is not None:
+                tree["space_scale"] = scales.astype(np.float32)
+        elif len(specs) >= 2 and all(
+            bool(np.all(leaf == leaf[:1])) for leaf in _leaves(tree["modem"])
+        ):
+            # coherent carrier sweep: every modem leaf identical, so the BPF
+            # runs once and broadcasts (bitwise equal to the per-chain form)
+            tree["pre_shared"] = np.ones(len(specs), np.float32)
+        trim, trim_post, up = _modem_geometry(
+            kind, modems.build_params(specs[0].modem))
+        out.append((kind, specs, tree, trim, trim_post, up))
+    return out
+
+
+def group_chains(chains: list[ChainSpec],
+                 device: str | torch.device = "cuda") -> list[Bank]:
+    """Group chains into banks keyed by their static structure; parameters
+    become tensors on ``device`` (convert.bank_params_from_jax)."""
+    dev = resolve(device)
+    return [
+        Bank(
+            kind=kind, specs=specs,
+            params=bank_params_from_jax(tree, device=dev), trim=trim,
+            slicer_kind=specs[0].slicer.kind,
+            stream_polys=tuple(c.stream.polynomial if c.stream else 0
+                               for c in specs),
+            stream_inverts=tuple(bool(c.stream.invert) if c.stream else False
+                                 for c in specs),
+            up=up, trim_post=trim_post,
+        )
+        for kind, specs, tree, trim, trim_post, up in group_chains_host(chains)
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Per-family demodulation (all chains x blocks of a bank)
+# ---------------------------------------------------------------------------
+
+
+def _afsk_tail(diff: torch.Tensor, m: dict, c: int) -> torch.Tensor:
+    """The (linear) oversample + output-LPF tail of chain c's AFSK demod.
+    With output_oversample (afsk.py:164-165) the block halo supplies the
+    neighbour samples scipy's resample_poly zero-pads for: an unpadded
+    zero-stuff plus valid convolutions (BlockPlan)."""
+    n_rs = m["resample_taps"].shape[-1]
+    if n_rs == 0:
+        return fir_valid_nd(diff, m["output_lpf"][c])
+    up = (n_rs - 1) // 20
+    n = diff.shape[-1]
+    stuffed = diff.new_zeros(diff.shape[:-1] + (n * up,))
+    stuffed[..., ::up] = diff
+    y = fir_valid_nd(stuffed, m["resample_taps"][c])
+    y = fir_valid_nd(y, m["output_lpf"][c])
+    t_post = m["output_lpf"].shape[-1] - 1
+    return y[..., : (n - 20 - -(-t_post // up)) * up]
+
+
+def _afsk_correlate(m: dict, blocks: torch.Tensor, c: int):
+    """Chain c's band-pass + quadrature tone correlators -> (mark, space)
+    magnitudes over (B, L) blocks."""
+    x = fir_valid_nd(blocks, m["input_bpf"][c])
+    corr = torch.stack([m["mark_i"][c], m["mark_q"][c],
+                        m["space_i"][c], m["space_q"][c]])
+    mi, mq, si, sq = fir_valid_multi(x, corr)
+    return torch.sqrt(mi * mi + mq * mq), torch.sqrt(si * si + sq * sq)
+
+
+def afsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
+    """(B, Lin) blocks -> (C, B, L2) AFSK basebands.
+
+    A pure space_gain sweep (``space_scale``) demods ONE chain and combines
+    per chain as ``mark - s_c * space`` (s_c the gain ratio to row 0),
+    exactly as the JAX package's f32 path; other banks demod per chain."""
+    m = params["modem"]
+    if "space_scale" in params:
+        mark, space = _afsk_correlate(m, blocks, 0)
+        mark_f, space_f = _afsk_tail(mark, m, 0), _afsk_tail(space, m, 0)
+        scales = params["space_scale"]
+        s = (scales / scales[0]).reshape(-1, 1, 1).to(mark_f.dtype)
+        return mark_f[None] - s * space_f[None]
+    out = []
+    for c in range(m["input_bpf"].shape[0]):
+        mark, space = _afsk_correlate(m, blocks, c)
+        out.append(_afsk_tail(mark - space, m, c))
+    return torch.stack(out)
+
+
+def afsk_pll_loop_inputs(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the inputs of kernel K2 for all C*B lanes:
+    ((C*B, L1) band-passed lanes, (15, C*B) lane rows).  The AGC's
+    ``normal`` is each chain's signed max over every block (agc.py:67)."""
+    m = params["modem"]
+    C = m["input_bpf"].shape[0]
+    if "pre_shared" in params:
+        # carrier sweep: the BPF runs once and broadcasts
+        x1 = fir_valid_nd(blocks, m["input_bpf"][0])
+        x = x1[None].expand(C, *x1.shape)
+        normals = x1.max().expand(C)
+    else:
+        x = fir_valid_multi(blocks, m["input_bpf"])
+        normals = x.amax(dim=(1, 2))
+    _, B, L1 = x.shape
+    lane_params = torch.cat([
+        lane_params_from_loop(params["loop"], C, B),
+        agc_lane_params(m["agc"], normals, C, B),
+    ]).contiguous()
+    return x.reshape(C * B, L1).contiguous(), lane_params
+
+
+def afsk_pll_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
+    """(B, Lin) blocks -> (C, B, L2) AFSK-PLL basebands: band-pass FIR, then
+    the AGC follower and the PLL as ONE pass of kernel K2 over all C*B
+    lanes, then the per-chain output LPF."""
+    m = params["modem"]
+    C = m["input_bpf"].shape[0]
+    x, lane_params = afsk_pll_loop_inputs(params, blocks)
+    demod = afsk_pll_lanes(x, lane_params, params["sine_table"])
+    return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]),
+                               m["output_lpf"])
+
+
+_DEMODS = {"afsk": afsk_bank_demod, "afsk_pll": afsk_pll_bank_demod}
+
+
+def bank_basebands(bank: Bank, blocks: torch.Tensor) -> torch.Tensor:
+    """(B, Lin) float32 frames -> (C, B, L2) demodulated basebands."""
+    return _DEMODS[bank.kind](bank.params, blocks)
+
+
+def slicer_lane_params(bank: Bank, blocks_per_chain: int) -> torch.Tensor:
+    """(2, C*B) float32 rows (sps, lock_rate) for kernel K1."""
+    p = bank.params
+    return torch.stack([
+        p["sps"].repeat_interleave(blocks_per_chain),
+        p["lock_rate"].repeat_interleave(blocks_per_chain),
+    ]).to(torch.float32).contiguous()
+
+
+def bank_frames_compute(bank: Bank, blocks: torch.Tensor, capacity: int,
+                        window: int, sync_tolerance: int):
+    """(B, Lin) float32 frames -> per-chain (C, B, cap) descrambled bytes
+    (uint8), addresses (int32), counts (C, B) and the packed IL2P sync
+    candidate map (C, B, cap) uint8."""
+    basebands = bank_basebands(bank, blocks)
+    C, B, L2 = basebands.shape
+    enc = binary_slice_lanes(basebands.reshape(C * B, L2).contiguous(),
+                             slicer_lane_params(bank, B),
+                             window=window).reshape(C, B, -1)
+    if window > 1:
+        data, addr, count = compact_windowed(enc, window, capacity)
+    else:
+        data, addr, count = compact_bytes(decode_emissions(enc), capacity)
+    data = descramble_bytes_multi(data.to(torch.uint8), bank.stream_polys,
+                                  bank.stream_inverts)
+    sync = il2p_sync_candidates(data, sync_tolerance)
+    return data, addr, count, pack_bits(sync)
+
+
+# ---------------------------------------------------------------------------
+# Geometry
+# ---------------------------------------------------------------------------
+
+# Warm-up floors for the recurrent stages (AGC attack, PLL lock, slicer
+# clock), as validated for the JAX package (bank.py, parity matrix): the
+# longer of a fixed settle time and ~192 symbol periods; coherent families
+# acquire on absolute time scales.
+_ACQ_SECONDS_FLOOR = 0.35
+_ACQ_SYMBOLS = 192.0
+_ACQ_COHERENT_FLOOR = 1.25
+_COHERENT_KINDS = ("afsk_pll",)
+# Block length: long enough that the halo tax (block+overlap)/block stays
+# <= 4/3, and otherwise sized so _TARGET_LANES lanes of one bank hold
+# _LANE_BUDGET_BYTES of f32 working set (2.5 live copies per sample).
+_TARGET_LANES = 2048
+_LANE_BUDGET_BYTES = 3e9
+# Block groups: a bank runs all its blocks in one pass unless its working
+# set (~16 bytes per chain-sample: frames, basebands, slicer codes and
+# temporaries) would pass _GROUP_BUDGET_BYTES of the 80 GB card.
+_GROUP_BUDGET_BYTES = 16e9
+_BYTES_PER_CHAIN_SAMPLE = 16
+
+
+def _protocol_max_packet_seconds(chain: ChainSpec) -> float:
+    """Wire time of the protocol-max IL2P frame at the chain's bit rate:
+    sync(3) + header(15) + 1023 payload + 16 parity per 239-byte block +
+    CRC(4) bytes."""
+    payload = 1023
+    wire_bits = (3 + 15 + payload + -(-payload // 239) * 16 + 4) * 8
+    return wire_bits / chain.slicer.symbol_rate
+
+
+def bank_auto_geometry(bank: Bank, sample_rate: float,
+                       max_packet_seconds: float | None = None
+                       ) -> tuple[float, float]:
+    """(block_seconds, overlap_seconds) for one bank.  The overlap covers
+    loop acquisition plus the longest packet (the protocol maximum unless
+    the caller bounds its traffic with ``max_packet_seconds``)."""
+    floor = (_ACQ_COHERENT_FLOOR if bank.kind in _COHERENT_KINDS
+             else _ACQ_SECONDS_FLOOR)
+    acq = max(floor, max(_ACQ_SYMBOLS / c.slicer.symbol_rate
+                         for c in bank.specs))
+    if max_packet_seconds is None:
+        packet = max(_protocol_max_packet_seconds(c) for c in bank.specs)
+    else:
+        packet = float(max_packet_seconds)
+    overlap = acq + packet
+    lane_seconds = _LANE_BUDGET_BYTES / (
+        _TARGET_LANES * sample_rate * bank.up * 4 * 2.5)
+    return max(3.0 * overlap, lane_seconds - overlap), overlap
+
+
+def resolve_bank_geometry(bank: Bank, sample_rate: float, block_seconds,
+                          overlap_seconds,
+                          max_packet_seconds: float | None = None
+                          ) -> tuple[float, float]:
+    """Resolve 'auto' block/overlap requests to concrete per-bank seconds."""
+    if block_seconds == "auto" or overlap_seconds == "auto":
+        auto_block, auto_ov = bank_auto_geometry(bank, sample_rate,
+                                                 max_packet_seconds)
+        if block_seconds == "auto":
+            block_seconds = auto_block
+        if overlap_seconds == "auto":
+            overlap_seconds = auto_ov
+    return float(block_seconds), float(overlap_seconds)
+
+
+def default_block_plan(n_audio: int, trim: int, sample_rate: float,
+                       block_seconds: float = 16.0,
+                       overlap_seconds: float = 6.0, up: int = 1,
+                       trim_post: int = 0) -> BlockPlan:
+    """Block layout in demod units (``up`` times the input rate, block
+    starts on input-sample phases); one block when the recording is
+    shorter than a block."""
+    demod_rate = sample_rate * up
+    block_len = -(-max(int(block_seconds * demod_rate), up) // up) * up
+    overlap = int(overlap_seconds * demod_rate) // up * up
+    n_demod = (n_audio - trim) * up - trim_post
+    if block_len >= n_demod:
+        one = -(-max(n_demod, 1) // up) * up
+        return BlockPlan(n_audio, trim, one, 0, up, trim_post)
+    return BlockPlan(n_audio, trim, block_len, overlap, up, trim_post)
+
+
+def bank_plan(bank: Bank, n_audio: int,
+              block_seconds: float | str = "auto",
+              overlap_seconds: float | str = "auto",
+              max_packet_seconds: float | None = None) -> BlockPlan:
+    """The bank's block plan over an ``n_audio``-sample recording."""
+    rate = bank.specs[0].modem.sample_rate
+    block_s, overlap_s = resolve_bank_geometry(
+        bank, rate, block_seconds, overlap_seconds, max_packet_seconds)
+    return default_block_plan(n_audio, bank.trim, rate, block_s, overlap_s,
+                              bank.up, bank.trim_post)
+
+
+def blocks_per_group(n_chains: int, plan: BlockPlan) -> int:
+    """Blocks per device pass, so a pass's working set stays under
+    _GROUP_BUDGET_BYTES; balanced so the last group is not mostly empty."""
+    per_block = max(n_chains * plan.block_input_len * plan.up
+                    * _BYTES_PER_CHAIN_SAMPLE, 1)
+    g = max(int(_GROUP_BUDGET_BYTES // per_block), 1)
+    n_groups = -(-plan.n_blocks // g)
+    return -(-plan.n_blocks // n_groups)
+
+
+def slicer_window(bank: Bank) -> int:
+    """The bank's emission window: the smallest safe window over its
+    chains (ops/slicers.safe_compact_window)."""
+    return min(
+        safe_compact_window(c.slicer.sample_rate / c.slicer.symbol_rate,
+                            c.slicer.lock_rate, 1)
+        for c in bank.specs
+    )
+
+
+def bank_capacity(bank: Bank, plan: BlockPlan) -> int:
+    """Byte slots per (chain, block): 1.5x the nominal byte count + 16."""
+    cap = 16
+    for c in bank.specs:
+        sps = c.slicer.sample_rate / c.slicer.symbol_rate
+        nominal = (plan.block_len + plan.overlap) / sps / 8.0
+        cap = max(cap, int(nominal * 1.5) + 16)
+    return -(-cap // 8) * 8
+
+
+# ---------------------------------------------------------------------------
+# Bank runner
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RunResult:
+    aggregate: Any
+    reports: list[str] = field(default_factory=list)
+
+
+def dispatch_bank(bank: Bank, plan: BlockPlan, audio: torch.Tensor,
+                  sync_tolerance: int):
+    """Run the bank's device stages over the recording, one block group at
+    a time; returns (data, addr, count, sync) device tensors over all
+    blocks.  Each group normalises its AGC over its own blocks, as the JAX
+    package's grouped dispatch does; the 600 s main-path banks fit one
+    group."""
+    frames = frame_blocks(audio, plan)
+    cap = bank_capacity(bank, plan)
+    window = slicer_window(bank)
+    g = blocks_per_group(len(bank.specs), plan)
+    outs = [
+        bank_frames_compute(bank, frames[s : s + g].to(torch.float32), cap,
+                            window, sync_tolerance)
+        for s in range(0, plan.n_blocks, g)
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def sync_tolerance(bank: Bank) -> int:
+    """The bank's IL2P sync tolerance: the largest of its chains'."""
+    return max((c.codec.sync_tolerance for c in bank.specs), default=0)
+
+
+def run_banked(chains: list[ChainSpec], audio: np.ndarray,
+               block_seconds: float | str = "auto",
+               overlap_seconds: float | str = "auto", codec: str = "host",
+               max_packet_seconds: float | None = None,
+               device: str | torch.device = "cuda") -> dict[str, list]:
+    """Decode a chain list over one recording; returns {chain_name:
+    [Packet]}, each packet attributed to exactly one block.
+
+    ``audio`` is int16 (the WAV wire type, framed before the float32 cast)
+    or float.  Only ``codec="host"`` is ported: the device stages run on
+    ``device`` and the IL2P state machines on the host."""
+    if codec != "host":
+        raise NotImplementedError(
+            f"codec={codec!r}: the device IL2P codec is not ported yet "
+            "(ROADMAP Queue 1 item 8); use codec='host'")
+    dev = resolve(device)
+    wire = np.asarray(audio)
+    if wire.dtype not in (np.int16, np.float32):
+        wire = wire.astype(np.float32)
+    audio_t = torch.from_numpy(np.ascontiguousarray(wire)).to(dev)
+    results: dict[str, list] = {}
+    for bank in group_chains(chains, dev):
+        plan = bank_plan(bank, len(wire), block_seconds, overlap_seconds,
+                         max_packet_seconds)
+        tol = sync_tolerance(bank)
+        arrays = dispatch_bank(bank, plan, audio_t, tol)
+        results.update(host_codec_collect(bank, plan, tol, arrays))
+    return results
+
+
+def host_codec_collect(bank: Bank, plan: BlockPlan, sync_tol: int, arrays):
+    """Read a bank's byte streams back and run the reference-exact IL2P
+    state machines per block, keeping packets inside each block's range."""
+    from ..codecs.host import il2p_seeded_sync_any
+
+    data, addr, count, sync = (t.cpu().numpy() for t in arrays)
+    # a block without any sync candidate (and no possible seeded-history
+    # sync in its first 32 bits) emits nothing
+    has_cand = sync.any(axis=2) | il2p_seeded_sync_any(data[:, :, :4],
+                                                       sync_tol)
+    results: dict[str, list] = {}
+    for ci, chain in enumerate(bank.specs):
+        packets = []
+        for b in range(plan.n_blocks):
+            n = int(count[ci, b])
+            if n == 0 or not has_cand[ci, b]:
+                continue
+            # addresses are 1-based within the block's demod range, which
+            # starts at absolute index b*block_len - overlap
+            offset = b * plan.block_len - plan.overlap
+            pkts = host_decode_block(
+                chain, data[ci, b, :n].astype(np.int64),
+                addr[ci, b, :n].astype(np.int64) + offset, sync[ci, b])
+            lo, hi = plan.keep_range(b)
+            packets.extend(p for p in pkts if lo < p.streamaddress <= hi)
+        results[chain.name] = _dedup_block_boundary(packets, chain)
+    return results
+
+
+def host_decode_block(chain: ChainSpec, block_bytes: np.ndarray,
+                      block_addr: np.ndarray, sync_row: np.ndarray | None):
+    """Run the chain's IL2P state machine over one block's byte stream.
+    ``sync_row``: the block's packed sync-candidate bitmap, or None to
+    rescan on the host."""
+    from ..codecs.host import il2p_decode_host, il2p_seeded_sync_possible
+
+    codec = chain.codec
+    n = len(block_bytes)
+    candidates = None
+    if sync_row is not None:
+        if not sync_row[:n].any() and not il2p_seeded_sync_possible(
+            block_bytes[:4], codec.sync_tolerance
+        ):
+            return []
+        candidates = np.flatnonzero(np.unpackbits(sync_row[:n]))
+    return il2p_decode_host(
+        block_bytes, block_addr, codec.ident,
+        collect_trailing_crc=codec.collect_trailing_crc,
+        disable_rs=codec.disable_rs,
+        min_distance=codec.min_distance,
+        sync_tolerance=codec.sync_tolerance,
+        sync_candidates=candidates,
+    )
+
+
+def _dedup_block_boundary(packets, chain):
+    """Drop block-boundary duplicates: a packet ending within one byte-phase
+    quantum of a block edge can be claimed by both neighbouring blocks under
+    different reported addresses."""
+    sl = chain.slicer
+    window = 16.0 * sl.sample_rate / sl.symbol_rate
+    packets.sort(key=lambda p: p.streamaddress)
+    deduped = []
+    for p in packets:
+        if (
+            deduped
+            and list(p.data) == list(deduped[-1].data)
+            and p.streamaddress - deduped[-1].streamaddress < window
+        ):
+            continue
+        deduped.append(p)
+    return deduped
+
+
+def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
+                    block_seconds: float | str = "auto",
+                    overlap_seconds: float | str = "auto",
+                    codec: str = "host", verbose: bool = False,
+                    max_packet_seconds: float | None = None,
+                    device: str | torch.device = "cuda") -> RunResult:
+    """Full plan -> aggregated report.  Errors propagate: there is no
+    sequential executor to retry a failed bank on (ROADMAP item 14)."""
+    if verbose:
+        print(f"banked runtime: {len(plan.chains)} chains")
+    by_name = run_banked(
+        plan.chains, audio, block_seconds=block_seconds,
+        overlap_seconds=overlap_seconds, codec=codec,
+        max_packet_seconds=max_packet_seconds, device=device,
+    )
+    return _finish_plan(plan, by_name, sample_rate)
+
+
+def _finish_plan(plan, by_name: dict, sample_rate: float) -> RunResult:
+    """Aggregate one recording's per-chain packets (config-order chains,
+    cross-chain correlate, rendered reports)."""
+    from ..packets import PacketAggregate
+
+    aggregate = PacketAggregate()
+    for chain in plan.chains:
+        aggregate.add(by_name.get(chain.name, []))
+    aggregate.validate_all()
+    # cross-chain dedup window: the reference's rate/40 (pymodem.py:175)
+    # widened by two byte-phase quanta (block slicers restart their byte
+    # counter per block)
+    max_sps = max(
+        (c.slicer.sample_rate / c.slicer.symbol_rate for c in plan.chains),
+        default=1.0,
+    )
+    aggregate.correlate(address_distance=sample_rate / 40 + 16 * max_sps)
+    reports = [
+        aggregate.render_raw_bad() + aggregate.render_report(r.style)
+        for r in plan.reports
+    ]
+    return RunResult(aggregate=aggregate, reports=reports)

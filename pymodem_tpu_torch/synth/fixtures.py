@@ -1,0 +1,74 @@
+"""Synthetic IL2P fixtures for the AFSK families, jax-free.
+
+Port of the IL2P/AFSK part of ``pymodem_tpu.synth.fixtures``: modulated
+frames matched to a chain spec, for tests and for ``chip_smoke.py`` on a
+machine without JAX.  Modulation reuses the jax-free
+``pymodem_tpu.synth.modulate``.  The round trip decode(modulate(frames)) ==
+frames is what the tests assert.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..config import AFSKModemSpec, AFSKPLLModemSpec, IL2PCodecSpec
+from . import encode as enc
+from . import modulate as mod
+
+
+def _idle_bits(n: int) -> list[int]:
+    return [1 if i % 2 == 0 else 0 for i in range(n)]
+
+
+def il2p_line_bits(payloads, polynomial: int = 0x3, invert: bool = False,
+                   gap_bits: int = 400, dest: str = "KI5ABC",
+                   source: str = "N0CALL") -> list[int]:
+    """Concatenated IL2P frames with alternating idle fill, scrambled into
+    line bits as ONE free-running stream (the decoder's descrambler is
+    free-running too, lfsr.py:22-51)."""
+    bits: list[int] = []
+    for payload in payloads:
+        frame = enc.il2p_frame(dest, source, payload)
+        bits += _idle_bits(gap_bits)
+        bits += enc.bytes_to_bits_msb(frame)
+    bits += _idle_bits(gap_bits)
+    return enc.scramble_bits(bits, polynomial, invert)
+
+
+def payloads(rng: np.random.Generator, count: int = 3,
+             size: int = 40) -> list[bytes]:
+    """ASCII payloads (printable-header safe)."""
+    alphabet = np.frombuffer(
+        b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789 ",
+        dtype=np.uint8,
+    )
+    return [
+        bytes(rng.choice(alphabet, size=size)) for _ in range(count)
+    ]
+
+
+def synthesize_for_chain(chain, rate: float, rng: np.random.Generator,
+                         n_frames: int = 3, size: int = 30,
+                         gap_bits: int = 600):
+    """Audio carrying ``n_frames`` IL2P frames, line-coded per the chain's
+    own spec (scrambler poly/invert, AFSK tones and rate).  Returns
+    (sent_payloads, audio_float)."""
+    if not isinstance(chain.codec, IL2PCodecSpec):
+        raise NotImplementedError(
+            "only IL2P fixtures are ported (AX.25: ROADMAP Queue 1 item 12)")
+    poly = chain.stream.polynomial if chain.stream else 0x1
+    invert = bool(chain.stream.invert) if chain.stream else False
+    sent = payloads(rng, count=n_frames, size=size)
+    line = il2p_line_bits(sent, polynomial=poly, invert=invert,
+                          gap_bits=gap_bits)
+    modem = chain.modem
+    if isinstance(modem, AFSKModemSpec):
+        return sent, mod.afsk_modulate(line, rate, modem.symbol_rate,
+                                       modem.mark_freq, modem.space_freq)
+    if isinstance(modem, AFSKPLLModemSpec):
+        return sent, mod.afsk_modulate(line, rate, modem.symbol_rate,
+                                       modem.carrier_freq - 5.0,
+                                       modem.carrier_freq + 5.0)
+    raise NotImplementedError(
+        f"modem {modem.kind!r} fixtures are not ported yet "
+        "(ROADMAP Queue 1 item 11)")

@@ -100,3 +100,7 @@ def pytest_configure(config):
         "markers", "slow: long-running endurance tests (scale with "
         "PYMODEM_TPU_SOAK_SECONDS)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's kernels); "
+        "skips elsewhere"
+    )

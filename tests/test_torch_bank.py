@@ -1,0 +1,202 @@
+"""The port's banked AFSK-300 IL2P+CRC slice against pymodem_tpu, end to end.
+
+Same synthetic audio, same explicit block/overlap seconds on both sides (so
+both plans are ``default_block_plan``'s), float32 on both sides, host codec
+on both sides.  The port runs on the CPU here, through its kernels' plain
+twins; packets (payload, CRC, stream address) and report text must be
+identical.
+"""
+
+import os
+import subprocess
+import sys
+from dataclasses import replace
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from pymodem_tpu.config import ReportSpec, RunPlan, build_chain_spec
+from pymodem_tpu.ops.crc import np_crc16
+from pymodem_tpu.runtime import bank as jbank
+from pymodem_tpu.synth import modulate as mod
+from pymodem_tpu_torch.convert import bank_params_from_jax
+from pymodem_tpu_torch.runtime import bank as tbank
+from pymodem_tpu_torch.synth import fixtures as tfx
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RATE = 8000
+GEOM = dict(block_seconds=2.0, overlap_seconds=2.5)
+
+
+def _line(name, modem, invert="no", codec="il2p"):
+    return {
+        "object_name": name, "object_type": "demod_chain",
+        "modem": {"type": modem, "config": "300", "options": {}},
+        "slicer": {"type": "binary", "config": "300", "options": {}},
+        "stream": {"type": "lfsr",
+                   "options": {"poly": "0x3", "invert": invert}},
+        "codec": {"type": codec, "options": {"crc": "yes"}},
+    }
+
+
+def _chain(*args, **kw):
+    return build_chain_spec(float(RATE), _line(*args, **kw))
+
+
+BASE = _chain("AFSK 300 Il2Pc Correlator", "afsk")
+# 4-chain space-gain sweep (bench.py's pattern); on clean synthetic audio
+# only the unity-gain chain decodes
+SWEEP = [replace(BASE, name=f"s{i}",
+                 modem=replace(BASE.modem, space_gain=0.7 + 0.1 * i))
+         for i in range(4)]
+# the afsk_300_pll-style pair: one chain per descrambler invert
+PAIR = [_chain("AFSK 300 Il2Pc PLL", "afsk_pll", "no"),
+        _chain("AFSK 300 Il2Pc PLL inverted", "afsk_pll", "yes")]
+CARRIER = [replace(PAIR[0], name=f"pll{i}",
+                   modem=replace(PAIR[0].modem, carrier_freq=1696.0 + i))
+           for i in range(3)]
+BANKS = {"sweep": SWEEP, "pll_pair": PAIR, "carrier_sweep": CARRIER}
+
+
+@pytest.fixture(scope="module")
+def audio():
+    """~9 s of int16 AFSK-300 (1695/1705 Hz) carrying 3 IL2P+CRC frames."""
+    rng = np.random.default_rng(20261016)
+    sent, x = tfx.synthesize_for_chain(BASE, float(RATE), rng, n_frames=3,
+                                       size=10, gap_bits=400)
+    return sent, mod.to_int16(x)
+
+
+def _packets(by_name):
+    return {
+        name: [(list(map(int, p.data)), np_crc16(np.asarray(p.data[:-2])),
+                int(p.streamaddress), int(p.bytes_corrected)) for p in pkts]
+        for name, pkts in by_name.items()
+    }
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("name", sorted(BANKS))
+def test_group_chains_matches_convert(name):
+    chains = BANKS[name]
+    jbanks = jbank.group_chains(chains, jnp.float32)
+    tbanks = tbank.group_chains(chains, "cpu")
+    assert len(jbanks) == len(tbanks) == 1
+    jb, tb = jbanks[0], tbanks[0]
+    assert (tb.kind, tb.trim, tb.up, tb.trim_post) == \
+        (jb.kind, jb.trim, jb.up, jb.trim_post)
+    assert (tb.stream_polys, tb.stream_inverts) == \
+        (jb.stream_polys, jb.stream_inverts)
+    want = _flat(bank_params_from_jax(jb.params, device="cpu"))
+    got = _flat(tb.params)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+    assert ("space_scale" in tb.params) == (name == "sweep")
+    assert ("pre_shared" in tb.params) == (name != "sweep")
+    assert got["sps/"].dtype == torch.float32
+    if name != "sweep":  # a given NCO sine table (XLA's sin) is carried over
+        angle = np.arange(256, dtype=np.float32) * np.float32(2 * np.pi / 256)
+        xla = np.array(jnp.sin(jnp.asarray(angle)))
+        params = bank_params_from_jax(jb.params, sine_table=xla, device="cpu")
+        assert torch.equal(params["sine_table"], torch.from_numpy(xla))
+
+
+@pytest.mark.parametrize("name", ["sweep", "pll_pair"])
+def test_run_banked_matches_jax(name, audio):
+    sent, x = audio
+    chains = BANKS[name]
+    want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="host",
+                            **GEOM)
+    got = tbank.run_banked(chains, x, codec="host", device="cpu", **GEOM)
+    assert _packets(got) == _packets(want)
+    decoded = [bytes(p.data[16:-2]) for pkts in got.values() for p in pkts]
+    assert sorted(decoded) == sorted(sent)
+
+
+def test_run_plan_banked_report_matches_jax(audio):
+    sent, x = audio
+    plan = RunPlan(chains=tuple(SWEEP + PAIR),
+                   reports=(ReportSpec("decoded", style="decoded_headers"),
+                            ReportSpec("raw", style="raw")))
+    want = jbank.run_plan_banked(plan, x, RATE, dtype=jnp.float32,
+                                 codec="host", **GEOM)
+    got = tbank.run_plan_banked(plan, x, RATE, codec="host", device="cpu",
+                                **GEOM)
+    assert got.reports == want.reports
+    assert f"Unique, valid packets:  {len(sent)}\n" in got.reports[0]
+    assert got.aggregate.count_bad() == 0
+
+
+def test_unported_chains_raise(audio):
+    _, x = audio
+    fsk = build_chain_spec(float(RATE), {
+        **_line("fsk", "afsk"),
+        "modem": {"type": "fsk", "config": "9600", "options": {}}})
+    for chain in (fsk, _chain("ax", "afsk", codec="ax25")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbank.run_banked([chain], x, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tbank.run_banked(SWEEP, x, codec="device", device="cpu")
+
+
+def _cli(module, *args, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=REPO, **(env_extra or {}))
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def _report(stdout: str) -> str:
+    return stdout[stdout.index("Generating"):stdout.index("Elapsed time")]
+
+
+def test_cli_matches_jax(tmp_path, audio):
+    import json
+
+    from scipy.io import wavfile
+
+    sent, x = audio
+    wav = tmp_path / "afsk300.wav"
+    wavfile.write(str(wav), RATE, x)
+    cfg = tmp_path / "afsk300.json"
+    cfg.write_text(json.dumps(_line(BASE.name, "afsk")) + "\n" + json.dumps({
+        "object_name": "report", "object_type": "report",
+        "options": {"style": "decoded_headers", "destination": "std_out"},
+    }) + "\n")
+    port = _cli("pymodem_tpu_torch", str(cfg), str(wav),
+                env_extra={"PYMODEM_TPU_TORCH_DEVICE": "cpu"})
+    assert port.returncode == 0, port.stderr[-2000:]
+    ref = _cli("pymodem_tpu", str(cfg), str(wav),
+               env_extra={"PYMODEM_TPU_PLATFORM": "cpu"})
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    line = f"Unique, valid packets:  {len(sent)}\n"
+    assert line in port.stdout and line in ref.stdout
+    assert _report(port.stdout) == _report(ref.stdout)
+
+
+def test_cli_exit_codes(tmp_path, monkeypatch):
+    from scipy.io import wavfile
+
+    from pymodem_tpu_torch.cli import main
+
+    monkeypatch.setenv("PYMODEM_TPU_TORCH_DEVICE", "cpu")
+    assert main(["prog"]) == 2
+    wav = tmp_path / "x.wav"
+    cfg = tmp_path / "c.json"
+    cfg.write_text("{}")
+    assert main(["prog", str(cfg), str(wav)]) == 4
+    wavfile.write(str(wav), RATE, np.zeros(RATE, dtype=np.int16))
+    assert main(["prog", str(tmp_path / "none.json"), str(wav)]) == 3

@@ -1,0 +1,66 @@
+"""The PyTorch port imports no JAX, and asks for CUDA without falling back."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import pymodem_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pymodem_tpu_torch.__path__,
+                                               "pymodem_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert int(proc.stdout.strip()) >= 20  # every module of the port
+
+
+def test_cuda_request_without_gpu_raises():
+    from pymodem_tpu_torch.device import resolve
+
+    assert resolve("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        resolve("cuda")
+
+
+def test_tf32_off():
+    import pymodem_tpu_torch.device  # noqa: F401
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_kernel_wrappers_take_the_twin_only_on_cpu():
+    """A CPU tensor runs the plain twin without touching the kernel build;
+    another device type raises instead of falling back."""
+    from pymodem_tpu_torch.dsp.loops import afsk_pll_lanes, nco_sine_table
+    from pymodem_tpu_torch.ops.slicers import binary_slice_lanes
+
+    k1, k2 = binary_slice_lanes.launches, afsk_pll_lanes.launches
+    x = torch.zeros(2, 16)
+    binary_slice_lanes(x, torch.ones(2, 2) * 8.0, window=1)
+    afsk_pll_lanes(x, torch.zeros(15, 2),
+                   torch.from_numpy(nco_sine_table()))
+    assert (binary_slice_lanes.launches, afsk_pll_lanes.launches) == (k1, k2)
+    meta = torch.zeros(2, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        binary_slice_lanes(meta, torch.ones(2, 2, device="meta"))
