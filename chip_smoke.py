@@ -3,33 +3,50 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the banked AFSK-300 IL2P+CRC decode on the
-host-codec route -- through ``run_plan_banked`` and through its CLI, on
-600 s of synthesised 8 kHz int16 audio, and holds the hand-written kernels
-against their plain PyTorch twins.  Phases, each printing one line with its
-seconds:
+Drives the port's two main paths on the host-codec route through
+``run_plan_banked`` and through its CLI, and holds every hand-written
+kernel against its plain PyTorch twin:
+
+* the AFSK path: the banked AFSK-300 IL2P+CRC decode of 600 s of 8 kHz
+  int16 audio (kernels K1 binary slicer, K2 AFSK PLL + AGC);
+* the PSK path: banked BPSK-1200, QPSK-2400 and MPSK BPSK-1200 IL2P+CRC
+  decodes of 600 s of 44.1 kHz int16 audio each (kernels K3 BPSK Costas +
+  AGC, K4 AGC, K6 MPSK loop, K7 quadrature slicer, and K1 again).
+
+Phases, each printing one line with its seconds:
 
 1. environment: torch and CUDA versions, the card, its power limit;
-2. build kernels K1 and K2 from ``pymodem_tpu_torch/csrc`` with nvcc;
-3. K1 (binary slicer) against its twin on the 64-chain sweep bank's own
-   basebands (all lanes, a time slice), window 1 and the bank's window:
-   bitwise;
-4. K2 (AFSK PLL + AGC) against its twin on the 8-chain PLL bank's own
-   band-passed lanes (a time slice): bitwise;
-5. the main path end to end, with the kernels' launch counters reset just
+2. build every kernel from ``pymodem_tpu_torch/csrc`` with nvcc (one
+   process per source, in parallel);
+3. K1 against its twin on the 64-chain sweep bank's own basebands (all
+   lanes, a time slice), window 1 and the bank's window: bitwise;
+4. K2 against its twin on the 8-chain PLL bank's own lanes: bitwise;
+5. the AFSK path end to end, the kernels' launch counters set to 0 just
    before and read just after: the 64-chain space-gain sweep, the PLL
    inverted pair and the 8-chain PLL carrier sweep, each decoding every
    synthesised frame, payload for payload, with no rejected packet; then a
    warm rerun of each for wall time and chain-Msamples/s, and a split of
    one run into device stages and host codec;
-6. the CLI as a subprocess on a WAV and a JSONL config in a temp dir.
+6. the CLI as a subprocess on a WAV and an AFSK JSONL config;
+7. K3, K4 (over the B shared lanes of the QPSK sweep and the C*B lanes of
+   the MPSK pair), K6 and K7 (2 bits per decision on the QPSK sweep, 1 on
+   the pair) against their twins on the PSK banks' own inputs (all lanes,
+   a time slice): bitwise; each kernel timed at its full main-path shape;
+8. the PSK path end to end, counters set to 0 just before and read just
+   after: ``bpsk1200_sweep8`` (8 ``bpsk`` chains, carriers 1500 + 0.25 i
+   Hz), ``qpsk2400_sweep8`` (8 ``mpsk`` qpsk_2400 chains, the same
+   carriers, pre-shared) and ``mpsk_bpsk1200_pair`` (2 ``mpsk`` bpsk_1200
+   chains, AGC attack 500 and 400, not shared), each decoding every frame
+   with none rejected; warm reruns, splits and peak device memory;
+9. the CLI as a subprocess on a WAV and a QPSK-2400 JSONL config.
 
 Any failure raises and the script exits non-zero.  Without a CUDA GPU, or
 outside a checkout of the repository, it exits non-zero before printing a
 result.  The last three lines are the card's ``nvidia-smi`` name and power
-limit, one JSON object describing each kernel (launches on the main path,
-max abs error against the twin, kernel and twin milliseconds at the
-compared shape), and ``{"ok": true, "device": {...}}``.
+limit, one JSON object describing each kernel (launches on the main paths,
+max abs error against the twin, kernel milliseconds at the full main-path
+shape, the twin's on a time slice, the bound) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,10 +61,16 @@ from dataclasses import replace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RATE = 8000
+PSK_RATE = 44100
 SECONDS = 600
-MAX_PACKET_SECONDS = 3.0  # the synthesised frames' wire time bound
+MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
 SEED = 20261016
+# the H100 SXM's published peaks at its full 700 W:
+# HBM bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+FULL_POWER_W = 700.0
 
 
 def _phase(n: int, what: str, t0: float) -> None:
@@ -73,8 +96,37 @@ def _chain_line(name: str, modem: str, invert: str = "no") -> dict:
     }
 
 
+def _psk_line(name: str, modem: str, preset: str, slicer: str,
+              slicer_preset: str, poly: str) -> dict:
+    return {
+        "object_name": name, "object_type": "demod_chain",
+        "modem": {"type": modem, "config": preset, "options": {}},
+        "slicer": {"type": slicer, "config": slicer_preset, "options": {}},
+        "stream": {"type": "lfsr", "options": {"poly": poly,
+                                               "invert": "no"}},
+        "codec": {"type": "il2p", "options": {"crc": "yes"}},
+    }
+
+
+PSK_LINES = {
+    "bpsk": _psk_line("BPSK 1200 Il2Pc", "bpsk", "1200", "binary", "1200",
+                      "0x3"),
+    "qpsk": _psk_line("QPSK 2400 Il2Pc", "mpsk", "qpsk_2400", "quadrature",
+                      "qpsk_2400", "0x1"),
+    "mpsk_bpsk": _psk_line("BPSK 1200 Il2Pc MPSK", "mpsk", "bpsk_1200",
+                           "quadrature", "bpsk_1200", "0x3"),
+}
+
+
+def _variant(spec, name, **modem):
+    # the codec's ident names the decoder in the reports; cross-chain
+    # dedup only merges packets of different decoders
+    return replace(spec, name=name, modem=replace(spec.modem, **modem),
+                   codec=replace(spec.codec, ident=name))
+
+
 def _banks():
-    """The main path's three chain banks: bench.py's 64-chain AFSK-300
+    """The AFSK path's three chain banks: bench.py's 64-chain AFSK-300
     space-gain sweep, the afsk_300_pll-style inverted pair, and an 8-chain
     PLL carrier sweep."""
     from pymodem_tpu_torch.config import build_chain_spec
@@ -82,21 +134,38 @@ def _banks():
     def chain(*args):
         return build_chain_spec(float(RATE), _chain_line(*args))
 
-    def variant(spec, name, **modem):
-        # the codec's ident names the decoder in the reports; cross-chain
-        # dedup only merges packets of different decoders
-        return replace(spec, name=name, modem=replace(spec.modem, **modem),
-                       codec=replace(spec.codec, ident=name))
-
     base = chain("AFSK 300 Il2Pc Correlator", "afsk")
     pll = chain("AFSK 300 Il2Pc PLL", "afsk_pll", "no")
     return {
-        "sweep64": [variant(base, f"s{i}", space_gain=0.7 + 0.005 * i)
+        "sweep64": [_variant(base, f"s{i}", space_gain=0.7 + 0.005 * i)
                     for i in range(64)],
         "pll_pair": [pll, chain("AFSK 300 Il2Pc PLL inverted", "afsk_pll",
                                 "yes")],
-        "pll_sweep8": [variant(pll, f"pll{i}", carrier_freq=1696.0 + i)
+        "pll_sweep8": [_variant(pll, f"pll{i}", carrier_freq=1696.0 + i)
                        for i in range(8)],
+    }
+
+
+def _psk_banks():
+    """The PSK path's three chain banks at the presets' own widths, as
+    bench.py's family sweeps build them (``_family_workload``: carrier
+    steps of 0.25 Hz)."""
+    from pymodem_tpu_torch.config import build_chain_spec
+
+    def chain(kind):
+        return build_chain_spec(float(PSK_RATE), PSK_LINES[kind])
+
+    bpsk, qpsk, mb = chain("bpsk"), chain("qpsk"), chain("mpsk_bpsk")
+    return {
+        "bpsk1200_sweep8": [_variant(bpsk, f"b{i}",
+                                     carrier_freq=1500.0 + 0.25 * i)
+                            for i in range(8)],
+        "qpsk2400_sweep8": [_variant(qpsk, f"q{i}",
+                                     carrier_freq=1500.0 + 0.25 * i)
+                            for i in range(8)],
+        "mpsk_bpsk1200_pair": [
+            mb, _variant(mb, "BPSK 1200 Il2Pc MPSK attack 400",
+                         agc=replace(mb.modem.agc, attack_rate=400.0))],
     }
 
 
@@ -129,6 +198,27 @@ def _audio():
     return list(sent) * reps, np.tile(seg, reps)
 
 
+def _psk_audio(chain):
+    """int16 audio of up to 600 s for a PSK bank, made as bench.py's
+    ``_family_workload`` makes it: one segment of 3 IL2P+CRC frames of 30
+    bytes with 2000 idle bits around each, modulated per the chain's own
+    spec and tiled.  Returns (expected payloads in time order, audio,
+    segment length, max_packet_seconds: twice the frame's wire time)."""
+    import numpy as np
+
+    from pymodem_tpu_torch.synth import fixtures as fx
+    from pymodem_tpu_torch.synth import modulate as mod
+
+    rng = np.random.default_rng(SEED)
+    sent, seg = fx.synthesize_for_chain(chain, float(PSK_RATE), rng,
+                                        n_frames=3, size=30, gap_bits=2000)
+    seg = mod.to_int16(np.asarray(seg))
+    reps = SECONDS * PSK_RATE // len(seg)
+    bps = getattr(chain.slicer, "bits_per_symbol", 1)
+    mps = 2.0 * (3 + 15 + 30 + 16 + 4) * 8 / (chain.slicer.symbol_rate * bps)
+    return list(sent) * reps, np.tile(seg, reps), len(seg), mps
+
+
 def _time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
     import torch
@@ -142,6 +232,31 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _power_limit_w(smi: str) -> float:
+    return float(smi.rsplit(",", 1)[1].strip().split()[0])
+
+
+def _kernel(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
+            shape, plain_shape, smi) -> dict:
+    """One entry of the kernels line.  ``bound_ms`` is the least time the
+    card could take for the same work: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the HBM rate and its float32 operations over the card's rate
+    outside the tensor cores, both scaled down by the power limit when the
+    card is set below 700 W.  The lanes' sequential dependency chain is not
+    in the bound.  No single PyTorch call computes any of these
+    recurrences, so ``library_ms`` is null."""
+    scale = min(1.0, _power_limit_w(smi) / FULL_POWER_W)
+    t_bytes = n_bytes / (HBM_BYTES_PER_S * scale)
+    t_ops = n_ops / (F32_OPS_PER_S * scale)
+    return dict(
+        name=name, route="cuda", source=f"pymodem_tpu_torch/csrc/{source}",
+        replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, shape=list(shape), plain_shape=list(plain_shape))
 
 
 def _check_bank(name, result, expected) -> None:
@@ -158,6 +273,54 @@ def _check_bank(name, result, expected) -> None:
             f"{bad} rejected; packets by chain {per_chain}")
 
 
+def _same(what: str, got, want) -> float:
+    """Max abs difference of a kernel output and its twin's; raises unless
+    they are equal bitwise (and finite, for floats)."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.is_floating_point() and not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: output is not finite")
+        err = max(err, float((g.double() - w.double()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what} differs from its twin (max {err})")
+    return err
+
+
+def _cli(cfg_lines, wav, rate, audio, expected: int) -> str:
+    """Run the CLI as a subprocess on ``audio`` and a JSONL config made of
+    ``cfg_lines`` plus a report; raises unless it exits 0 and reports
+    ``expected`` unique valid packets."""
+    from pymodem_tpu_torch.wav_io import write_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path = os.path.join(tmp, wav)
+        cfg = os.path.join(tmp, "config.json")
+        write_wav(wav_path, rate, audio)
+        with open(cfg, "w") as fh:
+            for line in (*cfg_lines,
+                         {"object_name": "report", "object_type": "report",
+                          "options": {"style": "decoded_headers"}}):
+                fh.write(json.dumps(line) + "\n")
+        env = dict(os.environ, PYTHONPATH=ROOT,
+                   PYMODEM_TPU_TORCH_DEVICE="cuda")
+        proc = subprocess.run(
+            [sys.executable, "-m", "pymodem_tpu_torch", cfg, wav_path],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    line = f"Unique, valid packets:  {expected}"
+    if line not in proc.stdout:
+        raise AssertionError(f"CLI did not print {line!r}:\n"
+                             f"{proc.stdout[-3000:]}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -168,8 +331,21 @@ def main() -> int:
     from pymodem_tpu_torch import _ext
     from pymodem_tpu_torch.config import ReportSpec, RunPlan
     from pymodem_tpu_torch.device import resolve
-    from pymodem_tpu_torch.dsp.loops import afsk_pll, afsk_pll_lanes
-    from pymodem_tpu_torch.ops.slicers import binary_slice, binary_slice_lanes
+    from pymodem_tpu_torch.dsp.agc import agc_follower, agc_lanes
+    from pymodem_tpu_torch.dsp.loops import (
+        afsk_pll,
+        afsk_pll_lanes,
+        bpsk_costas,
+        bpsk_costas_lanes,
+        mpsk_loop,
+        mpsk_loop_lanes,
+    )
+    from pymodem_tpu_torch.ops.slicers import (
+        binary_slice,
+        binary_slice_lanes,
+        quadrature_slice,
+        quadrature_slice_lanes,
+    )
     from pymodem_tpu_torch.runtime import bank as tbank
 
     # 1. environment
@@ -190,7 +366,7 @@ def main() -> int:
     banks = _banks()
     expected, audio = _audio()
     audio_t = torch.from_numpy(audio).to(dev)
-    kernels = []
+    kernels = {}
 
     # 3. K1 against its twin on the sweep bank's basebands
     t0 = time.time()
@@ -216,26 +392,19 @@ def main() -> int:
         raise AssertionError("device basebands disagree with the CPU")
     del base_bb, dev_bb, ref
     x_slice = x_full[:, :SLICE].contiguous()
-    err = 0
-    for w in (1, window):
-        got = binary_slice_lanes(x_slice, lp, w)
-        want = binary_slice(x_slice, lp, w)
-        torch.cuda.synchronize()
-        err = max(err, int((got.long() - want.long()).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 differs from its twin at window {w}")
-    k1_ms = _time_ms(lambda: binary_slice_lanes(x_slice, lp, window), 20)
+    err = max(_same(f"K1 window {w}", binary_slice_lanes(x_slice, lp, w),
+                    binary_slice(x_slice, lp, w)) for w in (1, window))
     k1_plain = _time_ms(lambda: binary_slice(x_slice, lp, window), 1)
-    k1_full = _time_ms(lambda: binary_slice_lanes(x_full, lp, window), 5)
-    kernels.append(dict(
-        name="binary_slicer", route="cuda",
-        source="pymodem_tpu_torch/csrc/binary_slicer.cu",
-        replaces="pymodem_tpu/ops/pallas_slicers.py:32",
-        max_abs_err=err, ms=k1_ms, plain_ms=k1_plain))
-    print(f"K1 lanes {C * B} T {L2} window {window}: bitwise equal on "
-          f"{C * B}x{SLICE}; kernel {k1_ms:.3f} ms vs twin {k1_plain:.1f} "
-          f"ms at {C * B}x{SLICE}; kernel {k1_full:.3f} ms at full "
-          f"{C * B}x{L2} [{smi}]")
+    k1_ms = _time_ms(lambda: binary_slice_lanes(x_full, lp, window), 5)
+    L, T = x_full.shape
+    kernels["K1"] = _kernel(
+        "binary_slicer", "binary_slicer.cu",
+        "pymodem_tpu/ops/pallas_slicers.py:32", err, k1_ms, k1_plain,
+        4 * (L * T + 2 * L + L * -(-T // window)), 15 * L * T, (L, T),
+        (L, SLICE), smi)
+    print(f"K1 lanes {L} T {T} window {window}: bitwise equal on "
+          f"{L}x{SLICE}; twin {k1_plain:.1f} ms at {L}x{SLICE}; kernel "
+          f"{k1_ms:.3f} ms at full {L}x{T} [{smi}]")
     del x_full, x_slice, frames
     _phase(3, "K1 binary slicer == twin", t0)
 
@@ -245,119 +414,270 @@ def main() -> int:
     plan = tbank.bank_plan(bank, len(audio),
                            max_packet_seconds=MAX_PACKET_SECONDS)
     frames = tbank.frame_blocks(audio_t, plan).to(torch.float32)
-    x_full, rows = tbank.afsk_pll_loop_inputs(bank.params, frames)
+    x_full, rows = tbank.coherent_loop_inputs(bank.params, frames)
     table = bank.params["sine_table"]
     x_slice = x_full[:, :SLICE].contiguous()
-    got = afsk_pll_lanes(x_slice, rows, table)
-    want = afsk_pll(x_slice, rows, table)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError("K2 output is not finite")
-    k2_err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"K2 differs from its twin (max {k2_err})")
-    k2_ms = _time_ms(lambda: afsk_pll_lanes(x_slice, rows, table), 20)
+    err = _same("K2", afsk_pll_lanes(x_slice, rows, table),
+                afsk_pll(x_slice, rows, table))
     k2_plain = _time_ms(lambda: afsk_pll(x_slice, rows, table), 1)
-    k2_full = _time_ms(lambda: afsk_pll_lanes(x_full, rows, table), 5)
-    kernels.append(dict(
-        name="afsk_pll_loop", route="cuda",
-        source="pymodem_tpu_torch/csrc/afsk_pll_loop.cu",
-        replaces="pymodem_tpu/dsp/pallas_loops.py:83",
-        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain))
-    print(f"K2 lanes {x_full.shape[0]} T {x_full.shape[1]}: bitwise equal on "
-          f"{x_full.shape[0]}x{SLICE}; kernel {k2_ms:.3f} ms vs twin "
-          f"{k2_plain:.1f} ms at {x_full.shape[0]}x{SLICE}; kernel "
-          f"{k2_full:.3f} ms at full {x_full.shape[0]}x{x_full.shape[1]} "
-          f"[{smi}]")
+    k2_ms = _time_ms(lambda: afsk_pll_lanes(x_full, rows, table), 5)
+    L, T = x_full.shape
+    kernels["K2"] = _kernel(
+        "afsk_pll_loop", "afsk_pll_loop.cu",
+        "pymodem_tpu/dsp/pallas_loops.py:83", err, k2_ms, k2_plain,
+        4 * (2 * L * T + 15 * L + 256), 40 * L * T, (L, T), (L, SLICE), smi)
+    print(f"K2 lanes {L} T {T}: bitwise equal on {L}x{SLICE}; twin "
+          f"{k2_plain:.1f} ms at {L}x{SLICE}; kernel {k2_ms:.3f} ms at full "
+          f"{L}x{T} [{smi}]")
     del x_full, x_slice, frames
     _phase(4, "K2 AFSK PLL loop == twin", t0)
 
-    # 5. the main path end to end
+    # 5. the AFSK path end to end
     t0 = time.time()
     reports = (ReportSpec("decoded", style="decoded_headers"),)
-    plans = {name: RunPlan(chains=tuple(chains), reports=reports)
-             for name, chains in banks.items()}
 
-    def run(name):
-        result = tbank.run_plan_banked(
-            plans[name], audio, RATE, max_packet_seconds=MAX_PACKET_SECONDS,
-            device=dev)
+    def run(plan_, audio_, rate, mps):
+        result = tbank.run_plan_banked(plan_, audio_, rate,
+                                       max_packet_seconds=mps, device=dev)
         torch.cuda.synchronize()
         return result
 
+    def run_path(bank_chains, audios, rate, mps_of):
+        """Decode each bank once (the main path's run: the caller sets the
+        launch counters to 0 before and reads them after); check every
+        frame; print each bank's peak device memory against the bytes per
+        chain-sample that runtime/bank.py budgets for its family."""
+        for name, chains in bank_chains.items():
+            torch.cuda.reset_peak_memory_stats()
+            result = run(RunPlan(chains=tuple(chains), reports=reports),
+                         audios[name][1], rate, mps_of[name])
+            peak = torch.cuda.max_memory_allocated()
+            _check_bank(name, result, audios[name][0])
+            bank_ = tbank.group_chains(chains, "cpu")[0]
+            plan_ = tbank.bank_plan(bank_, len(audios[name][1]),
+                                    max_packet_seconds=mps_of[name])
+            samples = len(chains) * plan_.n_blocks * plan_.block_input_len
+            print(f"bank {name}: {len(audios[name][0])} frames decoded, 0 "
+                  f"rejected; peak device memory {peak / 2**30:.2f} GiB, "
+                  f"{peak / samples:.1f} bytes per chain-sample (budgeted "
+                  f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]}) [{smi}]")
+
+    def report_banks(bank_chains, audios, rate, mps_of, seconds_of):
+        """Warm rerun of each bank (rate, chains decoding), then a split
+        of one run into device stages and host codec."""
+        for name, chains in bank_chains.items():
+            plan_ = RunPlan(chains=tuple(chains), reports=reports)
+            t1 = time.time()
+            result = run(plan_, audios[name][1], rate, mps_of[name])
+            wall = time.time() - t1
+            _check_bank(name, result, audios[name][0])
+            msps = len(chains) * len(audios[name][1]) / wall / 1e6
+            # chains that decoded packets: the host codec's work scales
+            # with them
+            decoding = len(result.aggregate.decoder_histogram)
+            print(f"bank {name}: {len(chains)} chains x "
+                  f"{seconds_of[name]:.1f} s, {decoding} of them decoding "
+                  f"packets, warm wall {wall:.3f} s, {msps:.1f} "
+                  f"chain-Msamples/s [{smi}]")
+        for name, chains in bank_chains.items():
+            bank_ = tbank.group_chains(chains, dev)[0]
+            wave = torch.from_numpy(audios[name][1]).to(dev)
+            plan_ = tbank.bank_plan(bank_, len(wave),
+                                    max_packet_seconds=mps_of[name])
+            tol = tbank.sync_tolerance(bank_)
+            t1 = time.time()
+            arrays = tbank.dispatch_bank(bank_, plan_, wave, tol)
+            torch.cuda.synchronize()
+            t2 = time.time()
+            tbank.host_codec_collect(bank_, plan_, tol, arrays)
+            t3 = time.time()
+            print(f"bank {name} split: {plan_.n_blocks} blocks x "
+                  f"{plan_.block_input_len} samples, device stages "
+                  f"{t2 - t1:.3f} s, host codec {t3 - t2:.3f} s")
+
+    afsk_audio = {name: (expected, audio) for name in banks}
+    afsk_mps = {name: MAX_PACKET_SECONDS for name in banks}
     binary_slice_lanes.launches = 0
     afsk_pll_lanes.launches = 0
-    results = {name: run(name) for name in plans}
-    launches = {"binary_slicer": binary_slice_lanes.launches,
-                "afsk_pll_loop": afsk_pll_lanes.launches}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    if launches["binary_slicer"] < 3 or launches["afsk_pll_loop"] < 2:
-        raise AssertionError(f"main path missed a kernel: {launches}")
-    for name, result in results.items():
-        _check_bank(name, result, expected)
-    print(f"main path: {len(expected)} frames decoded in each bank, 0 "
-          f"rejected; launches {launches}")
-    for name, chains in banks.items():
-        t1 = time.time()
-        result = run(name)
-        wall = time.time() - t1
-        _check_bank(name, result, expected)
-        msps = len(chains) * len(audio) / wall / 1e6
-        # chains that decoded packets: the host codec's work scales with them
-        decoding = len(result.aggregate.decoder_histogram)
-        print(f"bank {name}: {len(chains)} chains x {SECONDS} s, "
-              f"{decoding} of them decoding packets, warm wall {wall:.3f} s, "
-              f"{msps:.1f} chain-Msamples/s [{smi}]")
-    # where one warm run's time goes: device stages vs the host codec
-    for name, chains in banks.items():
-        bank = tbank.group_chains(chains, dev)[0]
-        plan = tbank.bank_plan(bank, len(audio),
-                               max_packet_seconds=MAX_PACKET_SECONDS)
-        tol = tbank.sync_tolerance(bank)
-        t1 = time.time()
-        arrays = tbank.dispatch_bank(bank, plan, audio_t, tol)
-        torch.cuda.synchronize()
-        t2 = time.time()
-        tbank.host_codec_collect(bank, plan, tol, arrays)
-        t3 = time.time()
-        print(f"bank {name} split: {plan.n_blocks} blocks x "
-              f"{plan.block_input_len} samples, device stages "
-              f"{t2 - t1:.3f} s, host codec {t3 - t2:.3f} s")
-    _phase(5, "main path end to end", t0)
+    run_path(banks, afsk_audio, RATE, afsk_mps)
+    afsk_launches = {"K1": binary_slice_lanes.launches,
+                     "K2": afsk_pll_lanes.launches}
+    if afsk_launches["K1"] < 3 or afsk_launches["K2"] < 2:
+        raise AssertionError(f"AFSK path missed a kernel: {afsk_launches}")
+    print(f"AFSK path: launches {afsk_launches}")
+    report_banks(banks, afsk_audio, RATE, afsk_mps,
+                 {name: SECONDS for name in banks})
+    del audio_t
+    _phase(5, "AFSK path end to end", t0)
 
     # 6. the CLI on a WAV and a JSONL config
     t0 = time.time()
-    from pymodem_tpu_torch.wav_io import write_wav
-
-    n_frames = 6  # the first 60 s: two segments
-    with tempfile.TemporaryDirectory() as tmp:
-        wav = os.path.join(tmp, "afsk300.wav")
-        cfg = os.path.join(tmp, "afsk300.json")
-        write_wav(wav, RATE, audio[: 60 * RATE])
-        with open(cfg, "w") as fh:
-            for line in (_chain_line("AFSK 300 Il2Pc Correlator", "afsk"),
-                         _chain_line("AFSK 300 Il2Pc PLL", "afsk_pll"),
-                         {"object_name": "report", "object_type": "report",
-                          "options": {"style": "decoded_headers"}}):
-                fh.write(json.dumps(line) + "\n")
-        env = dict(os.environ, PYTHONPATH=ROOT,
-                   PYMODEM_TPU_TORCH_DEVICE="cuda")
-        proc = subprocess.run(
-            [sys.executable, "-m", "pymodem_tpu_torch", cfg, wav], cwd=ROOT,
-            env=env, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI exited {proc.returncode}:\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    line = f"Unique, valid packets:  {n_frames}"
-    if line not in proc.stdout:
-        raise AssertionError(f"CLI did not print {line!r}:\n"
-                             f"{proc.stdout[-3000:]}")
+    line = _cli((_chain_line("AFSK 300 Il2Pc Correlator", "afsk"),
+                 _chain_line("AFSK 300 Il2Pc PLL", "afsk_pll")),
+                "afsk300.wav", RATE, audio[: 60 * RATE], 6)
     print(f"CLI: {line}, exit 0")
-    _phase(6, "CLI subprocess", t0)
+    _phase(6, "CLI subprocess (AFSK)", t0)
 
+    # 7. K3, K4, K6 and K7 against their twins on the PSK banks' inputs
+    t0 = time.time()
+    psk = _psk_banks()
+    psk_audio = {name: _psk_audio(chains[0]) for name, chains in psk.items()}
+    psk_mps = {name: a[3] for name, a in psk_audio.items()}
+
+    def psk_frames(name):
+        bank_ = tbank.group_chains(psk[name], dev)[0]
+        wave = torch.from_numpy(psk_audio[name][1]).to(dev)
+        plan_ = tbank.bank_plan(bank_, len(wave),
+                                max_packet_seconds=psk_mps[name])
+        return bank_, tbank.frame_blocks(wave, plan_).to(torch.float32)
+
+    def cut(*ts):
+        return tuple(t[:, :SLICE].contiguous() for t in ts)
+
+    bank, frames = psk_frames("bpsk1200_sweep8")
+    x, rows = tbank.coherent_loop_inputs(bank.params, frames)
+    tabs = (bank.params["sine_table"], bank.params["cos_table"])
+    (xs,) = cut(x)
+    err = _same("K3", bpsk_costas_lanes(xs, rows, *tabs),
+                bpsk_costas(xs, rows, *tabs))
+    plain = _time_ms(lambda: bpsk_costas(xs, rows, *tabs), 1)
+    ms = _time_ms(lambda: bpsk_costas_lanes(x, rows, *tabs), 3)
+    L, T = x.shape
+    kernels["K3"] = _kernel(
+        "bpsk_costas_loop", "bpsk_costas_loop.cu",
+        "pymodem_tpu/dsp/pallas_loops.py:83", err, ms, plain,
+        4 * (2 * L * T + 15 * L + 512), 45 * L * T, (L, T), (L, SLICE), smi)
+    print(f"K3 lanes {L} T {T}: bitwise equal on {L}x{SLICE}; twin "
+          f"{plain:.1f} ms at {L}x{SLICE}; kernel {ms:.3f} ms at full "
+          f"{L}x{T} [{smi}]")
+    del x, xs, frames
+
+    k4 = {}
+    for name in ("qpsk2400_sweep8", "mpsk_bpsk1200_pair"):
+        bank, frames = psk_frames(name)
+        x, rows = tbank.mpsk_agc_inputs(bank.params, frames)
+        (xs,) = cut(x)
+        err = _same(f"K4 on {name}", agc_lanes(xs, rows),
+                    agc_follower(xs, rows))
+        plain = _time_ms(lambda: agc_follower(xs, rows), 1)
+        ms = _time_ms(lambda: agc_lanes(x, rows), 3)
+        L, T = x.shape
+        k4[name] = _kernel(
+            "agc_lanes", "agc_lanes.cu",
+            "pymodem_tpu/dsp/pallas_loops.py:83", err, ms, plain,
+            4 * (2 * L * T + 5 * L), 12 * L * T, (L, T), (L, SLICE), smi)
+        print(f"K4 on {name} ({len(bank.specs)} chains, "
+              f"{'B shared' if 'pre_shared' in bank.params else 'C*B'} "
+              f"lanes) lanes {L} T {T}: bitwise equal on {L}x{SLICE}; twin "
+              f"{plain:.1f} ms at {L}x{SLICE}; kernel {ms:.3f} ms at full "
+              f"{L}x{T} [{smi}]")
+        if name == "mpsk_bpsk1200_pair":
+            # 1 bit per decision: K7 on the pair's own basebands
+            i_d, q_d = tbank.bank_basebands(bank, frames)
+            C, B, L3 = i_d.shape
+            lanes = [t.reshape(C * B, L3)[:, :SLICE].contiguous()
+                     for t in (i_d, q_d)]
+            sl = bank.specs[0].slicer
+            lp = tbank.slicer_lane_params(bank, B)
+            w_pair = tbank.slicer_window(bank)
+            for w in (1, w_pair):
+                _same(f"K7 (1 bit) window {w}",
+                      quadrature_slice_lanes(*lanes, lp, sl.demap,
+                                             sl.state_mask, 1, w),
+                      quadrature_slice(*lanes, lp, sl.demap, sl.state_mask,
+                                       1, w))
+            print(f"K7 (1 bit per decision) on {name}: bitwise equal on "
+                  f"{C * B}x{SLICE}, windows 1 and {w_pair}")
+            del i_d, q_d, lanes
+        del x, xs, frames
+    kernels["K4"] = max(k4.values(), key=lambda k: k["shape"][0])
+
+    bank, frames = psk_frames("qpsk2400_sweep8")
+    re, im, rows, pd_tables, pd_index = tbank.mpsk_loop_inputs(bank.params,
+                                                               frames)
+    tabs = (bank.params["sine_table"], bank.params["cos_table"])
+    res, ims = cut(re, im)
+    err = _same("K6", mpsk_loop_lanes(res, ims, rows, *tabs, pd_tables,
+                                      pd_index),
+                mpsk_loop(res, ims, rows, *tabs, pd_tables, pd_index))
+    plain = _time_ms(lambda: mpsk_loop(res, ims, rows, *tabs, pd_tables,
+                                       pd_index), 1)
+    ms = _time_ms(lambda: mpsk_loop_lanes(re, im, rows, *tabs, pd_tables,
+                                          pd_index), 3)
+    L, T = re.shape
+    kernels["K6"] = _kernel(
+        "mpsk_loop", "mpsk_loop.cu", "pymodem_tpu/dsp/pallas_loops.py:270",
+        err, ms, plain,
+        4 * (4 * L * T + 12 * L + 512 + pd_tables.numel() + L),
+        50 * L * T, (L, T), (L, SLICE), smi)
+    print(f"K6 lanes {L} T {T}, {pd_tables.shape[0]} detector table(s): "
+          f"bitwise equal on {L}x{SLICE}; twin {plain:.1f} ms at "
+          f"{L}x{SLICE}; kernel {ms:.3f} ms at full {L}x{T} [{smi}]")
+    del re, im, res, ims
+    i_d, q_d = tbank.bank_basebands(bank, frames)
+    C, B, L3 = i_d.shape
+    i_l, q_l = (t.reshape(C * B, L3).contiguous() for t in (i_d, q_d))
+    del i_d, q_d
+    sl = bank.specs[0].slicer
+    lp = tbank.slicer_lane_params(bank, B)
+    window = tbank.slicer_window(bank)
+    i_s, q_s = cut(i_l, q_l)
+    err = max(_same(f"K7 window {w}",
+                    quadrature_slice_lanes(i_s, q_s, lp, sl.demap,
+                                           sl.state_mask, 2, w),
+                    quadrature_slice(i_s, q_s, lp, sl.demap, sl.state_mask,
+                                     2, w)) for w in (1, window))
+    plain = _time_ms(lambda: quadrature_slice(i_s, q_s, lp, sl.demap,
+                                              sl.state_mask, 2, window), 1)
+    ms = _time_ms(lambda: quadrature_slice_lanes(i_l, q_l, lp, sl.demap,
+                                                 sl.state_mask, 2, window), 3)
+    L, T = i_l.shape
+    kernels["K7"] = _kernel(
+        "quadrature_slicer", "quadrature_slicer.cu",
+        "pymodem_tpu/ops/pallas_slicers.py:220", err, ms, plain,
+        4 * (2 * L * T + 2 * L + L * -(-T // window)), 20 * L * T, (L, T),
+        (L, SLICE), smi)
+    print(f"K7 lanes {L} T {T} window {window}: bitwise equal on "
+          f"{L}x{SLICE}; twin {plain:.1f} ms at {L}x{SLICE}; kernel "
+          f"{ms:.3f} ms at full {L}x{T} [{smi}]")
+    del i_l, q_l, i_s, q_s, frames
+    _phase(7, "K3, K4, K6, K7 == twins", t0)
+
+    # 8. the PSK path end to end
+    t0 = time.time()
+    counted = {"K1": binary_slice_lanes, "K3": bpsk_costas_lanes,
+               "K4": agc_lanes, "K6": mpsk_loop_lanes,
+               "K7": quadrature_slice_lanes}
+    for fn in counted.values():
+        fn.launches = 0
+    run_path(psk, psk_audio, PSK_RATE, psk_mps)
+    psk_launches = {k: fn.launches for k, fn in counted.items()}
+    if min(psk_launches.values()) < 1 or psk_launches["K4"] < 2 \
+            or psk_launches["K6"] < 2 or psk_launches["K7"] < 2:
+        raise AssertionError(f"PSK path missed a kernel: {psk_launches}")
+    print(f"PSK path: launches {psk_launches}")
+    report_banks(psk, psk_audio, PSK_RATE, psk_mps,
+                 {name: len(a[1]) / PSK_RATE for name, a in psk_audio.items()})
+    _phase(8, "PSK path end to end", t0)
+
+    # 9. the CLI on a QPSK-2400 config
+    t0 = time.time()
+    sent, qaudio, seg_len, _ = psk_audio["qpsk2400_sweep8"]
+    n_seg = 60 * PSK_RATE // seg_len  # whole segments in the first 60 s
+    line = _cli((PSK_LINES["qpsk"],), "qpsk2400.wav", PSK_RATE,
+                qaudio[: n_seg * seg_len], 3 * n_seg)
+    print(f"CLI: {line}, exit 0")
+    _phase(9, "CLI subprocess (QPSK 2400)", t0)
+
+    for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]),
+                          ("K2", afsk_launches["K2"]),
+                          ("K3", psk_launches["K3"]),
+                          ("K4", psk_launches["K4"]),
+                          ("K6", psk_launches["K6"]),
+                          ("K7", psk_launches["K7"])):
+        kernels[key]["launches"] = fn_count
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels expose a plain C interface, so they are compiled by ``nvcc``
-alone into one shared library and loaded with ``ctypes``; no PyTorch header
-is involved, which keeps the build to seconds.  The build happens at first
-use, never at import, into ``pymodem_tpu_torch/_build/`` (listed in
+alone, one process per source in parallel, and linked into one shared
+library loaded with ``ctypes``; no PyTorch header is involved, which keeps
+the build to seconds.  The build happens at first use, never at import,
+into ``pymodem_tpu_torch/_build/`` (listed in
 ``.gitignore``), under a file name keyed by a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads the library
 already there.
@@ -63,8 +64,11 @@ def library_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into the shared library if it is not built yet;
-    returns its path.  A file lock serialises concurrent builds."""
+    returns its path.  Each source compiles in its own nvcc process, all
+    started together, then one nvcc links them.  A file lock serialises
+    concurrent builds."""
     import fcntl
+    import tempfile
 
     out = library_path()
     if os.path.exists(out):
@@ -74,18 +78,33 @@ def build(verbose: bool = False) -> str:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(out):
             return out
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cu = [s for s in _sources() if s.endswith(".cu")]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stderr.strip())
-        os.replace(tmp, out)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cu = [s for s in _sources() if s.endswith(".cu")]
+            objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                    for s in cu]
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            cmds = [[_nvcc(), *compile_flags, "-Xptxas", "-v", "-c", "-o", o,
+                     s] for s, o in zip(cu, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for c in cmds]
+            logs = []
+            for cmd, proc in zip(cmds, procs):
+                stdout, stderr = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                        f"\n{stdout}\n{stderr}")
+                logs.append(stderr.strip())
+            tmp_out = os.path.join(tmp, "lib.so")
+            link = [_nvcc(), *NVCC_FLAGS, "-o", tmp_out, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{' '.join(link)}\n{proc.stderr}")
+            if verbose:
+                print("\n".join(logs))
+            os.replace(tmp_out, out)
     return out
 
 
@@ -107,3 +126,26 @@ def check(name: str, err: int) -> None:
     """Raise when a launch reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")
+
+
+def require(device, dtype, **tensors) -> None:
+    """Raise ValueError unless ``device`` is a CUDA device and every named
+    tensor is a contiguous ``dtype`` tensor on it (what the kernels take)."""
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}: the kernels run on "
+                         "CUDA, the plain twins on the CPU")
+    for name, t in tensors.items():
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
+                             f"{device}, got {t.dtype} on {t.device}")
+
+
+def launch(name: str, device, argtypes: tuple, *args) -> None:
+    """Launch the C entry point ``name`` with ``args`` on the current
+    stream of ``device`` (the stream goes last); raise on a CUDA error."""
+    import torch
+
+    fn = kernel(name, argtypes + (ctypes.c_void_p,))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(name, fn(*args, stream))

@@ -17,10 +17,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from pymodem_tpu.ops.hamming import hamming74_decode
-
 from ..ops import rs as rs_ops
 from ..ops.crc import np_append_crc
+from ..ops.hamming import hamming74_decode
 from ..ops.lfsr import np_descramble_bytes
 from ..packets import Packet
 

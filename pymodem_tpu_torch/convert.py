@@ -8,7 +8,10 @@ coherent carrier sweep whose pre-loop stages are identical across chains).
 ``bank_params_from_jax`` turns the pytree that
 ``pymodem_tpu.runtime.bank.group_chains(chains, jnp.float32)`` builds into
 the port's dict of tensors; the port's own ``group_chains`` goes through it
-too, so the two agree leaf for leaf.
+too, so the two agree leaf for leaf.  The port adds what its kernels read
+in place of the JAX package's in-kernel transcendentals: the NCO's sine
+and cosine tables (coherent banks) and, for ``mpsk``, each chain's f32
+phase-detector error table (``dsp/loops.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dsp.loops import nco_sine_table
+from .dsp.loops import nco_cos_table, nco_sine_table, pd_error_table
 
 
 def _leaf(v, device) -> torch.Tensor:
@@ -36,13 +39,23 @@ def bank_params_from_jax(jax_bank_params: dict, sine_table=None,
     """The port's bank parameters from a JAX-package bank pytree.
 
     Leaves keep their dtype (float32 for the f32 bank).  Coherent banks
-    (those with ``loop`` leaves) also get ``sine_table``: the NCO's
-    256-entry f32 sine table, ``nco_sine_table()`` unless one is given
-    (for instance XLA's own ``sin`` of the same angles, to run the twin
-    against the JAX package's f32 loop).
+    (those with ``loop`` leaves) also get ``sine_table`` and ``cos_table``:
+    the NCO's 256-entry f32 tables, ``nco_sine_table()`` (unless a sine
+    table is given, for instance XLA's own ``sin`` of the same angles) and
+    ``nco_cos_table()``.  ``mpsk`` banks get ``pd_error_table``, (C, g*g)
+    int32, from each chain's ``pd_granularity`` and ``pd_gain``, in place
+    of the JAX package's f64 ``modem.pd_table``, which no kernel reads.
     """
     params = _tree(dict(jax_bank_params), device)
     if "loop" in params:
-        table = nco_sine_table() if sine_table is None else sine_table
-        params["sine_table"] = _leaf(np.asarray(table, np.float32), device)
+        sine = nco_sine_table() if sine_table is None else sine_table
+        params["sine_table"] = _leaf(np.asarray(sine, np.float32), device)
+        params["cos_table"] = _leaf(nco_cos_table(), device)
+    if "pd_gain" in jax_bank_params:
+        params["modem"].pop("pd_table", None)
+        params["pd_error_table"] = _leaf(np.stack([
+            pd_error_table(int(g), float(k)) for g, k in zip(
+                np.asarray(jax_bank_params["pd_granularity"]),
+                np.asarray(jax_bank_params["pd_gain"]))
+        ]), device)
     return params

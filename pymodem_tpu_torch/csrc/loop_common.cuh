@@ -1,0 +1,98 @@
+// Device helpers shared by the carrier-loop kernels K2, K3, K4 and K6:
+// the AGC envelope follower, the NCO step and the PI update, each in the
+// JAX package's op order (pymodem_tpu/dsp/loops.py, dsp/agc.py), so that a
+// kernel built with -fmad=false and without fast math equals its plain
+// PyTorch twin (pymodem_tpu_torch/dsp/loops.py, dsp/agc.py) bitwise.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pymodem {
+
+constexpr int kTableSize = 256;
+
+// NaN-propagating min/max, as torch.minimum/maximum and jnp.minimum/maximum
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The AGC follower's per-lane rows (dsp/agc.py AGC_PARAMS) and carries.
+struct Agc {
+  float attack, decay, sustain_time, sustain_inc, target;
+  float env = 0.0f, sustain = 0.0f;
+
+  // rows: the lane's five AGC rows, ``stride`` floats apart
+  __device__ Agc(const float* rows, int stride)
+      : attack(rows[0]),
+        decay(rows[stride]),
+        sustain_time(rows[2 * stride]),
+        sustain_inc(rows[3 * stride]),
+        target(rows[4 * stride]) {}
+
+  // one step (dsp/agc.py agc_step); target * x / env is an IEEE divide
+  __device__ __forceinline__ float step(float x) {
+    const float cv = fabsf(x);
+    if (cv > env) {
+      env = min_nan(env + attack, cv);
+      sustain = 0.0f;
+    }
+    if (sustain >= sustain_time) env = max_nan(env - decay, 0.0f);
+    sustain = sustain + sustain_inc;
+    return env != 0.0f ? target * x / env : x;
+  }
+};
+
+// The NCO, loop IIR and PI controller of one lane: rows PLL_PARAMS
+// (dsp/loops.py), ``stride`` floats apart.
+struct Loop {
+  float phase_scale, set_freq, index_scale, b0, a1, gp, gain, pi_i, limit;
+  float phase = 0.0f, control = 0.0f, iir_x = 0.0f, iir_y = 0.0f;
+  float integral;
+
+  __device__ Loop(const float* rows, int stride)
+      : phase_scale(rows[0]),
+        set_freq(rows[stride]),
+        index_scale(rows[2 * stride]),
+        b0(rows[3 * stride]),
+        a1(rows[4 * stride]),
+        gp(rows[5 * stride]),
+        gain(rows[6 * stride]),
+        pi_i(rows[7 * stride]),
+        limit(rows[8 * stride]),
+        integral(rows[9 * stride]) {}
+
+  // NCO: wrap by +-2pi twice each way; the truncated table index
+  __device__ __forceinline__ int nco() {
+    const float two_pi = __int_as_float(0x40c90fdb);  // float32(2*pi)
+    float ph = phase + phase_scale * (set_freq + control);
+    if (ph >= two_pi) ph = ph - two_pi;
+    if (ph >= two_pi) ph = ph - two_pi;
+    if (ph < 0.0f) ph = ph + two_pi;
+    if (ph < 0.0f) ph = ph + two_pi;
+    phase = ph;
+    return __float2int_rz(ph * index_scale) & (kTableSize - 1);
+  }
+
+  // loop IIR on the error e, then PI with a saturated integral; returns
+  // prop and leaves prop + integral for the caller to make the control
+  __device__ __forceinline__ float filter(float e) {
+    const float y = (b0 * e + b0 * iir_x) + a1 * iir_y;
+    iir_x = e;
+    iir_y = y;
+    integral = min_nan(max_nan(integral + gain * (pi_i * y), -limit), limit);
+    return gp * y;
+  }
+};
+
+// Copy ``n`` values from global to shared memory, the block's threads
+// striding; the caller synchronises.
+template <typename V>
+__device__ __forceinline__ void stage(V* dst, const V* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+}  // namespace pymodem

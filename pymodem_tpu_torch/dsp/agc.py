@@ -1,6 +1,9 @@
-"""Automatic gain control: the envelope follower as a plain recurrence.
+"""Automatic gain control: the envelope follower, kernel K4 and its twin.
 
-Port of ``pymodem_tpu.dsp.agc.agc_apply`` (reference agc.py:26-80):
+Port of ``pymodem_tpu.dsp.agc.agc_apply`` (reference agc.py:26-80) and of
+the Pallas kernel that runs it over lanes on the TPU,
+``pymodem_tpu.dsp.pallas_loops._loop_kernel`` kind ``agc``
+(``loop_lanes_pallas``):
 
 * a non-causal pre-pass takes ``normal = max(buffer)`` (signed max over the
   whole buffer, agc.py:67), which scales the attack and decay steps;
@@ -9,14 +12,23 @@ Port of ``pymodem_tpu.dsp.agc.agc_apply`` (reference agc.py:26-80):
   at 0); sustain += 1/fs;
 * output: target * x / env when env != 0, else x unchanged.
 
-On the main path the follower runs fused inside the AFSK-PLL loop kernel
-(``dsp/loops.py``); ``agc_step`` is the one copy of its op order, shared by
-``agc_apply`` and the loop's plain twin.
+The follower runs fused inside the AFSK-PLL and BPSK loop kernels
+(``dsp/loops.py``) and on its own, as kernel K4, ahead of the MPSK Hilbert
+FIR.  ``agc_step`` is the one copy of its op order, shared by
+``agc_follower`` (K4's twin, the port's ``agc_apply`` over lanes) and the
+loops' twins.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+# per-lane parameter rows of K4 (and the AGC rows the loop kernels append),
+# in the JAX package's order (pallas_loops.py _AGC_PARAMS)
+AGC_PARAMS = ("attack_step", "decay_step", "sustain_time",
+              "sustain_increment", "target")
 
 
 def agc_step(x, env, sustain, attack_step, decay_step, sustain_time,
@@ -34,30 +46,42 @@ def agc_step(x, env, sustain, attack_step, decay_step, sustain_time,
     return out, env, sustain
 
 
-def agc_apply(x: torch.Tensor, scaled_attack, scaled_decay, sustain_time,
-              sustain_increment, target_amplitude,
-              normal=None) -> torch.Tensor:
-    """Apply AGC along the last axis of ``x`` (any leading lane dims).
-
-    The scalar constants are cast to ``x``'s dtype; ``normal`` defaults to
-    the signed max over the whole of ``x`` (agc.py:67)."""
-    dtype, dev = x.dtype, x.device
-
-    def c(v):
-        return torch.as_tensor(v, dtype=dtype, device=dev)
-
-    if normal is None:
-        normal = x.max()
-    normal = c(normal)
-    attack_step = c(scaled_attack) * normal
-    decay_step = c(scaled_decay) * normal
-    st, si, tg = c(sustain_time), c(sustain_increment), c(target_amplitude)
-    xt = x.movedim(-1, 0)
-    env = torch.zeros(xt.shape[1:], dtype=dtype, device=dev)
-    sustain = zero = torch.zeros_like(env)
+def agc_follower(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of kernel K4: the follower over (L, T) lanes,
+    vectorised over lanes with a loop over time.  lane_params: (5, L) rows
+    in ``AGC_PARAMS`` order, the steps already scaled by each lane's
+    ``normal`` (``dsp/loops.agc_lane_params``)."""
+    att, dec, sus_t, sus_inc, target = lane_params.to(x.dtype)
+    zero = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    env, sustain = zero, zero
     out = []
-    for x_t in xt.unbind(0):
-        y, env, sustain = agc_step(x_t, env, sustain, attack_step,
-                                   decay_step, st, si, tg, zero)
+    for x_t in x.t().unbind(0):
+        y, env, sustain = agc_step(x_t, env, sustain, att, dec, sus_t,
+                                   sus_inc, target, zero)
         out.append(y)
-    return torch.stack(out).movedim(0, -1)
+    return torch.stack(out, dim=1)
+
+
+def agc_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
+    """Kernel K4 (``csrc/agc_lanes.cu``) over (L, T) lanes.
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    only a CPU tensor takes the plain twin ``agc_follower``."""
+    if x.ndim != 2 or lane_params.shape != (len(AGC_PARAMS), x.shape[0]):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} "
+                         f"lane_params {tuple(lane_params.shape)}")
+    if x.device.type == "cpu":
+        return agc_follower(x, lane_params)
+    from .. import _ext
+
+    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params)
+    out = torch.empty_like(x)
+    L, T = x.shape
+    _ext.launch("agc_lanes", x.device,
+                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2,
+                x.data_ptr(), lane_params.data_ptr(), out.data_ptr(), L, T)
+    agc_lanes.launches += 1
+    return out
+
+
+agc_lanes.launches = 0

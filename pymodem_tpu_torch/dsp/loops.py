@@ -1,30 +1,41 @@
-"""The AFSK PLL carrier loop with fused AGC: kernel K2 and its plain twin.
+"""Carrier loops: kernels K2, K3 and K6 and their plain twins.
 
-Port of ``pymodem_tpu.dsp.loops.afsk_pll`` (the scan) and of the Pallas
-kernel that replaces it on the TPU,
-``pymodem_tpu.dsp.pallas_loops._loop_kernel`` (kind ``afsk_pll``, AGC fused,
-``loop_lanes_pallas``).  Lanes are independent (chain, block) streams
-handed over as ``(L, T)`` rows; per-lane constants come as 15 rows:
-``PLL_PARAMS`` then ``AGC_PARAMS``.
+Port of the ``pymodem_tpu.dsp.loops`` scans ``afsk_pll``, ``bpsk_costas``
+and ``mpsk_loop`` and of the Pallas kernels that replace them on the TPU:
+``pymodem_tpu.dsp.pallas_loops._loop_kernel`` kinds ``afsk_pll`` and
+``bpsk`` (AGC fused, ``loop_lanes_pallas``) and ``_iq_loop_kernel`` kind
+``mpsk`` (``iq_loop_lanes_pallas``).  Lanes are independent (chain, block)
+streams handed over as ``(L, T)`` rows; per-lane constants come as rows:
+``PLL_PARAMS`` then ``AGC_PARAMS`` (15) for K2 and K3, ``PLL_PARAMS`` then
+``("pd_gain", "pd_granularity")`` (12) for K6.
 
 Per sample, in the JAX package's op order (reference afsk_pll.py:152-165,
-agc.py:26-80, nco.py:34-53, iir.py:38-54, pi_control.py:25-33):
+psk.py:173-189 and 734-747, agc.py:26-80, nco.py:34-53, iir.py:38-54,
+pi_control.py:25-33):
 
-    x     = AGC(x)                                   (dsp/agc.agc_step)
+    x     = AGC(x)                         (K2, K3: dsp/agc.agc_step)
     phase = wrap(phase + phase_scale * (set_frequency + control))
-    idx   = int(phase * index_scale)                 (truncation)
-    mixer = x * sine[idx]
-    y     = (b0 * mixer + b0 * mixer_prev) + a1 * y_prev
+    idx   = int(phase * index_scale)       (truncation)
+    K2:  e = x * sin[idx];                 output prop (below)
+    K3:  i = x * cos[idx]; q = x * (-sin[idx]); e = i * q;  output i
+    K6:  re' = (re * cos) - (im * (-sin)); im' = (cos * im) + (re * (-sin))
+         e = pd[fold(floor(re' * g/2), floor(im' * g/2))];  output re', im'
+    y     = (b0 * e + b0 * e_prev) + a1 * y_prev
     prop  = gp * y
     integral = clip(integral + gain * (i_rate * y), -limit, limit)
-    control  = prop + integral;   output = prop
+    control  = prop + integral             (K6: rounded half to even)
 
-The NCO sine is a 256-entry table indexed by the quantised phase, handed in
-as a tensor.  ``sin`` of the same f32 angle differs by an ulp between XLA,
-torch-CPU and CUDA on a few of the 256 angles, so kernel and twin read one
-table and agree bitwise; ``nco_sine_table`` builds it as
-``float32(sin(float64(angle_f32)))``.  At f64 (twin only) the table is the
-reference's own wavetable, as the JAX f64 path gathers it.
+The NCO reads sin and cos of the quantised phase from 256-entry tables
+handed in as tensors: ``sin``/``cos`` of the same f32 angle differ by an
+ulp between XLA, torch-CPU and CUDA on a few of the 256 angles, so kernel
+and twin read one table and agree bitwise; ``nco_sine_table`` and
+``nco_cos_table`` build them as ``float32(f(float64(angle_f32)))``.  K6's
+phase detector is a pure function of the folded integer pair ``(a, b)`` in
+``[0, g)^2`` and the chain's gain: ``pd_error_table`` evaluates the JAX
+package's f32 formula once per pair on the host, and kernel and twin look
+the error up (in place of the Pallas kernel's minimax atan and of CUDA's
+``atan2f``, whose rounding is not XLA's).  At f64 (twins only) the tables
+are the reference's own wavetable and table, as the JAX f64 path gathers.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .agc import agc_step
+from .agc import AGC_PARAMS, agc_step
 
 TWO_PI = 6.283185307179586476925286766559
 WAVETABLE_SIZE = 256
@@ -44,8 +55,7 @@ WAVETABLE_SIZE = 256
 PLL_PARAMS = ("phase_scale", "set_frequency", "index_scale", "iir_b0",
               "iir_a1", "pi_gp", "pi_gain", "pi_i", "pi_limit",
               "pi_integral0")
-AGC_PARAMS = ("attack_step", "decay_step", "sustain_time",
-              "sustain_increment", "target")
+PD_PARAMS = ("pd_gain", "pd_granularity")
 
 
 class LoopParams(NamedTuple):
@@ -61,15 +71,42 @@ class LoopParams(NamedTuple):
     pi_gain: np.ndarray  # gain (kept separate for the integral term)
     pi_i: np.ndarray  # i_rate
     pi_limit: np.ndarray  # integral saturation bound
-    pi_integral0: np.ndarray  # initial integral
+    pi_integral0: np.ndarray  # initial integral (psk.py:703 for mpsk)
+
+
+def _nco_angles() -> np.ndarray:
+    return (np.arange(WAVETABLE_SIZE, dtype=np.float32)
+            * np.float32(TWO_PI / WAVETABLE_SIZE)).astype(np.float64)
 
 
 def nco_sine_table() -> np.ndarray:
     """(256,) float32: sin of each quantised f32 NCO angle
     ``f32(i) * f32(2*pi/256)``, evaluated in float64 and rounded once."""
-    angle = (np.arange(WAVETABLE_SIZE, dtype=np.float32)
-             * np.float32(TWO_PI / WAVETABLE_SIZE))
-    return np.sin(angle.astype(np.float64)).astype(np.float32)
+    return np.sin(_nco_angles()).astype(np.float32)
+
+
+def nco_cos_table() -> np.ndarray:
+    """(256,) float32: cos of the same quantised angles, built the same
+    way as ``nco_sine_table``."""
+    return np.cos(_nco_angles()).astype(np.float32)
+
+
+def pd_error_table(granularity: int, gain: float) -> np.ndarray:
+    """(granularity**2,) int32: the f32 MPSK phase detector of the JAX
+    package (``pymodem_tpu.dsp.loops._pd_lookup``, non-f64 path) at every
+    folded pair, entry ``a * g + b``: ``round(gain * (atan2(b, a) deg -
+    45))`` where ``0.15 g <= |(a, b)| <= 0.76 g``, else 0; every step in
+    float32, rounding half to even."""
+    g = np.float32(granularity)
+    a, b = np.meshgrid(np.arange(granularity, dtype=np.float32),
+                       np.arange(granularity, dtype=np.float32),
+                       indexing="ij")
+    mag2 = a * a + b * b
+    gate = ((mag2 >= np.float32(0.15 * 0.15) * g * g)
+            & (mag2 <= np.float32(0.76 * 0.76) * g * g))
+    deg = np.arctan2(b, a) * np.float32(180.0 / np.pi)
+    err = np.round(np.float32(gain) * (deg - np.float32(45.0)))
+    return np.where(gate, err, np.float32(0.0)).astype(np.int32).reshape(-1)
 
 
 def lane_params_from_loop(loop: dict, n_chains: int,
@@ -114,17 +151,30 @@ def _wrap_phase(p: torch.Tensor, two_pi) -> torch.Tensor:
     return p
 
 
-def afsk_pll(x: torch.Tensor, lane_params: torch.Tensor,
-             sine_table: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of kernel K2: vectorised over lanes, a loop over
-    time.  x: (L, T); lane_params: (15, L); sine_table: (256,), all of one
-    float dtype (f32, or f64 for parity runs).  Returns the (L, T) PI
-    proportional term."""
+def _nco(phase, control, phase_scale, set_freq, index_scale, two_pi):
+    """One NCO step: the wrapped phase and the truncated table index."""
+    phase = _wrap_phase(phase + phase_scale * (set_freq + control), two_pi)
+    # truncation toward zero, as the kernels' int conversion
+    idx = (phase * index_scale).long() & (WAVETABLE_SIZE - 1)
+    return phase, idx
+
+
+def _pi(y, integral, gp, gain, pi_i, limit):
+    """PI update_saturate: (prop, integral)."""
+    prop = gp * y
+    integral = torch.minimum(
+        torch.maximum(integral + gain * (pi_i * y), -limit), limit)
+    return prop, integral
+
+
+def _coherent_loop(x, lane_params, sine_table, cos_table, kind):
+    """Twin of K2 (``kind="afsk_pll"``) and K3 (``"bpsk"``): the fused
+    AGC and carrier loop over (L, T) lanes with 15 rows."""
     dtype, dev = x.dtype, x.device
-    p = lane_params.to(dtype)
     (phase_scale, set_freq, index_scale, b0, a1, gp, gain, pi_i, limit,
-     integral0, att, dec, sus_t, sus_inc, target) = p
-    table = sine_table.to(dtype)
+     integral0, att, dec, sus_t, sus_inc, target) = lane_params.to(dtype)
+    sine = sine_table.to(dtype)
+    cosine = None if cos_table is None else cos_table.to(dtype)
     two_pi = torch.tensor(TWO_PI, dtype=dtype, device=dev)
     zero = torch.zeros(x.shape[0], dtype=dtype, device=dev)
     phase, control, iir_x, iir_y = zero, zero, zero, zero
@@ -134,18 +184,110 @@ def afsk_pll(x: torch.Tensor, lane_params: torch.Tensor,
     for x_t in x.t().unbind(0):
         xs, env, sustain = agc_step(x_t, env, sustain, att, dec, sus_t,
                                     sus_inc, target, zero)
-        phase = _wrap_phase(phase + phase_scale * (set_freq + control), two_pi)
-        # truncation toward zero, as the kernel's int conversion
-        idx = (phase * index_scale).long() & (WAVETABLE_SIZE - 1)
-        mixer = xs * table.take(idx)
+        phase, idx = _nco(phase, control, phase_scale, set_freq,
+                          index_scale, two_pi)
+        if kind == "afsk_pll":
+            mixer = xs * sine.take(idx)
+        else:
+            i_mixer = xs * cosine.take(idx)
+            q_mixer = xs * -sine.take(idx)
+            mixer = i_mixer * q_mixer
         y = (b0 * mixer + b0 * iir_x) + a1 * iir_y
-        prop = gp * y
-        integral = torch.minimum(
-            torch.maximum(integral + gain * (pi_i * y), -limit), limit)
+        prop, integral = _pi(y, integral, gp, gain, pi_i, limit)
         control = prop + integral
-        out.append(prop)
+        out.append(prop if kind == "afsk_pll" else i_mixer)
         iir_x, iir_y = mixer, y
     return torch.stack(out, dim=1)
+
+
+def afsk_pll(x: torch.Tensor, lane_params: torch.Tensor,
+             sine_table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of kernel K2: vectorised over lanes, a loop over
+    time.  x: (L, T); lane_params: (15, L); sine_table: (256,), all of one
+    float dtype (f32, or f64 for parity runs).  Returns the (L, T) PI
+    proportional term."""
+    return _coherent_loop(x, lane_params, sine_table, None, "afsk_pll")
+
+
+def bpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
+                sine_table: torch.Tensor,
+                cos_table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of kernel K3, the BPSK Costas loop with the AGC
+    fused: x (L, T), lane_params (15, L), the two (256,) tables.  Returns
+    the (L, T) I-mixer stream."""
+    return _coherent_loop(x, lane_params, sine_table, cos_table, "bpsk")
+
+
+def mpsk_loop(re: torch.Tensor, im: torch.Tensor, lane_params: torch.Tensor,
+              sine_table: torch.Tensor, cos_table: torch.Tensor,
+              pd_tables: torch.Tensor, pd_index: torch.Tensor):
+    """Plain PyTorch twin of kernel K6, the MPSK loop on the analytic
+    signal: re, im (L, T); lane_params (12, L); the two NCO tables;
+    pd_tables (U, g*g) int32 phase-detector tables (``pd_error_table``, or
+    the f64 reference table at f64) and pd_index (L,) the table of each
+    lane.  Returns the rotated (out_re, out_im), each (L, T)."""
+    dtype, dev = re.dtype, re.device
+    (phase_scale, set_freq, index_scale, b0, a1, gp, gain, pi_i, limit,
+     integral0, _pd_gain, gf) = lane_params.to(dtype)
+    sine, cosine = sine_table.to(dtype), cos_table.to(dtype)
+    table = pd_tables[pd_index.long()].to(torch.int64)  # (L, g*g)
+    gi = gf.to(torch.int32)
+    half = gf * 0.5
+    two_pi = torch.tensor(TWO_PI, dtype=dtype, device=dev)
+    zero = torch.zeros(re.shape[0], dtype=dtype, device=dev)
+    phase, control, iir_x, iir_y = zero, zero, zero, zero
+    integral = integral0.clone()
+    outs_re, outs_im = [], []
+    for re_t, im_t in zip(re.t().unbind(0), im.t().unbind(0)):
+        phase, idx = _nco(phase, control, phase_scale, set_freq,
+                          index_scale, two_pi)
+        s, c = sine.take(idx), cosine.take(idx)
+        out_re = (re_t * c) - (im_t * -s)
+        out_im = (c * im_t) + (re_t * -s)
+        # quantise, clamp to +-(g-1), fold into the first quadrant
+        r = torch.floor(out_re * half).to(torch.int32)
+        i = torch.floor(out_im * half).to(torch.int32)
+        r = torch.where(r >= gi, gi - 1, r)
+        i = torch.where(i >= gi, gi - 1, i)
+        r = torch.where(r <= -gi, -(gi - 1), r)
+        i = torch.where(i <= -gi, -(gi - 1), i)
+        rn, inn = r >= 0, i >= 0
+        a = torch.where(rn, torch.where(inn, r, -i), torch.where(inn, i, -r))
+        b = torch.where(rn, torch.where(inn, i, r), torch.where(inn, -r, -i))
+        flat = (a * gi + b).long()
+        err = table.gather(1, flat[:, None])[:, 0].to(dtype)
+        y = (b0 * err + b0 * iir_x) + a1 * iir_y
+        prop, integral = _pi(y, integral, gp, gain, pi_i, limit)
+        control = torch.round(prop + integral)  # half to even
+        outs_re.append(out_re)
+        outs_im.append(out_im)
+        iir_x, iir_y = err, y
+    return torch.stack(outs_re, dim=1), torch.stack(outs_im, dim=1)
+
+
+def _check_rows(name, x, lane_params, n_rows, *tables):
+    if x.ndim != 2 or lane_params.shape != (n_rows, x.shape[0]):
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)} "
+                         f"lane_params {tuple(lane_params.shape)}")
+    for t in tables:
+        if t.shape != (WAVETABLE_SIZE,):
+            raise ValueError(f"{name}: NCO tables must be "
+                             f"({WAVETABLE_SIZE},), got {tuple(t.shape)}")
+
+
+def _coherent_lanes(entry, x, lane_params, tables):
+    """Launch K2 or K3 (``entry``) over (L, T) lanes; returns (L, T)."""
+    from .. import _ext
+
+    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params,
+                 **{f"table{i}": t for i, t in enumerate(tables)})
+    L, T = x.shape
+    out = torch.empty_like(x)
+    _ext.launch(entry, x.device,
+                (ctypes.c_void_p,) * (3 + len(tables)) + (ctypes.c_int,) * 2,
+                x.data_ptr(), lane_params.data_ptr(),
+                *(t.data_ptr() for t in tables), out.data_ptr(), L, T)
+    return out
 
 
 def afsk_pll_lanes(x: torch.Tensor, lane_params: torch.Tensor,
@@ -155,34 +297,78 @@ def afsk_pll_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``afsk_pll``."""
     n_rows = len(PLL_PARAMS) + len(AGC_PARAMS)
-    if x.ndim != 2 or lane_params.shape != (n_rows, x.shape[0]):
-        raise ValueError(f"bad shapes x {tuple(x.shape)} "
-                         f"lane_params {tuple(lane_params.shape)}")
-    if sine_table.shape != (WAVETABLE_SIZE,):
-        raise ValueError(f"sine_table must be ({WAVETABLE_SIZE},)")
+    _check_rows("afsk_pll_lanes", x, lane_params, n_rows, sine_table)
     if x.device.type == "cpu":
         return afsk_pll(x, lane_params, sine_table)
-    if x.device.type != "cuda":
-        raise ValueError(f"afsk_pll_lanes: unsupported device {x.device}")
-    from .. import _ext
-
-    for name, t in (("x", x), ("lane_params", lane_params),
-                    ("sine_table", sine_table)):
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous float32 tensor on "
-                             f"{x.device}, got {t.dtype} on {t.device}")
-    L, T = x.shape
-    out = torch.empty_like(x)
-    fn = _ext.kernel("afsk_pll_lanes", (ctypes.c_void_p,) * 4
-                     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _ext.check("afsk_pll_lanes", fn(
-            x.data_ptr(), lane_params.data_ptr(), sine_table.data_ptr(),
-            out.data_ptr(), L, T, stream))
+    out = _coherent_lanes("afsk_pll_lanes", x, lane_params, (sine_table,))
     afsk_pll_lanes.launches += 1
     return out
 
 
+def bpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
+                      sine_table: torch.Tensor,
+                      cos_table: torch.Tensor) -> torch.Tensor:
+    """Kernel K3 (``csrc/bpsk_costas_loop.cu``) over (L, T) lanes.
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    only a CPU tensor takes the plain twin ``bpsk_costas``."""
+    n_rows = len(PLL_PARAMS) + len(AGC_PARAMS)
+    _check_rows("bpsk_costas_lanes", x, lane_params, n_rows, sine_table,
+                cos_table)
+    if x.device.type == "cpu":
+        return bpsk_costas(x, lane_params, sine_table, cos_table)
+    out = _coherent_lanes("bpsk_costas_lanes", x, lane_params,
+                          (sine_table, cos_table))
+    bpsk_costas_lanes.launches += 1
+    return out
+
+
+def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
+                    lane_params: torch.Tensor, sine_table: torch.Tensor,
+                    cos_table: torch.Tensor, pd_tables: torch.Tensor,
+                    pd_index: torch.Tensor):
+    """Kernel K6 (``csrc/mpsk_loop.cu``) over (L, T) lane pairs; returns
+    (out_re, out_im).
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    only a CPU tensor takes the plain twin ``mpsk_loop``.  ``pd_tables``
+    (U, g*g) may hold any number of tables; each lane's granularity must be
+    the tables' g."""
+    _check_rows("mpsk_loop_lanes", re, lane_params,
+                len(PLL_PARAMS) + len(PD_PARAMS), sine_table, cos_table)
+    L = re.shape[0]
+    if im.shape != re.shape or pd_index.shape != (L,) or pd_tables.ndim != 2:
+        raise ValueError(f"mpsk_loop_lanes: bad shapes re {tuple(re.shape)}"
+                         f" im {tuple(im.shape)} pd_tables "
+                         f"{tuple(pd_tables.shape)} pd_index "
+                         f"{tuple(pd_index.shape)}")
+    if re.device.type == "cpu":
+        return mpsk_loop(re, im, lane_params, sine_table, cos_table,
+                         pd_tables, pd_index)
+    from .. import _ext
+
+    _ext.require(re.device, torch.float32, re=re, im=im,
+                 lane_params=lane_params, sine_table=sine_table,
+                 cos_table=cos_table)
+    _ext.require(re.device, torch.int32, pd_tables=pd_tables,
+                 pd_index=pd_index)
+    n_tab, gg = pd_tables.shape
+    g = int(round(gg ** 0.5))
+    if g * g != gg or n_tab == 0:
+        raise ValueError(f"mpsk_loop_lanes: pd_tables "
+                         f"{tuple(pd_tables.shape)} must be (U, g*g)")
+    T = re.shape[1]
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    _ext.launch("mpsk_loop_lanes", re.device,
+                (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4,
+                re.data_ptr(), im.data_ptr(), lane_params.data_ptr(),
+                sine_table.data_ptr(), cos_table.data_ptr(),
+                pd_tables.data_ptr(), pd_index.data_ptr(), out_re.data_ptr(),
+                out_im.data_ptr(), L, T, g, n_tab)
+    mpsk_loop_lanes.launches += 1
+    return out_re, out_im
+
+
 afsk_pll_lanes.launches = 0
+bpsk_costas_lanes.launches = 0
+mpsk_loop_lanes.launches = 0

@@ -1,10 +1,11 @@
 """Modem parameters, built once on the host (numpy).
 
 Port of the host side of ``pymodem_tpu.modems`` for the families this
-slice carries: the AFSK tone correlator (``afsk``) and the coherent AFSK
-PLL (``afsk_pll``).  Filter design goes through the jax-free
-``pymodem_tpu.dsp.window_design``, so taps are identical to the JAX
-package's.  The demod itself runs banked, in ``runtime/bank.py``.
+port carries: the AFSK tone correlator (``afsk``), the coherent AFSK PLL
+(``afsk_pll``), the BPSK Costas loop (``bpsk``) and the PSK demodulator on
+the analytic signal (``mpsk``).  Filter design goes through the port's copy
+of ``dsp/window_design.py``, so taps are identical to the JAX package's.
+The demod itself runs banked, in ``runtime/bank.py``.
 """
 
 from __future__ import annotations
@@ -13,9 +14,14 @@ from typing import NamedTuple
 
 import numpy as np
 
-from pymodem_tpu.dsp import window_design as wd
-
-from .config import AFSKModemSpec, AFSKPLLModemSpec, AGCSpec
+from .config import (
+    AFSKModemSpec,
+    AFSKPLLModemSpec,
+    AGCSpec,
+    BPSKModemSpec,
+    MPSKModemSpec,
+)
+from .dsp import window_design as wd
 from .dsp.loops import LoopParams
 
 TWO_PI = 2.0 * np.pi
@@ -130,11 +136,65 @@ def afsk_pll_params(spec: AFSKPLLModemSpec) -> PLLParams:
     )
 
 
-def build_params(spec):
-    if spec.kind == "afsk":
-        return afsk_params(spec)
-    if spec.kind == "afsk_pll":
-        return afsk_pll_params(spec)
-    raise NotImplementedError(
-        f"modem {spec.kind!r} is not ported yet (ROADMAP Queue 1 item 11)"
+class PSKParams(NamedTuple):
+    input_bpf: np.ndarray
+    rrc: np.ndarray
+    agc: AGCParams
+
+
+def bpsk_params(spec: BPSKModemSpec) -> PSKParams:
+    n_in = _round_taps(spec.sample_rate, spec.input_bpf_span, spec.symbol_rate)
+    return PSKParams(
+        input_bpf=wd.bandpass_taps(
+            n_in, spec.input_bpf_low_cutoff, spec.input_bpf_high_cutoff,
+            spec.sample_rate, scale=True,
+        ),
+        rrc=wd.rrc_taps(spec.sample_rate, spec.symbol_rate, spec.rrc_span,
+                        spec.rrc_rolloff_rate),
+        agc=_agc_params(spec.agc, spec.sample_rate),
     )
+
+
+class MPSKParams(NamedTuple):
+    """The JAX package's MPSKParams without its f64 ``pd_table``: the port's
+    phase detector is the int32 table K6 reads (``dsp/loops.pd_error_table``,
+    built per bank by ``convert.bank_params_from_jax``)."""
+
+    input_bpf: np.ndarray
+    rrc: np.ndarray
+    hilbert: np.ndarray
+    hilbert_delay: int
+    agc: AGCParams
+
+
+def mpsk_params(spec: MPSKModemSpec) -> MPSKParams:
+    n_in = _round_taps(spec.sample_rate, spec.input_bpf_span_ms, 1000.0)
+    n_hilbert = _round_taps(spec.sample_rate, spec.hilbert_span_ms, 1000.0)
+    if n_hilbert % 2 == 0:
+        n_hilbert += 1  # psk.py:661-665
+    return MPSKParams(
+        input_bpf=wd.bandpass_taps(
+            n_in, spec.input_bpf_low_cutoff, spec.input_bpf_high_cutoff,
+            spec.sample_rate, scale=True,
+        ),
+        rrc=wd.rrc_taps(spec.sample_rate, spec.symbol_rate, spec.rrc_span,
+                        spec.rrc_rolloff_rate),
+        hilbert=wd.hilbert_taps(n_hilbert),
+        hilbert_delay=n_hilbert // 2,
+        agc=_agc_params(spec.agc, spec.sample_rate),
+    )
+
+
+_BUILDERS = {
+    "afsk": afsk_params,
+    "afsk_pll": afsk_pll_params,
+    "bpsk": bpsk_params,
+    "mpsk": mpsk_params,
+}
+
+
+def build_params(spec):
+    if spec.kind not in _BUILDERS:
+        raise NotImplementedError(
+            f"modem {spec.kind!r} is not ported yet (ROADMAP Queue 2)")
+    return _BUILDERS[spec.kind](spec)

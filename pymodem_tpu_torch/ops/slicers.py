@@ -1,17 +1,18 @@
-"""The binary symbol-timing slicer: kernel K1, its plain twin, compaction.
+"""Symbol-timing slicers: kernels K1 and K7, their twins, compaction.
 
-Port of ``pymodem_tpu.ops.slicers`` (``binary_slice``, ``compact_bytes``,
-``compact_windowed``, ``safe_compact_window``) and of the Pallas kernel
-that replaces the scan on the TPU,
-``pymodem_tpu.ops.pallas_slicers._binary_kernel``
-(``binary_slice_lanes_pallas``, ``decode_emissions``).
+Port of ``pymodem_tpu.ops.slicers`` (``binary_slice``,
+``quadrature_slice``, ``compact_bytes``, ``compact_windowed``,
+``safe_compact_window``) and of the Pallas kernels that replace the scans
+on the TPU, ``pymodem_tpu.ops.pallas_slicers._binary_kernel``
+(``binary_slice_lanes_pallas``, ``decode_emissions``) and ``_quad_kernel``
+(``quadrature_slice_lanes_pallas``).
 
 The slicer is a per-sample FSM (reference slicer.py:59-107): a phase clock
 advances by 1.0 per sample, a bit decision fires when it crosses
 ``sps/2 - 0.5`` (then the clock rewinds by ``sps``), and a zero crossing
 multiplies the clock by ``lock_rate``.  Lanes are (chain, block) streams
-handed over as ``(L, T)`` rows; per-lane constants come as two rows
-``(sps, lock_rate)``.
+handed over as ``(L, T)`` rows (two of them, I and Q, for the quadrature
+slicer); per-lane constants come as two rows ``(sps, lock_rate)``.
 
 Emission encoding, shared by kernel and twin (the Pallas kernel's): with
 ``window == 1`` an (L, T) int32 stream, ``0x100 | byte`` on the sample that
@@ -53,6 +54,35 @@ def safe_compact_window(samples_per_symbol: float, lock_rate: float,
     return min(w, 256)
 
 
+def _encode(emits: list, bytes_: list, window: int) -> torch.Tensor:
+    """Per-step (L,) emit flags and bytes -> the (L, ceil(T/w)) int32
+    emission stream (module docstring)."""
+    emit = torch.stack(emits)
+    enc = torch.where(emit, 0x100 | torch.stack(bytes_), 0)  # (T, L)
+    if window > 1:
+        # one code per window: OR of the window's per-sample codes, the
+        # in-window position in bits 16+
+        T, L = enc.shape
+        n_out = -(-T // window)
+        pos = (torch.arange(T, device=enc.device, dtype=torch.int32)
+               % window)[:, None] << 16
+        enc = torch.where(emit, enc | pos, 0)
+        enc = F.pad(enc, (0, 0, 0, n_out * window - T))
+        enc = enc.reshape(n_out, window, L)
+        acc = enc[:, 0]
+        for k in range(1, window):
+            acc = acc | enc[:, k]
+        enc = acc
+    return enc.t().contiguous()
+
+
+def _crossings(xt: torch.Tensor) -> torch.Tensor:
+    """(T, L) zero crossings against the previous sample (0 before the
+    first)."""
+    last = torch.cat([torch.zeros_like(xt[:1]), xt[:-1]])
+    return ((last < 0.0) & (xt >= 0.0)) | ((last >= 0.0) & (xt < 0.0))
+
+
 def binary_slice(x: torch.Tensor, lane_params: torch.Tensor,
                  window: int = 1) -> torch.Tensor:
     """Plain PyTorch twin of kernel K1: vectorised over lanes, a loop over
@@ -64,12 +94,10 @@ def binary_slice(x: torch.Tensor, lane_params: torch.Tensor,
     rollover = sps / 2.0 - 0.5
     xt = x.t()
     # the per-sample inputs of the recurrence that depend on x alone --
-    # the decided bit and the zero crossing against the previous sample
-    # (0 before the first) -- are computed for all t up front
-    last = torch.cat([torch.zeros_like(xt[:1]), xt[:-1]])
+    # the decided bit and the zero crossing -- are computed for all t up
+    # front
     bits = (xt >= 0).to(torch.int32).unbind(0)
-    crossings = (((last < 0.0) & (xt >= 0.0))
-                 | ((last >= 0.0) & (xt < 0.0))).unbind(0)
+    crossings = _crossings(xt).unbind(0)
     clock = torch.zeros(L, dtype=x.dtype, device=dev)
     byte = torch.zeros(L, dtype=torch.int32, device=dev)
     bit_count = torch.zeros_like(byte)
@@ -87,22 +115,56 @@ def binary_slice(x: torch.Tensor, lane_params: torch.Tensor,
         clock = torch.where(crossings[t], clock * lock_rate, clock)
         emits.append(emit)
         bytes_.append(byte)
-    emit = torch.stack(emits)
-    enc = torch.where(emit, 0x100 | torch.stack(bytes_), 0)  # (T, L)
-    if window > 1:
-        # one code per window: OR of the window's per-sample codes, the
-        # in-window position in bits 16+
-        n_out = -(-T // window)
-        pos = (torch.arange(T, device=dev, dtype=torch.int32)
-               % window)[:, None] << 16
-        enc = torch.where(emit, enc | pos, 0)
-        enc = F.pad(enc, (0, 0, 0, n_out * window - T))
-        enc = enc.reshape(n_out, window, L)
-        acc = enc[:, 0]
-        for k in range(1, window):
-            acc = acc | enc[:, k]
-        enc = acc
-    return enc.t().contiguous()
+    return _encode(emits, bytes_, window)
+
+
+def quadrature_slice(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
+                     lane_params: torch.Tensor, demap, state_mask: int,
+                     bits_per_symbol: int, window: int = 1) -> torch.Tensor:
+    """Plain PyTorch twin of kernel K7, the IQ slicer (reference
+    slicer.py:193-242): the state register takes ``(I >= 0, Q >= 0)`` at
+    each decision, the byte takes ``demap[state]``, ``bits_per_symbol``
+    bits at a time, and a zero crossing on either rail scales the clock by
+    ``lock_rate``.  i_lanes, q_lanes: (L, T); lane_params: (2, L) rows
+    (sps, lock_rate); ``demap`` a sequence of ints.  Returns the int32
+    emission stream (module docstring)."""
+    L, T = i_lanes.shape
+    dev = i_lanes.device
+    sps, lock_rate = lane_params.to(i_lanes.dtype)
+    rollover = sps / 2.0 - 0.5
+    table = torch.as_tensor(tuple(demap), dtype=torch.int32, device=dev)
+    it, qt = i_lanes.t(), q_lanes.t()
+    signs = (torch.where(it >= 0, 2, 0)
+             | torch.where(qt >= 0, 1, 0)).to(torch.int32).unbind(0)
+    crossings = (_crossings(it) | _crossings(qt)).unbind(0)
+    clock = torch.zeros(L, dtype=i_lanes.dtype, device=dev)
+    byte = torch.zeros(L, dtype=torch.int32, device=dev)
+    bit_count = torch.zeros_like(byte)
+    state = torch.zeros_like(byte)
+    emits, bytes_ = [], []
+    for t in range(T):
+        clock = clock + 1.0
+        decide = clock >= rollover
+        clock = torch.where(decide, clock - sps, clock)
+        state = torch.where(decide, ((state << 2) & state_mask) | signs[t],
+                            state)
+        byte = torch.where(decide, (byte << bits_per_symbol)
+                           | table.take(state.long()), byte)
+        bit_count = torch.where(decide, bit_count + bits_per_symbol,
+                                bit_count)
+        emit = bit_count >= 8
+        bit_count = torch.where(emit, 0, bit_count)
+        out_byte = byte & 0xFF
+        byte = torch.where(emit, out_byte, byte)
+        clock = torch.where(crossings[t], clock * lock_rate, clock)
+        emits.append(emit)
+        bytes_.append(out_byte)
+    return _encode(emits, bytes_, window)
+
+
+def _check_window(window: int) -> None:
+    if window < 1 or window & (window - 1) or window > 256:
+        raise ValueError(f"window must be a power of two <= 256: {window}")
 
 
 def binary_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor,
@@ -114,34 +176,75 @@ def binary_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
         raise ValueError(f"bad shapes x {tuple(x.shape)} "
                          f"lane_params {tuple(lane_params.shape)}")
-    if window < 1 or window & (window - 1) or window > 256:
-        raise ValueError(f"window must be a power of two <= 256: {window}")
+    _check_window(window)
     if x.device.type == "cpu":
         return binary_slice(x, lane_params, window)
-    if x.device.type != "cuda":
-        raise ValueError(f"binary_slice_lanes: unsupported device {x.device}")
     from .. import _ext
 
-    for name, t in (("x", x), ("lane_params", lane_params)):
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous float32 tensor on "
-                             f"{x.device}, got {t.dtype} on {t.device}")
+    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params)
     L, T = x.shape
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
                       device=x.device)
-    fn = _ext.kernel("binary_slice_lanes", (ctypes.c_void_p,) * 3
-                     + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _ext.check("binary_slice_lanes", fn(
-            x.data_ptr(), lane_params.data_ptr(), out.data_ptr(), L, T,
-            window, stream))
+    _ext.launch("binary_slice_lanes", x.device,
+                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3,
+                x.data_ptr(), lane_params.data_ptr(), out.data_ptr(), L, T,
+                window)
     binary_slice_lanes.launches += 1
     return out
 
 
+# the longest demap table K7 takes (a 4-bit state register)
+DEMAP_MAX = 16
+
+
+def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
+                           lane_params: torch.Tensor, demap,
+                           state_mask: int, bits_per_symbol: int,
+                           window: int = 1) -> torch.Tensor:
+    """Kernel K7 (``csrc/quadrature_slicer.cu``) over (L, T) I/Q lane
+    pairs.  ``demap``, ``state_mask`` and ``bits_per_symbol`` are
+    bank-uniform (part of the bank grouping key) and go to the kernel as
+    arguments.
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    only a CPU tensor takes the plain twin ``quadrature_slice``."""
+    demap = tuple(int(v) for v in demap)
+    if (i_lanes.ndim != 2 or q_lanes.shape != i_lanes.shape
+            or lane_params.shape != (2, i_lanes.shape[0])):
+        raise ValueError(f"bad shapes i {tuple(i_lanes.shape)} q "
+                         f"{tuple(q_lanes.shape)} lane_params "
+                         f"{tuple(lane_params.shape)}")
+    _check_window(window)
+    if not (len(demap) <= DEMAP_MAX and (state_mask | 3) < len(demap)
+            and bits_per_symbol in (1, 2)):
+        raise ValueError(f"demap of {len(demap)} entries, state_mask "
+                         f"{state_mask:#x}, bits_per_symbol "
+                         f"{bits_per_symbol}: the kernel takes a demap of "
+                         f"at most {DEMAP_MAX} entries covering the state "
+                         "mask and 1 or 2 bits per decision")
+    if i_lanes.device.type == "cpu":
+        return quadrature_slice(i_lanes, q_lanes, lane_params, demap,
+                                state_mask, bits_per_symbol, window)
+    from .. import _ext
+
+    _ext.require(i_lanes.device, torch.float32, i_lanes=i_lanes,
+                 q_lanes=q_lanes, lane_params=lane_params)
+    L, T = i_lanes.shape
+    out = torch.empty((L, -(-T // window)), dtype=torch.int32,
+                      device=i_lanes.device)
+    table = (ctypes.c_int * DEMAP_MAX)(*demap)
+    _ext.launch("quadrature_slice_lanes", i_lanes.device,
+                (ctypes.c_void_p,) * 4 + (ctypes.POINTER(ctypes.c_int),)
+                + (ctypes.c_int,) * 5,
+                i_lanes.data_ptr(), q_lanes.data_ptr(),
+                lane_params.data_ptr(), out.data_ptr(), table, L, T, window,
+                state_mask, bits_per_symbol)
+    quadrature_slice_lanes.launches += 1
+    return out
+
+
 binary_slice_lanes.launches = 0
+quadrature_slice_lanes.launches = 0
 
 
 def decode_emissions(enc: torch.Tensor) -> SlicerOut:

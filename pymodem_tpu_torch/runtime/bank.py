@@ -1,7 +1,8 @@
 """Banked, block-parallel chain execution on one GPU: the host-codec route.
 
-Port of the parts of ``pymodem_tpu.runtime.bank`` that the AFSK-300
-IL2P+CRC decode runs on ``run_banked(codec="host")``:
+Port of the parts of ``pymodem_tpu.runtime.bank`` that the IL2P decode of
+the ``afsk``, ``afsk_pll``, ``bpsk`` and ``mpsk`` families runs on
+``run_banked(codec="host")``, with the binary and quadrature slicers:
 
 * **Chain bank axis**: chains with the same static structure (modem family
   and parameter shapes, slicer, rates) stack into one bank, whose
@@ -12,14 +13,16 @@ IL2P+CRC decode runs on ``run_banked(codec="host")``:
   the ``overlap`` halo, which covers loop acquisition plus the longest
   packet, and each packet belongs to exactly one block by its stream
   address.  Sequential scans thus become ``chains x blocks`` independent
-  lanes: one thread each in kernels K1 and K2.
+  lanes: one thread each in the loop and slicer kernels.
 
 Per bank, every device stage runs on the GPU: framing (``unfold``), the
-modem demod (FIRs as ``conv1d``; for ``afsk_pll`` kernel K2), the binary
-slicer (kernel K1), compaction, ``descramble_bytes_multi`` and
-``il2p_sync_candidates``.  The byte streams and sync maps then come back to
-the host, where the reference-exact IL2P state machines decode each block
-(``codecs/host.py``), and ``PacketAggregate`` correlates and reports.
+modem demod (FIRs on the ``dsp/fir.py`` engines; the carrier loops as
+kernels K2 ``afsk_pll``, K3 ``bpsk`` and K6 ``mpsk``, the MPSK AGC as K4),
+the slicer (K1 binary, K7 quadrature), compaction,
+``descramble_bytes_multi`` and ``il2p_sync_candidates``.  The byte streams
+and sync maps then come back to the host, where the reference-exact IL2P
+state machines decode each block (``codecs/host.py``), and
+``PacketAggregate`` correlates and reports.
 
 Deliberate differences from the JAX package: float32 only; no sequential
 executor, so a failing bank raises instead of being retried on the CPU;
@@ -37,17 +40,25 @@ import torch
 import torch.nn.functional as F
 
 from .. import modems
-from ..config import BinarySlicerSpec, ChainSpec, IL2PCodecSpec
+from ..config import ChainSpec
 from ..convert import bank_params_from_jax
 from ..device import resolve
+from ..dsp.agc import agc_lanes
 from ..dsp.fir import fir_valid_multi, fir_valid_nd, fir_valid_per_chain
-from ..dsp.loops import afsk_pll_lanes, agc_lane_params, lane_params_from_loop
+from ..dsp.loops import (
+    afsk_pll_lanes,
+    agc_lane_params,
+    bpsk_costas_lanes,
+    lane_params_from_loop,
+    mpsk_loop_lanes,
+)
 from ..ops.lfsr import descramble_bytes_multi
 from ..ops.slicers import (
     binary_slice_lanes,
     compact_bytes,
     compact_windowed,
     decode_emissions,
+    quadrature_slice_lanes,
     safe_compact_window,
 )
 from ..ops.sync import il2p_sync_candidates, pack_bits
@@ -147,33 +158,42 @@ class Bank:
     trim_post: int = 0
 
 
+_PORTED_MODEMS = ("afsk", "afsk_pll", "bpsk", "mpsk")
+_PORTED_SLICERS = ("binary", "quadrature")
+
+
 def check_chain_supported(chain: ChainSpec) -> None:
     """Raise NotImplementedError for chains outside the ported slice."""
     kind = chain.modem.kind
-    if kind not in ("afsk", "afsk_pll"):
+    if kind not in _PORTED_MODEMS:
         raise NotImplementedError(
             f"chain {chain.name!r}: modem {kind!r} is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
-    if not isinstance(chain.slicer, BinarySlicerSpec):
+            "(ROADMAP Queue 2)")
+    if chain.slicer.kind not in _PORTED_SLICERS:
         raise NotImplementedError(
             f"chain {chain.name!r}: slicer {chain.slicer.kind!r} is not "
-            "ported yet (ROADMAP Queue 1 item 11, kernels K7/K8)")
-    if not isinstance(chain.codec, IL2PCodecSpec):
+            "ported yet (ROADMAP Queue 2, kernel K8)")
+    if chain.codec.kind != "il2p":
         raise NotImplementedError(
             f"chain {chain.name!r}: codec {chain.codec.kind!r} is not ported "
             "yet (ROADMAP Queue 1 item 12)")
 
 
 def _modem_geometry(kind: str, p) -> tuple[int, int, int]:
-    """(input-rate trim, demod-rate trim_post, up) for the block plan."""
+    """(input-rate trim, demod-rate trim_post, up) for the block plan: the
+    sum of the modem cascade's FIR trims (taps - 1 each)."""
+    if kind == "afsk" and p.oversample > 1:
+        trim_pre = (p.input_bpf.shape[-1] - 1) + (p.mark_i.shape[-1] - 1)
+        return trim_pre, p.output_lpf.shape[-1] - 1, int(p.oversample)
     if kind == "afsk":
-        if p.oversample > 1:
-            trim_pre = (p.input_bpf.shape[-1] - 1) + (p.mark_i.shape[-1] - 1)
-            return trim_pre, p.output_lpf.shape[-1] - 1, int(p.oversample)
-        trim = ((p.input_bpf.shape[-1] - 1) + (p.mark_i.shape[-1] - 1)
-                + (p.output_lpf.shape[-1] - 1))
-        return trim, 0, 1
-    return (p.input_bpf.shape[-1] - 1) + (p.output_lpf.shape[-1] - 1), 0, 1
+        taps = (p.input_bpf, p.mark_i, p.output_lpf)
+    elif kind == "afsk_pll":
+        taps = (p.input_bpf, p.output_lpf)
+    elif kind == "bpsk":
+        taps = (p.input_bpf, p.rrc)
+    else:  # mpsk: the Hilbert FIR sits between the AGC and the loop
+        taps = (p.input_bpf, p.hilbert, p.rrc)
+    return sum(t.shape[-1] - 1 for t in taps), 0, 1
 
 
 def _chain_device_params(chain: ChainSpec) -> dict:
@@ -184,17 +204,22 @@ def _chain_device_params(chain: ChainSpec) -> dict:
         a = np.asarray(a)
         return a.astype(np.float32) if a.dtype.kind == "f" else a
 
-    mp = modems.build_params(chain.modem)
+    spec = chain.modem
+    mp = modems.build_params(spec)
     modem = {k: to_host(v) for k, v in mp._asdict().items() if k != "agc"}
-    if chain.modem.kind == "afsk_pll":
-        modem["agc"] = {k: to_host(v) for k, v in mp.agc._asdict().items()}
     d: dict[str, Any] = {"modem": modem}
-    if chain.modem.kind == "afsk_pll":
+    if spec.kind in _COHERENT_KINDS:
+        modem["agc"] = {k: to_host(v) for k, v in mp.agc._asdict().items()}
         d["loop"] = {k: to_host(v) for k, v in
-                     modems._loop_params_host(chain.modem)._asdict().items()}
+                     modems._loop_params_host(spec)._asdict().items()}
+    if spec.kind == "mpsk":
+        d["pd_granularity"] = np.int32(spec.pd_granularity)
+        d["pd_gain"] = np.float32(spec.pd_gain)
     sl = chain.slicer
     d["sps"] = np.float32(sl.sample_rate / sl.symbol_rate)
     d["lock_rate"] = np.float32(sl.lock_rate)
+    if sl.kind == "quadrature":
+        d["demap"] = np.asarray(sl.demap, dtype=np.int32)
     return d
 
 
@@ -245,8 +270,14 @@ def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
         sl = chain.slicer
         shapes = tuple((np.shape(v), str(np.asarray(v).dtype))
                        for v in _leaves(params))
+        slicer_static = (sl.kind, getattr(sl, "bits_per_symbol", None),
+                         getattr(sl, "state_mask", None),
+                         getattr(sl, "demap", None))
         rates = (chain.modem.sample_rate, sl.sample_rate, sl.symbol_rate)
-        key = (chain.modem.kind, shapes, sl.kind, rates)
+        # one phase-detector granularity per bank (the JAX package keys it
+        # through the shape of its pd_table leaf, which the port drops)
+        key = (chain.modem.kind, shapes, slicer_static, rates,
+               getattr(chain.modem, "pd_granularity", None))
         banks.setdefault(key, []).append((chain, params))
     out = []
     for members in banks.values():
@@ -257,11 +288,15 @@ def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
             scales = _afsk_shared_scales(specs)
             if scales is not None:
                 tree["space_scale"] = scales.astype(np.float32)
-        elif len(specs) >= 2 and all(
+        elif kind in _COHERENT_KINDS and len(specs) >= 2 and all(
             bool(np.all(leaf == leaf[:1])) for leaf in _leaves(tree["modem"])
         ):
-            # coherent carrier sweep: every modem leaf identical, so the BPF
-            # runs once and broadcasts (bitwise equal to the per-chain form)
+            # coherent carrier sweep: every modem leaf identical, so the
+            # pre-loop stages (BPF; for mpsk also the AGC and the Hilbert
+            # FIR) run once and broadcast, bitwise equal to the per-chain
+            # form.  The mpsk detector gain is not a modem leaf, so a gain
+            # sweep shares too (the JAX package's pd_table leaf keeps such
+            # a sweep per chain there)
             tree["pre_shared"] = np.ones(len(specs), np.float32)
         trim, trim_post, up = _modem_geometry(
             kind, modems.build_params(specs[0].modem))
@@ -342,24 +377,29 @@ def afsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def afsk_pll_loop_inputs(params: dict, blocks: torch.Tensor):
-    """(B, Lin) blocks -> the inputs of kernel K2 for all C*B lanes:
-    ((C*B, L1) band-passed lanes, (15, C*B) lane rows).  The AGC's
-    ``normal`` is each chain's signed max over every block (agc.py:67)."""
+def _input_bpf(params: dict, blocks: torch.Tensor):
+    """A coherent bank's input band-pass: ((C, B, L1) per-chain streams,
+    the (B, L1) stream they all share or None, (C,) AGC normals).  The
+    ``normal`` is each chain's signed max over every block (agc.py:67); a
+    ``pre_shared`` carrier sweep runs the FIR once and broadcasts."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
     if "pre_shared" in params:
-        # carrier sweep: the BPF runs once and broadcasts
         x1 = fir_valid_nd(blocks, m["input_bpf"][0])
-        x = x1[None].expand(C, *x1.shape)
-        normals = x1.max().expand(C)
-    else:
-        x = fir_valid_multi(blocks, m["input_bpf"])
-        normals = x.amax(dim=(1, 2))
-    _, B, L1 = x.shape
+        return x1[None].expand(C, *x1.shape), x1, x1.max().expand(C)
+    x = fir_valid_multi(blocks, m["input_bpf"])
+    return x, None, x.amax(dim=(1, 2))
+
+
+def coherent_loop_inputs(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the inputs of kernels K2 and K3 for all C*B
+    lanes: ((C*B, L1) band-passed lanes, (15, C*B) lane rows: the loop's,
+    then the fused AGC's)."""
+    x, _, normals = _input_bpf(params, blocks)
+    C, B, L1 = x.shape
     lane_params = torch.cat([
         lane_params_from_loop(params["loop"], C, B),
-        agc_lane_params(m["agc"], normals, C, B),
+        agc_lane_params(params["modem"]["agc"], normals, C, B),
     ]).contiguous()
     return x.reshape(C * B, L1).contiguous(), lane_params
 
@@ -370,22 +410,112 @@ def afsk_pll_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
     lanes, then the per-chain output LPF."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params = afsk_pll_loop_inputs(params, blocks)
+    x, lane_params = coherent_loop_inputs(params, blocks)
     demod = afsk_pll_lanes(x, lane_params, params["sine_table"])
     return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]),
                                m["output_lpf"])
 
 
-_DEMODS = {"afsk": afsk_bank_demod, "afsk_pll": afsk_pll_bank_demod}
+def bpsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
+    """(B, Lin) blocks -> (C, B, L2) BPSK basebands: band-pass FIR, then
+    the AGC follower and the Costas loop as ONE pass of kernel K3 over all
+    C*B lanes, then the per-chain RRC."""
+    m = params["modem"]
+    C = m["input_bpf"].shape[0]
+    x, lane_params = coherent_loop_inputs(params, blocks)
+    demod = bpsk_costas_lanes(x, lane_params, params["sine_table"],
+                              params["cos_table"])
+    return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]), m["rrc"])
 
 
-def bank_basebands(bank: Bank, blocks: torch.Tensor) -> torch.Tensor:
-    """(B, Lin) float32 frames -> (C, B, L2) demodulated basebands."""
+def mpsk_agc_inputs(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the inputs of kernel K4 for an MPSK bank: the
+    band-passed lanes and their (5, lanes) AGC rows.  A ``pre_shared``
+    sweep hands over its B shared lanes with chain 0's AGC rows; any other
+    bank all C*B lanes."""
+    m = params["modem"]
+    x, x1, normals = _input_bpf(params, blocks)
+    if x1 is not None:
+        agc0 = {k: v[:1] for k, v in m["agc"].items()}
+        rows = agc_lane_params(agc0, normals[:1], 1, x1.shape[0])
+        return x1.contiguous(), rows.contiguous()
+    C, B, L1 = x.shape
+    rows = agc_lane_params(m["agc"], normals, C, B)
+    return x.reshape(C * B, L1).contiguous(), rows.contiguous()
+
+
+def mpsk_analytic(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the MPSK analytic signal (real, imag), each
+    (C, B, L2): band-pass FIR, the AGC follower (kernel K4), the Hilbert
+    FIR for the imaginary rail and its delay for the real one
+    (psk.py:714-716).  A ``pre_shared`` sweep runs K4 and the Hilbert FIR
+    once over its B shared lanes, then broadcasts."""
+    m = params["modem"]
+    C = m["input_bpf"].shape[0]
+    lanes, rows = mpsk_agc_inputs(params, blocks)
+    B = blocks.shape[0]
+    xa = agc_lanes(lanes, rows)
+    delay = (m["hilbert"].shape[-1] - 1) // 2
+    if "pre_shared" in params:
+        imag = fir_valid_nd(xa, m["hilbert"][0])
+        real = xa[..., delay:-delay] if delay else xa
+        return (real[None].expand(C, *real.shape),
+                imag[None].expand(C, *imag.shape))
+    xa = xa.reshape(C, B, -1)
+    imag = fir_valid_per_chain(xa, m["hilbert"])
+    real = xa[..., delay:-delay] if delay else xa
+    return real, imag
+
+
+def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the inputs of kernel K6 for all C*B lanes:
+    (real, imag) (C*B, L2) lanes, (12, C*B) rows (the loop's, then
+    pd_gain and pd_granularity), the bank's distinct phase-detector tables
+    (U, g*g) int32 and each lane's table (C*B,) int32."""
+    real, imag = mpsk_analytic(params, blocks)
+    C, B, L2 = real.shape
+
+    def rep(leaf):
+        return leaf.to(torch.float32).reshape(C).repeat_interleave(B)
+
+    lane_params = torch.cat([
+        lane_params_from_loop(params["loop"], C, B),
+        torch.stack([rep(params["pd_gain"]), rep(params["pd_granularity"])]),
+    ]).contiguous()
+    tables, chain_table = torch.unique(params["pd_error_table"], dim=0,
+                                       return_inverse=True)
+    pd_index = chain_table.to(torch.int32).repeat_interleave(B)
+    return (real.reshape(C * B, L2).contiguous(),
+            imag.reshape(C * B, L2).contiguous(), lane_params,
+            tables.contiguous(), pd_index.contiguous())
+
+
+def mpsk_bank_demod(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the (i, q) MPSK basebands, each (C, B, L3): the
+    analytic signal, the carrier loop as ONE pass of kernel K6 over all C*B
+    lanes, then the per-chain RRC on both rails."""
+    m = params["modem"]
+    C = m["input_bpf"].shape[0]
+    re, im, lane_params, tables, pd_index = mpsk_loop_inputs(params, blocks)
+    i_d, q_d = mpsk_loop_lanes(re, im, lane_params, params["sine_table"],
+                               params["cos_table"], tables, pd_index)
+    L2 = re.shape[-1]
+    return (fir_valid_per_chain(i_d.reshape(C, -1, L2), m["rrc"]),
+            fir_valid_per_chain(q_d.reshape(C, -1, L2), m["rrc"]))
+
+
+_DEMODS = {"afsk": afsk_bank_demod, "afsk_pll": afsk_pll_bank_demod,
+           "bpsk": bpsk_bank_demod, "mpsk": mpsk_bank_demod}
+
+
+def bank_basebands(bank: Bank, blocks: torch.Tensor):
+    """(B, Lin) float32 frames -> (C, B, L2) demodulated basebands, or an
+    (i, q) pair of them for ``mpsk``."""
     return _DEMODS[bank.kind](bank.params, blocks)
 
 
 def slicer_lane_params(bank: Bank, blocks_per_chain: int) -> torch.Tensor:
-    """(2, C*B) float32 rows (sps, lock_rate) for kernel K1."""
+    """(2, C*B) float32 rows (sps, lock_rate) for kernels K1 and K7."""
     p = bank.params
     return torch.stack([
         p["sps"].repeat_interleave(blocks_per_chain),
@@ -393,16 +523,38 @@ def slicer_lane_params(bank: Bank, blocks_per_chain: int) -> torch.Tensor:
     ]).to(torch.float32).contiguous()
 
 
+def _bits_per_symbol(slicer) -> int:
+    return getattr(slicer, "bits_per_symbol", 1)
+
+
+def slice_lanes(bank: Bank, basebands, window: int) -> torch.Tensor:
+    """Basebands -> the (C, B, ceil(L/window)) int32 emission stream: kernel
+    K1 over the C*B lanes of a real baseband, K7 over the lane pairs of an
+    (i, q) one.  The quadrature slicer's demap, state mask and bits per
+    decision are bank-uniform (part of the grouping key)."""
+    pair = isinstance(basebands, tuple)
+    C, B, L2 = (basebands[0] if pair else basebands).shape
+    rows = slicer_lane_params(bank, B)
+
+    def lanes(t):
+        return t.reshape(C * B, L2).contiguous()
+
+    if bank.slicer_kind == "binary":
+        enc = binary_slice_lanes(lanes(basebands), rows, window=window)
+    else:
+        sl = bank.specs[0].slicer
+        enc = quadrature_slice_lanes(
+            lanes(basebands[0]), lanes(basebands[1]), rows, sl.demap,
+            sl.state_mask, _bits_per_symbol(sl), window=window)
+    return enc.reshape(C, B, -1)
+
+
 def bank_frames_compute(bank: Bank, blocks: torch.Tensor, capacity: int,
                         window: int, sync_tolerance: int):
     """(B, Lin) float32 frames -> per-chain (C, B, cap) descrambled bytes
     (uint8), addresses (int32), counts (C, B) and the packed IL2P sync
     candidate map (C, B, cap) uint8."""
-    basebands = bank_basebands(bank, blocks)
-    C, B, L2 = basebands.shape
-    enc = binary_slice_lanes(basebands.reshape(C * B, L2).contiguous(),
-                             slicer_lane_params(bank, B),
-                             window=window).reshape(C, B, -1)
+    enc = slice_lanes(bank, bank_basebands(bank, blocks), window)
     if window > 1:
         data, addr, count = compact_windowed(enc, window, capacity)
     else:
@@ -424,17 +576,37 @@ def bank_frames_compute(bank: Bank, blocks: torch.Tensor, capacity: int,
 _ACQ_SECONDS_FLOOR = 0.35
 _ACQ_SYMBOLS = 192.0
 _ACQ_COHERENT_FLOOR = 1.25
-_COHERENT_KINDS = ("afsk_pll",)
+_COHERENT_KINDS = ("afsk_pll", "bpsk", "mpsk")
 # Block length: long enough that the halo tax (block+overlap)/block stays
 # <= 4/3, and otherwise sized so _TARGET_LANES lanes of one bank hold
 # _LANE_BUDGET_BYTES of f32 working set (2.5 live copies per sample).
 _TARGET_LANES = 2048
 _LANE_BUDGET_BYTES = 3e9
 # Block groups: a bank runs all its blocks in one pass unless its working
-# set (~16 bytes per chain-sample: frames, basebands, slicer codes and
-# temporaries) would pass _GROUP_BUDGET_BYTES of the 80 GB card.
+# set would pass _GROUP_BUDGET_BYTES of the 80 GB card.  The working set
+# per chain and input sample, by family, is what the demod holds at its
+# peak: the f32 streams on the chain axis alive together (4 bytes each) and
+# the banded-matmul FIR's framed copy of its input ((128 + taps - 1)/128
+# streams: ~2 for the 133-tap PLL LPF, ~3 for a 44.1 kHz RRC).  Rounded up
+# from the peaks chip_smoke.py prints per bank (PERF.md).
 _GROUP_BUDGET_BYTES = 16e9
-_BYTES_PER_CHAIN_SAMPLE = 16
+_BYTES_PER_CHAIN_SAMPLE = {
+    # basebands, a chain's four correlator streams, their magnitudes
+    "afsk": 16,
+    # loop lanes, loop output, the output FIR's frames (~2-3) and output;
+    # the B-sized frames weigh more in a bank of few chains (measured: PLL
+    # pair 32.0, PLL sweep 26.8, BPSK-1200 sweep at 44.1 kHz 28.3)
+    "afsk_pll": 40,
+    "bpsk": 32,
+    # band-passed lanes, K4's output, the Hilbert output, real and imag
+    # lanes, the loop's two outputs, the RRC frames (~3) and outputs
+    # (QPSK sweep 40.4 and MPSK pair 43.3 measured)
+    "mpsk": 48,
+}
+
+
+def _chain_bit_rate(chain: ChainSpec) -> float:
+    return chain.slicer.symbol_rate * _bits_per_symbol(chain.slicer)
 
 
 def _protocol_max_packet_seconds(chain: ChainSpec) -> float:
@@ -443,7 +615,7 @@ def _protocol_max_packet_seconds(chain: ChainSpec) -> float:
     CRC(4) bytes."""
     payload = 1023
     wire_bits = (3 + 15 + payload + -(-payload // 239) * 16 + 4) * 8
-    return wire_bits / chain.slicer.symbol_rate
+    return wire_bits / _chain_bit_rate(chain)
 
 
 def bank_auto_geometry(bank: Bank, sample_rate: float,
@@ -510,11 +682,11 @@ def bank_plan(bank: Bank, n_audio: int,
                               bank.up, bank.trim_post)
 
 
-def blocks_per_group(n_chains: int, plan: BlockPlan) -> int:
+def blocks_per_group(bank: Bank, plan: BlockPlan) -> int:
     """Blocks per device pass, so a pass's working set stays under
     _GROUP_BUDGET_BYTES; balanced so the last group is not mostly empty."""
-    per_block = max(n_chains * plan.block_input_len * plan.up
-                    * _BYTES_PER_CHAIN_SAMPLE, 1)
+    per_block = max(len(bank.specs) * plan.block_input_len * plan.up
+                    * _BYTES_PER_CHAIN_SAMPLE[bank.kind], 1)
     g = max(int(_GROUP_BUDGET_BYTES // per_block), 1)
     n_groups = -(-plan.n_blocks // g)
     return -(-plan.n_blocks // n_groups)
@@ -525,7 +697,7 @@ def slicer_window(bank: Bank) -> int:
     chains (ops/slicers.safe_compact_window)."""
     return min(
         safe_compact_window(c.slicer.sample_rate / c.slicer.symbol_rate,
-                            c.slicer.lock_rate, 1)
+                            c.slicer.lock_rate, _bits_per_symbol(c.slicer))
         for c in bank.specs
     )
 
@@ -535,7 +707,8 @@ def bank_capacity(bank: Bank, plan: BlockPlan) -> int:
     cap = 16
     for c in bank.specs:
         sps = c.slicer.sample_rate / c.slicer.symbol_rate
-        nominal = (plan.block_len + plan.overlap) / sps / 8.0
+        nominal = ((plan.block_len + plan.overlap) / sps
+                   * _bits_per_symbol(c.slicer) / 8.0)
         cap = max(cap, int(nominal * 1.5) + 16)
     return -(-cap // 8) * 8
 
@@ -561,7 +734,7 @@ def dispatch_bank(bank: Bank, plan: BlockPlan, audio: torch.Tensor,
     frames = frame_blocks(audio, plan)
     cap = bank_capacity(bank, plan)
     window = slicer_window(bank)
-    g = blocks_per_group(len(bank.specs), plan)
+    g = blocks_per_group(bank, plan)
     outs = [
         bank_frames_compute(bank, frames[s : s + g].to(torch.float32), cap,
                             window, sync_tolerance)

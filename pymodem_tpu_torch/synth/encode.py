@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from pymodem_tpu.ops.hamming import HAMMING74_CODEWORDS
-
 from ..codecs.host import (
     SCRAMBLE_POLY,
     SCRAMBLE_SEED,
@@ -28,6 +26,7 @@ from ..codecs.host import (
 )
 from ..ops import rs as rs_ops
 from ..ops.crc import np_crc16
+from ..ops.hamming import HAMMING74_CODEWORDS
 from ..ops.lfsr import poly_tap_positions
 
 

@@ -1,17 +1,16 @@
-"""Synthetic IL2P fixtures for the AFSK families, jax-free.
+"""Synthetic IL2P fixtures for the ported modem families, jax-free.
 
-Port of the IL2P/AFSK part of ``pymodem_tpu.synth.fixtures``: modulated
-frames matched to a chain spec, for tests and for ``chip_smoke.py`` on a
-machine without JAX.  Modulation reuses the jax-free
-``pymodem_tpu.synth.modulate``.  The round trip decode(modulate(frames)) ==
-frames is what the tests assert.
+Port of the IL2P part of ``pymodem_tpu.synth.fixtures``: modulated frames
+matched to a chain spec (AFSK, AFSK-PLL, BPSK, MPSK), for tests and for
+``chip_smoke.py`` on a machine without JAX.  Modulation goes through the
+port's copy of ``synth/modulate.py``.  The round trip
+decode(modulate(frames)) == frames is what the tests assert.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..config import AFSKModemSpec, AFSKPLLModemSpec, IL2PCodecSpec
 from . import encode as enc
 from . import modulate as mod
 
@@ -51,9 +50,9 @@ def synthesize_for_chain(chain, rate: float, rng: np.random.Generator,
                          n_frames: int = 3, size: int = 30,
                          gap_bits: int = 600):
     """Audio carrying ``n_frames`` IL2P frames, line-coded per the chain's
-    own spec (scrambler poly/invert, AFSK tones and rate).  Returns
-    (sent_payloads, audio_float)."""
-    if not isinstance(chain.codec, IL2PCodecSpec):
+    own spec (scrambler poly/invert, modem tones, carrier and rates).
+    Returns (sent_payloads, audio_float)."""
+    if chain.codec.kind != "il2p":
         raise NotImplementedError(
             "only IL2P fixtures are ported (AX.25: ROADMAP Queue 1 item 12)")
     poly = chain.stream.polynomial if chain.stream else 0x1
@@ -62,13 +61,19 @@ def synthesize_for_chain(chain, rate: float, rng: np.random.Generator,
     line = il2p_line_bits(sent, polynomial=poly, invert=invert,
                           gap_bits=gap_bits)
     modem = chain.modem
-    if isinstance(modem, AFSKModemSpec):
+    if modem.kind == "afsk":
         return sent, mod.afsk_modulate(line, rate, modem.symbol_rate,
                                        modem.mark_freq, modem.space_freq)
-    if isinstance(modem, AFSKPLLModemSpec):
+    if modem.kind == "afsk_pll":
         return sent, mod.afsk_modulate(line, rate, modem.symbol_rate,
                                        modem.carrier_freq - 5.0,
                                        modem.carrier_freq + 5.0)
+    if modem.kind == "bpsk" or getattr(modem, "constellation", "") == "bpsk":
+        return sent, mod.bpsk_modulate(line, rate, modem.symbol_rate,
+                                       modem.carrier_freq)
+    if modem.kind == "mpsk":
+        return sent, mod.qpsk_modulate(line, rate, modem.symbol_rate,
+                                       modem.carrier_freq)
     raise NotImplementedError(
         f"modem {modem.kind!r} fixtures are not ported yet "
-        "(ROADMAP Queue 1 item 11)")
+        "(ROADMAP Queue 2)")

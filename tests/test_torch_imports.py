@@ -1,6 +1,10 @@
-"""The PyTorch port imports no JAX, and asks for CUDA without falling back."""
+"""The PyTorch port imports no JAX and nothing of pymodem_tpu, and asks for
+CUDA without falling back."""
 
+import ast
+import glob
 import os
+import shutil
 import subprocess
 import sys
 
@@ -29,6 +33,72 @@ def test_port_imports_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert int(proc.stdout.strip()) >= 20  # every module of the port
+
+
+def _port_sources():
+    return sorted(glob.glob(os.path.join(REPO, "pymodem_tpu_torch", "**",
+                                         "*.py"), recursive=True)
+                  + [os.path.join(REPO, "chip_smoke.py")])
+
+
+def _imported_modules(path):
+    """Every module an ``import`` or ``from ... import`` of the file names
+    (absolute names only: a relative import stays inside its package)."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module
+
+
+def test_port_names_nothing_of_pymodem_tpu():
+    """No module of the port, and not chip_smoke.py, imports pymodem_tpu
+    or any module under it, at any depth of the file."""
+    sources = _port_sources()
+    assert len(sources) >= 30
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported_modules(p)
+           if m == "pymodem_tpu" or m.startswith("pymodem_tpu.")
+           or m == "jax" or m.startswith("jax.")]
+    assert not bad, bad
+
+
+_IMPORT_ALONE = """
+import importlib, importlib.abc, pkgutil, sys
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("pymodem_tpu", "jax"):
+            raise ImportError(f"{name} is not here")
+
+
+sys.meta_path.insert(0, Refuse())
+import chip_smoke
+import pymodem_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pymodem_tpu_torch.__path__,
+                                               "pymodem_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_alone(tmp_path):
+    """pymodem_tpu_torch/ and chip_smoke.py copied alone into a directory
+    import every module there, with pymodem_tpu and jax refused."""
+    shutil.copytree(os.path.join(REPO, "pymodem_tpu_torch"),
+                    tmp_path / "pymodem_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALONE],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert int(proc.stdout.strip()) >= 25
 
 
 def test_cuda_request_without_gpu_raises():

@@ -5,7 +5,7 @@ Three references, as the JAX package's own loop tests use them:
 * the Pallas kernel ``loop_lanes_pallas(kind="afsk_pll")`` with 15 rows
   (AGC fused), in interpret mode, with the twin reading XLA's own ``sin``
   of the 256 quantised angles;
-* ``agc_apply`` then the ``afsk_pll`` scan;
+* the JAX package's ``agc_apply`` then its ``afsk_pll`` scan;
 * the f64 scan with the reference wavetable.
 
 Why f32 is not compared directly.  The twin (like K2, built with
@@ -241,7 +241,12 @@ def test_agc_matches_bitwise(dtype, rng):
     x = (rng.standard_normal(T) * 3.0).astype(dtype)
     args = [np.asarray(getattr(a, k), dtype) for k in AGC_FIELDS]
     want = np.asarray(jagc(jnp.asarray(x), *args, unroll=4))
-    got = tagc.agc_apply(torch.from_numpy(x), *args).numpy()
+    # the follower over one lane, its steps scaled by the signed max of x
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    rows = tloops.agc_lane_params(
+        {k: torch.from_numpy(v[None]) for k, v in zip(AGC_FIELDS, args)},
+        torch.from_numpy(x.max()[None]), 1, 1, tdt)
+    got = tagc.agc_follower(torch.from_numpy(x[None]), rows).numpy()[0]
     np.testing.assert_array_equal(got, want)
 
 
