@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the host-codec route through
+Drives the port's three main paths on the host-codec route through
 ``run_plan_banked`` and through its CLI, and holds every hand-written
-kernel against its plain PyTorch twin:
+kernel (K1-K8) against its plain PyTorch twin:
 
 * the AFSK path: the banked AFSK-300 IL2P+CRC decode of 600 s of 8 kHz
   int16 audio (kernels K1 binary slicer, K2 AFSK PLL + AGC);
 * the PSK path: banked BPSK-1200, QPSK-2400 and MPSK BPSK-1200 IL2P+CRC
   decodes of 600 s of 44.1 kHz int16 audio each (kernels K3 BPSK Costas +
-  AGC, K4 AGC, K6 MPSK loop, K7 quadrature slicer, and K1 again).
+  AGC, K4 AGC, K6 MPSK loop, K7 quadrature slicer, and K1 again);
+* the FSK and Costas-QPSK path: banked FSK-9600 (96 kHz), 4FSK-9600
+  (48 kHz) and Costas QPSK-2400 (44.1 kHz) IL2P+CRC decodes of 600 s each
+  (kernels K8 four-level slicer, K5 QPSK Costas + AGC, and K1, K7 again).
 
 Phases, each printing one line with its seconds:
 
@@ -38,7 +41,22 @@ Phases, each printing one line with its seconds:
    carriers, pre-shared) and ``mpsk_bpsk1200_pair`` (2 ``mpsk`` bpsk_1200
    chains, AGC attack 500 and 400, not shared), each decoding every frame
    with none rejected; warm reruns, splits and peak device memory;
-9. the CLI as a subprocess on a WAV and a QPSK-2400 JSONL config.
+9. the CLI as a subprocess on a WAV and a QPSK-2400 JSONL config;
+10. K8 (windows 1 and the bank's) and K5 (AGC fused) against their twins on
+    the new banks' own inputs (all lanes, a time slice): bitwise; each
+    kernel timed at its full main-path shape;
+11. the FSK and Costas-QPSK path end to end, counters set to 0 just before
+    and read just after: ``fsk9600_sweep8`` (8 ``fsk`` "9600" chains at
+    96 kHz, input cutoffs 6000 + 5 i Hz, binary slicer, G3RUH scrambler),
+    ``fsk4_9600_sweep8`` (8 ``fsk`` "4800" chains at 48 kHz, cutoffs
+    3000 + 5 i Hz, four-level slicer at 4800 Bd) and
+    ``qpsk_costas2400_sweep8`` (8 ``qpsk`` "2400" chains at 44.1 kHz,
+    carriers 1800 + 0.25 i Hz, pre-shared), every chain decoding every
+    frame, none rejected; warm reruns, splits and peak device memory;
+12. the CLI as a subprocess on a WAV and a 4FSK JSONL config.
+
+Every bank must launch each kernel of its family at least once in its
+main-path run, or the script fails.
 
 Any failure raises and the script exits non-zero.  Without a CUDA GPU, or
 outside a checkout of the repository, it exits non-zero before printing a
@@ -62,6 +80,8 @@ from dataclasses import replace
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RATE = 8000
 PSK_RATE = 44100
+FSK_RATE = 96000  # the FSK-9600 bank (bench.py:229)
+FSK4_RATE = 48000  # the 4FSK bank (bench.py:230)
 SECONDS = 600
 MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
@@ -96,8 +116,8 @@ def _chain_line(name: str, modem: str, invert: str = "no") -> dict:
     }
 
 
-def _psk_line(name: str, modem: str, preset: str, slicer: str,
-              slicer_preset: str, poly: str) -> dict:
+def _family_line(name: str, modem: str, preset: str, slicer: str,
+                 slicer_preset: str, poly: str) -> dict:
     return {
         "object_name": name, "object_type": "demod_chain",
         "modem": {"type": modem, "config": preset, "options": {}},
@@ -109,12 +129,25 @@ def _psk_line(name: str, modem: str, preset: str, slicer: str,
 
 
 PSK_LINES = {
-    "bpsk": _psk_line("BPSK 1200 Il2Pc", "bpsk", "1200", "binary", "1200",
-                      "0x3"),
-    "qpsk": _psk_line("QPSK 2400 Il2Pc", "mpsk", "qpsk_2400", "quadrature",
-                      "qpsk_2400", "0x1"),
-    "mpsk_bpsk": _psk_line("BPSK 1200 Il2Pc MPSK", "mpsk", "bpsk_1200",
-                           "quadrature", "bpsk_1200", "0x3"),
+    "bpsk": _family_line("BPSK 1200 Il2Pc", "bpsk", "1200", "binary",
+                         "1200", "0x3"),
+    "qpsk": _family_line("QPSK 2400 Il2Pc", "mpsk", "qpsk_2400",
+                         "quadrature", "qpsk_2400", "0x1"),
+    "mpsk_bpsk": _family_line("BPSK 1200 Il2Pc MPSK", "mpsk", "bpsk_1200",
+                              "quadrature", "bpsk_1200", "0x3"),
+}
+
+
+# the third path's chains: the reference's fsk_9600.json and 4fsk_9600.json
+# shapes (SURVEY.md:115, 128-132; the 4FSK pairing of tests/test_synth.py)
+# and bench.py's Costas-QPSK chain (bench.py:330-340)
+FSK_LINES = {
+    "fsk9600": _family_line("FSK 9600 Il2Pc", "fsk", "9600", "binary",
+                            "9600", "0x63003"),
+    "fsk4": _family_line("4FSK 9600 Il2Pc", "fsk", "4800", "4level", "4800",
+                         "0x1"),
+    "qpsk_costas": _family_line("QPSK 2400 Il2Pc Costas", "qpsk", "2400",
+                                "quadrature", "qpsk_2400", "0x1"),
 }
 
 
@@ -169,6 +202,28 @@ def _psk_banks():
     }
 
 
+def _fsk_banks():
+    """The third path's three chain banks, bench.py's family sweeps
+    (``_family_workload``: 8 chains, input cutoffs in steps of 5 Hz,
+    carriers in steps of 0.25 Hz), with each bank's sample rate."""
+    from pymodem_tpu_torch.config import build_chain_spec
+
+    def sweep(kind, rate, field, start, step):
+        base = build_chain_spec(float(rate), FSK_LINES[kind])
+        return [_variant(base, f"{kind}_{i}", **{field: start + step * i})
+                for i in range(8)]
+
+    return {
+        "fsk9600_sweep8": (sweep("fsk9600", FSK_RATE, "input_lpf_cutoff",
+                                 6000.0, 5.0), FSK_RATE),
+        "fsk4_9600_sweep8": (sweep("fsk4", FSK4_RATE, "input_lpf_cutoff",
+                                   3000.0, 5.0), FSK4_RATE),
+        "qpsk_costas2400_sweep8": (sweep("qpsk_costas", PSK_RATE,
+                                         "carrier_freq", 1800.0, 0.25),
+                                   PSK_RATE),
+    }
+
+
 def _audio():
     """600 s of int16 audio: a 30 s segment of 3 IL2P+CRC frames (30-byte
     payloads, 1842 idle bits before each and after the last) tiled 20
@@ -198,24 +253,24 @@ def _audio():
     return list(sent) * reps, np.tile(seg, reps)
 
 
-def _psk_audio(chain):
-    """int16 audio of up to 600 s for a PSK bank, made as bench.py's
+def _family_audio(chain, rate):
+    """int16 audio of up to 600 s for a family bank, made as bench.py's
     ``_family_workload`` makes it: one segment of 3 IL2P+CRC frames of 30
     bytes with 2000 idle bits around each, modulated per the chain's own
     spec and tiled.  Returns (expected payloads in time order, audio,
     segment length, max_packet_seconds: twice the frame's wire time)."""
     import numpy as np
 
+    from pymodem_tpu_torch.runtime.bank import _chain_bit_rate
     from pymodem_tpu_torch.synth import fixtures as fx
     from pymodem_tpu_torch.synth import modulate as mod
 
     rng = np.random.default_rng(SEED)
-    sent, seg = fx.synthesize_for_chain(chain, float(PSK_RATE), rng,
+    sent, seg = fx.synthesize_for_chain(chain, float(rate), rng,
                                         n_frames=3, size=30, gap_bits=2000)
     seg = mod.to_int16(np.asarray(seg))
-    reps = SECONDS * PSK_RATE // len(seg)
-    bps = getattr(chain.slicer, "bits_per_symbol", 1)
-    mps = 2.0 * (3 + 15 + 30 + 16 + 4) * 8 / (chain.slicer.symbol_rate * bps)
+    reps = SECONDS * rate // len(seg)
+    mps = 2.0 * (3 + 15 + 30 + 16 + 4) * 8 / _chain_bit_rate(chain)
     return list(sent) * reps, np.tile(seg, reps), len(seg), mps
 
 
@@ -339,10 +394,14 @@ def main() -> int:
         bpsk_costas_lanes,
         mpsk_loop,
         mpsk_loop_lanes,
+        qpsk_costas,
+        qpsk_costas_lanes,
     )
     from pymodem_tpu_torch.ops.slicers import (
         binary_slice,
         binary_slice_lanes,
+        four_level_slice,
+        four_level_slice_lanes,
         quadrature_slice,
         quadrature_slice_lanes,
     )
@@ -442,17 +501,34 @@ def main() -> int:
         torch.cuda.synchronize()
         return result
 
-    def run_path(bank_chains, audios, rate, mps_of):
+    def run_path(bank_chains, audios, rate_of, mps_of, kernels_of,
+                 every_chain=False):
         """Decode each bank once (the main path's run: the caller sets the
         launch counters to 0 before and reads them after); check every
-        frame; print each bank's peak device memory against the bytes per
-        chain-sample that runtime/bank.py budgets for its family."""
+        frame, and with ``every_chain`` that each chain decoded every frame
+        itself; fail unless the bank launched each wrapper of
+        ``kernels_of[name]``; print each bank's peak device memory against
+        the bytes per chain-sample that runtime/bank.py budgets for its
+        family."""
         for name, chains in bank_chains.items():
+            rate = rate_of[name]
+            before = {k: fn.launches for k, fn in kernels_of[name].items()}
             torch.cuda.reset_peak_memory_stats()
             result = run(RunPlan(chains=tuple(chains), reports=reports),
                          audios[name][1], rate, mps_of[name])
             peak = torch.cuda.max_memory_allocated()
             _check_bank(name, result, audios[name][0])
+            missed = [k for k, fn in kernels_of[name].items()
+                      if fn.launches == before[k]]
+            if missed:
+                raise AssertionError(f"bank {name} launched no {missed}")
+            if every_chain:
+                per_chain = [sum(p.valid_crc and p.valid_header for p in ch)
+                             for ch in result.aggregate.chains]
+                if per_chain != [len(audios[name][0])] * len(chains):
+                    raise AssertionError(
+                        f"bank {name}: frames decoded per chain {per_chain}"
+                        f", expected {len(audios[name][0])} each")
             bank_ = tbank.group_chains(chains, "cpu")[0]
             plan_ = tbank.bank_plan(bank_, len(audios[name][1]),
                                     max_packet_seconds=mps_of[name])
@@ -462,13 +538,13 @@ def main() -> int:
                   f"{peak / samples:.1f} bytes per chain-sample (budgeted "
                   f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]}) [{smi}]")
 
-    def report_banks(bank_chains, audios, rate, mps_of, seconds_of):
+    def report_banks(bank_chains, audios, rate_of, mps_of, seconds_of):
         """Warm rerun of each bank (rate, chains decoding), then a split
         of one run into device stages and host codec."""
         for name, chains in bank_chains.items():
             plan_ = RunPlan(chains=tuple(chains), reports=reports)
             t1 = time.time()
-            result = run(plan_, audios[name][1], rate, mps_of[name])
+            result = run(plan_, audios[name][1], rate_of[name], mps_of[name])
             wall = time.time() - t1
             _check_bank(name, result, audios[name][0])
             msps = len(chains) * len(audios[name][1]) / wall / 1e6
@@ -497,15 +573,17 @@ def main() -> int:
 
     afsk_audio = {name: (expected, audio) for name in banks}
     afsk_mps = {name: MAX_PACKET_SECONDS for name in banks}
+    afsk_rate = {name: RATE for name in banks}
+    k1 = {"K1": binary_slice_lanes}
+    k12 = {"K1": binary_slice_lanes, "K2": afsk_pll_lanes}
     binary_slice_lanes.launches = 0
     afsk_pll_lanes.launches = 0
-    run_path(banks, afsk_audio, RATE, afsk_mps)
+    run_path(banks, afsk_audio, afsk_rate, afsk_mps,
+             {"sweep64": k1, "pll_pair": k12, "pll_sweep8": k12})
     afsk_launches = {"K1": binary_slice_lanes.launches,
                      "K2": afsk_pll_lanes.launches}
-    if afsk_launches["K1"] < 3 or afsk_launches["K2"] < 2:
-        raise AssertionError(f"AFSK path missed a kernel: {afsk_launches}")
     print(f"AFSK path: launches {afsk_launches}")
-    report_banks(banks, afsk_audio, RATE, afsk_mps,
+    report_banks(banks, afsk_audio, afsk_rate, afsk_mps,
                  {name: SECONDS for name in banks})
     del audio_t
     _phase(5, "AFSK path end to end", t0)
@@ -521,8 +599,10 @@ def main() -> int:
     # 7. K3, K4, K6 and K7 against their twins on the PSK banks' inputs
     t0 = time.time()
     psk = _psk_banks()
-    psk_audio = {name: _psk_audio(chains[0]) for name, chains in psk.items()}
+    psk_audio = {name: _family_audio(chains[0], PSK_RATE)
+                 for name, chains in psk.items()}
     psk_mps = {name: a[3] for name, a in psk_audio.items()}
+    psk_rate = {name: PSK_RATE for name in psk}
 
     def psk_frames(name):
         bank_ = tbank.group_chains(psk[name], dev)[0]
@@ -648,15 +728,16 @@ def main() -> int:
     counted = {"K1": binary_slice_lanes, "K3": bpsk_costas_lanes,
                "K4": agc_lanes, "K6": mpsk_loop_lanes,
                "K7": quadrature_slice_lanes}
+    mpsk_kernels = {k: counted[k] for k in ("K4", "K6", "K7")}
     for fn in counted.values():
         fn.launches = 0
-    run_path(psk, psk_audio, PSK_RATE, psk_mps)
+    run_path(psk, psk_audio, psk_rate, psk_mps,
+             {"bpsk1200_sweep8": {k: counted[k] for k in ("K1", "K3")},
+              "qpsk2400_sweep8": mpsk_kernels,
+              "mpsk_bpsk1200_pair": mpsk_kernels})
     psk_launches = {k: fn.launches for k, fn in counted.items()}
-    if min(psk_launches.values()) < 1 or psk_launches["K4"] < 2 \
-            or psk_launches["K6"] < 2 or psk_launches["K7"] < 2:
-        raise AssertionError(f"PSK path missed a kernel: {psk_launches}")
     print(f"PSK path: launches {psk_launches}")
-    report_banks(psk, psk_audio, PSK_RATE, psk_mps,
+    report_banks(psk, psk_audio, psk_rate, psk_mps,
                  {name: len(a[1]) / PSK_RATE for name, a in psk_audio.items()})
     _phase(8, "PSK path end to end", t0)
 
@@ -669,12 +750,103 @@ def main() -> int:
     print(f"CLI: {line}, exit 0")
     _phase(9, "CLI subprocess (QPSK 2400)", t0)
 
-    for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]),
+    # 10. K8 and K5 against their twins on the new banks' inputs
+    t0 = time.time()
+    fsk = _fsk_banks()
+    fsk_chains = {name: chains for name, (chains, _) in fsk.items()}
+    fsk_rate = {name: rate for name, (_, rate) in fsk.items()}
+    fsk_audio = {name: _family_audio(chains[0], fsk_rate[name])
+                 for name, chains in fsk_chains.items()}
+    fsk_mps = {name: a[3] for name, a in fsk_audio.items()}
+
+    def fsk_frames(name):
+        bank_ = tbank.group_chains(fsk_chains[name], dev)[0]
+        wave = torch.from_numpy(fsk_audio[name][1]).to(dev)
+        plan_ = tbank.bank_plan(bank_, len(wave),
+                                max_packet_seconds=fsk_mps[name])
+        return bank_, tbank.frame_blocks(wave, plan_).to(torch.float32)
+
+    bank, frames = fsk_frames("fsk4_9600_sweep8")
+    bb = tbank.bank_basebands(bank, frames)
+    C, B, L2 = bb.shape
+    x = bb.reshape(C * B, L2).contiguous()
+    del bb, frames
+    lp = tbank.slicer_lane_params(bank, B)
+    window = tbank.slicer_window(bank)
+    demap = bank.specs[0].slicer.demap
+    (xs,) = cut(x)
+    err = max(_same(f"K8 window {w}",
+                    four_level_slice_lanes(xs, lp, demap, w),
+                    four_level_slice(xs, lp, demap, w)) for w in (1, window))
+    plain = _time_ms(lambda: four_level_slice(xs, lp, demap, window), 1)
+    ms = _time_ms(lambda: four_level_slice_lanes(x, lp, demap, window), 3)
+    L, T = x.shape
+    kernels["K8"] = _kernel(
+        "four_level_slicer", "four_level_slicer.cu",
+        "pymodem_tpu/ops/pallas_slicers.py:297", err, ms, plain,
+        4 * (L * T + 2 * L + L * -(-T // window)), 35 * L * T, (L, T),
+        (L, SLICE), smi)
+    print(f"K8 lanes {L} T {T} window {window}: bitwise equal on "
+          f"{L}x{SLICE}; twin {plain:.1f} ms at {L}x{SLICE}; kernel "
+          f"{ms:.3f} ms at full {L}x{T} [{smi}]")
+    del x, xs
+
+    bank, frames = fsk_frames("qpsk_costas2400_sweep8")
+    x, rows = tbank.coherent_loop_inputs(bank.params, frames)
+    del frames
+    tabs = (bank.params["sine_table"], bank.params["cos_table"])
+    (xs,) = cut(x)
+    err = _same("K5", qpsk_costas_lanes(xs, rows, *tabs),
+                qpsk_costas(xs, rows, *tabs))
+    plain = _time_ms(lambda: qpsk_costas(xs, rows, *tabs), 1)
+    ms = _time_ms(lambda: qpsk_costas_lanes(x, rows, *tabs), 3)
+    L, T = x.shape
+    kernels["K5"] = _kernel(
+        "qpsk_costas_loop", "qpsk_costas_loop.cu",
+        "pymodem_tpu/dsp/pallas_loops.py:270", err, ms, plain,
+        4 * (3 * L * T + 17 * L + 512), 60 * L * T, (L, T), (L, SLICE), smi)
+    print(f"K5 lanes {L} T {T} ({rows.shape[0]} rows, AGC fused): bitwise "
+          f"equal on {L}x{SLICE}; twin {plain:.1f} ms at {L}x{SLICE}; "
+          f"kernel {ms:.3f} ms at full {L}x{T} [{smi}]")
+    del x, xs, rows
+    _phase(10, "K8, K5 == twins", t0)
+
+    # 11. the FSK and Costas-QPSK path end to end
+    t0 = time.time()
+    counted = {"K1": binary_slice_lanes, "K5": qpsk_costas_lanes,
+               "K7": quadrature_slice_lanes, "K8": four_level_slice_lanes}
+    for fn in counted.values():
+        fn.launches = 0
+    run_path(fsk_chains, fsk_audio, fsk_rate, fsk_mps,
+             {"fsk9600_sweep8": {"K1": binary_slice_lanes},
+              "fsk4_9600_sweep8": {"K8": four_level_slice_lanes},
+              "qpsk_costas2400_sweep8": {k: counted[k] for k in ("K5", "K7")}},
+             every_chain=True)
+    fsk_launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"FSK and Costas-QPSK path: launches {fsk_launches}")
+    report_banks(fsk_chains, fsk_audio, fsk_rate, fsk_mps,
+                 {name: len(a[1]) / fsk_rate[name]
+                  for name, a in fsk_audio.items()})
+    _phase(11, "FSK and Costas-QPSK path end to end", t0)
+
+    # 12. the CLI on a 4FSK config
+    t0 = time.time()
+    sent, faudio, seg_len, _ = fsk_audio["fsk4_9600_sweep8"]
+    n_seg = 60 * FSK4_RATE // seg_len  # whole segments in the first 60 s
+    line = _cli((FSK_LINES["fsk4"],), "fsk4_9600.wav", FSK4_RATE,
+                faudio[: n_seg * seg_len], 3 * n_seg)
+    print(f"CLI: {line}, exit 0")
+    _phase(12, "CLI subprocess (4FSK 9600)", t0)
+
+    for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]
+                           + fsk_launches["K1"]),
                           ("K2", afsk_launches["K2"]),
                           ("K3", psk_launches["K3"]),
                           ("K4", psk_launches["K4"]),
+                          ("K5", fsk_launches["K5"]),
                           ("K6", psk_launches["K6"]),
-                          ("K7", psk_launches["K7"])):
+                          ("K7", psk_launches["K7"] + fsk_launches["K7"]),
+                          ("K8", fsk_launches["K8"])):
         kernels[key]["launches"] = fn_count
     print(smi)
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}))

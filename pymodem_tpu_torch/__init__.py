@@ -2,13 +2,16 @@
 
 The package mirrors ``pymodem_tpu``'s layout module for module, so each
 function's counterpart sits at the same path.  Plain tensor code is
-PyTorch; every Pallas kernel of the JAX package that this port carries is a
-hand-written CUDA kernel for Hopper (``csrc/``), built at first use, with a
-plain PyTorch twin beside its wrapper.  The package imports no JAX.
+PyTorch; every Pallas kernel of the JAX package (K1-K8) is a hand-written
+CUDA kernel for Hopper (``csrc/``), built at first use, with a plain
+PyTorch twin beside its wrapper.  The package imports no JAX.
 
-Slice carried so far: the banked AFSK-300 IL2P+CRC decode on the host-codec
-route (``runtime/bank.run_banked(codec="host")``) for the ``afsk`` and
-``afsk_pll`` modems with the binary slicer.
+Slice carried so far: the banked IL2P+CRC decode on the host-codec route
+(``runtime/bank.run_banked(codec="host")``, ``run_plan_banked``, the CLI)
+for every modem family (``afsk``, ``afsk_pll``, ``bpsk``, ``qpsk``,
+``mpsk``, ``fsk``) with the binary, quadrature and four-level slicers.
+Not yet ported: the device IL2P codec, AX.25, float64 parity mode, the
+sequential executor, streaming and serving, multi-GPU.
 """
 
 __version__ = "0.1.0"

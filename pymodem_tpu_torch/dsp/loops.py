@@ -1,23 +1,27 @@
-"""Carrier loops: kernels K2, K3 and K6 and their plain twins.
+"""Carrier loops: kernels K2, K3, K5 and K6 and their plain twins.
 
-Port of the ``pymodem_tpu.dsp.loops`` scans ``afsk_pll``, ``bpsk_costas``
-and ``mpsk_loop`` and of the Pallas kernels that replace them on the TPU:
-``pymodem_tpu.dsp.pallas_loops._loop_kernel`` kinds ``afsk_pll`` and
-``bpsk`` (AGC fused, ``loop_lanes_pallas``) and ``_iq_loop_kernel`` kind
-``mpsk`` (``iq_loop_lanes_pallas``).  Lanes are independent (chain, block)
-streams handed over as ``(L, T)`` rows; per-lane constants come as rows:
-``PLL_PARAMS`` then ``AGC_PARAMS`` (15) for K2 and K3, ``PLL_PARAMS`` then
-``("pd_gain", "pd_granularity")`` (12) for K6.
+Port of the ``pymodem_tpu.dsp.loops`` scans ``afsk_pll``, ``bpsk_costas``,
+``qpsk_costas`` and ``mpsk_loop`` and of the Pallas kernels that replace
+them on the TPU: ``pymodem_tpu.dsp.pallas_loops._loop_kernel`` kinds
+``afsk_pll`` and ``bpsk`` (AGC fused, ``loop_lanes_pallas``) and
+``_iq_loop_kernel`` kinds ``qpsk`` (AGC fused or not) and ``mpsk``
+(``iq_loop_lanes_pallas``).  Lanes are independent (chain, block) streams
+handed over as ``(L, T)`` rows; per-lane constants come as rows:
+``PLL_PARAMS`` then ``AGC_PARAMS`` (15) for K2 and K3, ``PLL_PARAMS``,
+``BRANCH_PARAMS`` and optionally ``AGC_PARAMS`` (17 or 12) for K5,
+``PLL_PARAMS`` then ``PD_PARAMS`` (12) for K6.
 
 Per sample, in the JAX package's op order (reference afsk_pll.py:152-165,
-psk.py:173-189 and 734-747, agc.py:26-80, nco.py:34-53, iir.py:38-54,
-pi_control.py:25-33):
+psk.py:173-189, 437-467 and 734-747, agc.py:26-80, nco.py:34-53,
+iir.py:38-54, pi_control.py:25-33):
 
-    x     = AGC(x)                         (K2, K3: dsp/agc.agc_step)
+    x     = AGC(x)                         (K2, K3, K5: dsp/agc.agc_step)
     phase = wrap(phase + phase_scale * (set_frequency + control))
     idx   = int(phase * index_scale)       (truncation)
     K2:  e = x * sin[idx];                 output prop (below)
     K3:  i = x * cos[idx]; q = x * (-sin[idx]); e = i * q;  output i
+    K5:  c = IIR_b(x * cos[idx]); s = IIR_b(x * sin[idx]);
+         e = c * sgn(s) - s * sgn(c);      output (s, c)
     K6:  re' = (re * cos) - (im * (-sin)); im' = (cos * im) + (re * (-sin))
          e = pd[fold(floor(re' * g/2), floor(im' * g/2))];  output re', im'
     y     = (b0 * e + b0 * e_prev) + a1 * y_prev
@@ -56,6 +60,7 @@ PLL_PARAMS = ("phase_scale", "set_frequency", "index_scale", "iir_b0",
               "iir_a1", "pi_gp", "pi_gain", "pi_i", "pi_limit",
               "pi_integral0")
 PD_PARAMS = ("pd_gain", "pd_granularity")
+BRANCH_PARAMS = ("branch_b0", "branch_a1")  # K5's branch IIR
 
 
 class LoopParams(NamedTuple):
@@ -218,6 +223,49 @@ def bpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
     return _coherent_loop(x, lane_params, sine_table, cos_table, "bpsk")
 
 
+def qpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
+                sine_table: torch.Tensor, cos_table: torch.Tensor):
+    """Plain PyTorch twin of kernel K5, the QPSK Costas loop with branch
+    IIRs: x (L, T); lane_params (17, L) with the AGC fused or (12, L)
+    without (``PLL_PARAMS``, ``BRANCH_PARAMS``, then ``AGC_PARAMS``); the
+    two (256,) tables.  Returns (i, q), each (L, T): I is the sine branch's
+    IIR output and Q the cosine branch's (psk.py:453-454).  The phase
+    detector's sign takes +1 at 0."""
+    dtype, dev = x.dtype, x.device
+    rows = lane_params.to(dtype)
+    (phase_scale, set_freq, index_scale, b0, a1, gp, gain, pi_i, limit,
+     integral0, bb0, ba1) = rows[:12]
+    agc_rows = rows[12:] if rows.shape[0] > 12 else None
+    sine, cosine = sine_table.to(dtype), cos_table.to(dtype)
+    two_pi = torch.tensor(TWO_PI, dtype=dtype, device=dev)
+    zero = torch.zeros(x.shape[0], dtype=dtype, device=dev)
+    phase, control, iir_x, iir_y = zero, zero, zero, zero
+    cos_x, cos_y, sin_x, sin_y = zero, zero, zero, zero
+    integral = integral0.clone()
+    env, sustain = zero, zero
+    outs_i, outs_q = [], []
+    for x_t in x.t().unbind(0):
+        if agc_rows is not None:
+            x_t, env, sustain = agc_step(x_t, env, sustain, *agc_rows, zero)
+        phase, idx = _nco(phase, control, phase_scale, set_freq,
+                          index_scale, two_pi)
+        i_mixer = x_t * cosine.take(idx)
+        cos_out = (bb0 * i_mixer + bb0 * cos_x) + ba1 * cos_y
+        q_mixer = x_t * sine.take(idx)
+        sin_out = (bb0 * q_mixer + bb0 * sin_x) + ba1 * sin_y
+        cos_sgn = torch.where(cos_out >= 0, 1.0, -1.0).to(dtype)
+        sin_sgn = torch.where(sin_out >= 0, 1.0, -1.0).to(dtype)
+        loop_mixer = (cos_out * sin_sgn) - (sin_out * cos_sgn)
+        y = (b0 * loop_mixer + b0 * iir_x) + a1 * iir_y
+        prop, integral = _pi(y, integral, gp, gain, pi_i, limit)
+        control = prop + integral
+        outs_i.append(sin_out)
+        outs_q.append(cos_out)
+        iir_x, iir_y = loop_mixer, y
+        cos_x, cos_y, sin_x, sin_y = i_mixer, cos_out, q_mixer, sin_out
+    return torch.stack(outs_i, dim=1), torch.stack(outs_q, dim=1)
+
+
 def mpsk_loop(re: torch.Tensor, im: torch.Tensor, lane_params: torch.Tensor,
               sine_table: torch.Tensor, cos_table: torch.Tensor,
               pd_tables: torch.Tensor, pd_index: torch.Tensor):
@@ -323,6 +371,38 @@ def bpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     return out
 
 
+def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
+                      sine_table: torch.Tensor, cos_table: torch.Tensor):
+    """Kernel K5 (``csrc/qpsk_costas_loop.cu``) over (L, T) lanes: 17 rows
+    run the AGC fused (the bank's form), 12 rows the loop alone.  Returns
+    (i, q).
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    only a CPU tensor takes the plain twin ``qpsk_costas``."""
+    n_loop = len(PLL_PARAMS) + len(BRANCH_PARAMS)
+    n_rows = lane_params.shape[0] if lane_params.ndim == 2 else -1
+    if n_rows not in (n_loop, n_loop + len(AGC_PARAMS)):
+        raise ValueError(f"qpsk_costas_lanes: {n_rows} lane rows, need "
+                         f"{n_loop} or {n_loop + len(AGC_PARAMS)}")
+    _check_rows("qpsk_costas_lanes", x, lane_params, n_rows, sine_table,
+                cos_table)
+    if x.device.type == "cpu":
+        return qpsk_costas(x, lane_params, sine_table, cos_table)
+    from .. import _ext
+
+    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params,
+                 sine_table=sine_table, cos_table=cos_table)
+    L, T = x.shape
+    out_i, out_q = torch.empty_like(x), torch.empty_like(x)
+    _ext.launch("qpsk_costas_lanes", x.device,
+                (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3,
+                x.data_ptr(), lane_params.data_ptr(), sine_table.data_ptr(),
+                cos_table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(), L,
+                T, int(n_rows > n_loop))
+    qpsk_costas_lanes.launches += 1
+    return out_i, out_q
+
+
 def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
                     lane_params: torch.Tensor, sine_table: torch.Tensor,
                     cos_table: torch.Tensor, pd_tables: torch.Tensor,
@@ -371,4 +451,5 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
 
 afsk_pll_lanes.launches = 0
 bpsk_costas_lanes.launches = 0
+qpsk_costas_lanes.launches = 0
 mpsk_loop_lanes.launches = 0

@@ -1,9 +1,10 @@
 """Modem parameters, built once on the host (numpy).
 
-Port of the host side of ``pymodem_tpu.modems`` for the families this
-port carries: the AFSK tone correlator (``afsk``), the coherent AFSK PLL
-(``afsk_pll``), the BPSK Costas loop (``bpsk``) and the PSK demodulator on
-the analytic signal (``mpsk``).  Filter design goes through the port's copy
+Port of the host side of ``pymodem_tpu.modems`` for every family: the
+AFSK tone correlator (``afsk``), the coherent AFSK PLL (``afsk_pll``), the
+BPSK Costas loop (``bpsk``), the QPSK Costas loop with branch IIRs
+(``qpsk``), the PSK demodulator on the analytic signal (``mpsk``) and the
+baseband FSK filter (``fsk``).  Filter design goes through the port's copy
 of ``dsp/window_design.py``, so taps are identical to the JAX package's.
 The demod itself runs banked, in ``runtime/bank.py``.
 """
@@ -19,7 +20,9 @@ from .config import (
     AFSKPLLModemSpec,
     AGCSpec,
     BPSKModemSpec,
+    FSKModemSpec,
     MPSKModemSpec,
+    QPSKModemSpec,
 )
 from .dsp import window_design as wd
 from .dsp.loops import LoopParams
@@ -155,6 +158,21 @@ def bpsk_params(spec: BPSKModemSpec) -> PSKParams:
     )
 
 
+def qpsk_params(spec: QPSKModemSpec) -> PSKParams:
+    """The Costas QPSK modem's filters and AGC (psk.py:425-476); its branch
+    IIR is a loop constant (``runtime/bank.py``)."""
+    n_in = _round_taps(spec.sample_rate, spec.input_bpf_span, spec.symbol_rate)
+    return PSKParams(
+        input_bpf=wd.bandpass_taps(
+            n_in, spec.input_bpf_low_cutoff, spec.input_bpf_high_cutoff,
+            spec.sample_rate, scale=True,
+        ),
+        rrc=wd.rrc_taps(spec.sample_rate, spec.symbol_rate, spec.rrc_span,
+                        spec.rrc_rolloff_rate),
+        agc=_agc_params(spec.agc, spec.sample_rate),
+    )
+
+
 class MPSKParams(NamedTuple):
     """The JAX package's MPSKParams without its f64 ``pd_table``: the port's
     phase detector is the int32 table K6 reads (``dsp/loops.pd_error_table``,
@@ -185,16 +203,32 @@ def mpsk_params(spec: MPSKModemSpec) -> MPSKParams:
     )
 
 
+class FSKParams(NamedTuple):
+    input_lpf: np.ndarray
+    invert: bool
+
+
+def fsk_params(spec: FSKModemSpec) -> FSKParams:
+    """The baseband FSK modem (fsk.py:149-159): one input filter, a low-pass
+    or, for the ``*-rrc`` presets, an RRC; ``invert`` negates the output."""
+    if spec.input_filter_type == "rrc":
+        taps = wd.rrc_taps(spec.sample_rate, spec.symbol_rate,
+                           spec.input_lpf_span, spec.rrc_rolloff_rate)
+    else:
+        n = _round_taps(spec.sample_rate, spec.input_lpf_span, spec.symbol_rate)
+        taps = wd.lowpass_taps(n, spec.input_lpf_cutoff, spec.sample_rate)
+    return FSKParams(input_lpf=taps, invert=spec.invert)
+
+
 _BUILDERS = {
     "afsk": afsk_params,
     "afsk_pll": afsk_pll_params,
     "bpsk": bpsk_params,
+    "qpsk": qpsk_params,
     "mpsk": mpsk_params,
+    "fsk": fsk_params,
 }
 
 
 def build_params(spec):
-    if spec.kind not in _BUILDERS:
-        raise NotImplementedError(
-            f"modem {spec.kind!r} is not ported yet (ROADMAP Queue 2)")
     return _BUILDERS[spec.kind](spec)

@@ -1,18 +1,21 @@
-"""Symbol-timing slicers: kernels K1 and K7, their twins, compaction.
+"""Symbol-timing slicers: kernels K1, K7 and K8, their twins, compaction.
 
 Port of ``pymodem_tpu.ops.slicers`` (``binary_slice``,
-``quadrature_slice``, ``compact_bytes``, ``compact_windowed``,
-``safe_compact_window``) and of the Pallas kernels that replace the scans
-on the TPU, ``pymodem_tpu.ops.pallas_slicers._binary_kernel``
-(``binary_slice_lanes_pallas``, ``decode_emissions``) and ``_quad_kernel``
-(``quadrature_slice_lanes_pallas``).
+``quadrature_slice``, ``four_level_slice``, ``compact_bytes``,
+``compact_windowed``, ``safe_compact_window``) and of the Pallas kernels
+that replace the scans on the TPU,
+``pymodem_tpu.ops.pallas_slicers._binary_kernel``
+(``binary_slice_lanes_pallas``, ``decode_emissions``), ``_quad_kernel``
+(``quadrature_slice_lanes_pallas``) and ``_four_level_kernel``
+(``four_level_slice_lanes_pallas``).
 
 The slicer is a per-sample FSM (reference slicer.py:59-107): a phase clock
 advances by 1.0 per sample, a bit decision fires when it crosses
 ``sps/2 - 0.5`` (then the clock rewinds by ``sps``), and a zero crossing
 multiplies the clock by ``lock_rate``.  Lanes are (chain, block) streams
 handed over as ``(L, T)`` rows (two of them, I and Q, for the quadrature
-slicer); per-lane constants come as two rows ``(sps, lock_rate)``.
+slicer); per-lane constants come as two rows ``(sps, lock_rate)``.  The
+four-level slicer runs two such clocks (``four_level_slice``).
 
 Emission encoding, shared by kernel and twin (the Pallas kernel's): with
 ``window == 1`` an (L, T) int32 stream, ``0x100 | byte`` on the sample that
@@ -162,6 +165,76 @@ def quadrature_slice(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
     return _encode(emits, bytes_, window)
 
 
+FL_DEPTH = 8  # the four-level slicer's threshold ring
+
+
+def four_level_slice(x: torch.Tensor, lane_params: torch.Tensor, demap,
+                     window: int = 1) -> torch.Tensor:
+    """Plain PyTorch twin of kernel K8, the fix-forward 4FSK slicer
+    (reference slicer.py:329-441, the JAX scan ``four_level_slice``):
+    vectorised over lanes, a loop over time.  x: (L, T); lane_params: (2,
+    L) rows (sps, lock_rate); ``demap`` 4 ints.  Returns the int32 emission
+    stream (module docstring).
+
+    Clock 1 (rollover at ``sps/2 - 0.5``, strictly above, scaled by
+    ``lock_rate`` at zero crossings) samples each symbol: it pushes
+    ``|x| * 2 / 3`` into an 8-deep ring and ``x > 0`` into a 16-bit sync
+    register.  The sync patterns 0x5555 and 0xCCCC set the threshold to the
+    ring's mean and align clock 2 to clock 1; clock 2 decides the symbol
+    (3/2 above/below the threshold, 1/0 below/above its negative), 2 bits
+    at a time.  The threshold starts at 0.  Op forms as the scan's:
+    ``*2`` then ``/3``, the ring summed in order ``r0 + r1 + ... + r7``,
+    then ``/8``."""
+    L, T = x.shape
+    dev = x.device
+    sps, lock_rate = lane_params.to(x.dtype)
+    rollover = sps / 2.0 - 0.5
+    table = torch.as_tensor(tuple(demap), dtype=torch.int32, device=dev)
+    xt = x.t()
+    new_vals = (xt.abs() * 2.0 / 3.0).unbind(0)
+    positive = (xt > 0).unbind(0)
+    crossings = _crossings(xt).unbind(0)
+    xs = xt.unbind(0)
+    zero = torch.zeros(L, dtype=x.dtype, device=dev)
+    clock1, clock2, threshold = zero, zero, zero
+    ring = [zero] * FL_DEPTH
+    izero = torch.zeros(L, dtype=torch.int32, device=dev)
+    byte, bit_count, sync, ring_index = izero, izero, izero, izero
+    emits, bytes_ = [], []
+    for t in range(T):
+        x_t = xs[t]
+        clock1 = clock1 + 1.0
+        roll1 = clock1 > rollover
+        clock1 = torch.where(roll1, clock1 - sps, clock1)
+        ring_index = torch.where(
+            roll1, torch.where(ring_index + 1 >= FL_DEPTH, 0, ring_index + 1),
+            ring_index)
+        ring = [torch.where(roll1 & (ring_index == r), new_vals[t], ring[r])
+                for r in range(FL_DEPTH)]
+        sync = torch.where(roll1, ((sync << 1) & 0xFFFF) + positive[t],
+                           sync)
+        sync_hit = roll1 & ((sync == 0x5555) | (sync == 0xCCCC))
+        ring_sum = ring[0]
+        for r in range(1, FL_DEPTH):
+            ring_sum = ring_sum + ring[r]
+        threshold = torch.where(sync_hit, ring_sum / FL_DEPTH, threshold)
+        clock2 = torch.where(sync_hit, clock1, clock2) + 1.0
+        roll2 = clock2 > rollover
+        clock2 = torch.where(roll2, clock2 - sps, clock2)
+        symbol = torch.where(
+            positive[t], torch.where(x_t >= threshold, 3, 2),
+            torch.where(x_t <= -threshold, 0, 1))
+        byte = torch.where(roll2, ((byte << 2) & 0xFF)
+                           + table.take(symbol.long()), byte)
+        bit_count = torch.where(roll2, bit_count + 2, bit_count)
+        emit = roll2 & (bit_count >= 8)
+        bit_count = torch.where(emit, 0, bit_count)
+        clock1 = torch.where(crossings[t], clock1 * lock_rate, clock1)
+        emits.append(emit)
+        bytes_.append(byte)
+    return _encode(emits, bytes_, window)
+
+
 def _check_window(window: int) -> None:
     if window < 1 or window & (window - 1) or window > 256:
         raise ValueError(f"window must be a power of two <= 256: {window}")
@@ -243,8 +316,41 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
     return out
 
 
+def four_level_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor, demap,
+                           window: int = 1) -> torch.Tensor:
+    """Kernel K8 (``csrc/four_level_slicer.cu``) over (L, T) lanes.  The
+    4-entry ``demap`` is bank-uniform (part of the bank grouping key) and
+    goes to the kernel as an argument.
+
+    A CUDA tensor launches the kernel on the current stream (or raises);
+    only a CPU tensor takes the plain twin ``four_level_slice``."""
+    demap = tuple(int(v) for v in demap)
+    if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} "
+                         f"lane_params {tuple(lane_params.shape)}")
+    _check_window(window)
+    if len(demap) != 4 or not all(0 <= v <= 3 for v in demap):
+        raise ValueError(f"demap {demap}: the four-level slicer takes 4 "
+                         "entries of 0-3")
+    if x.device.type == "cpu":
+        return four_level_slice(x, lane_params, demap, window)
+    from .. import _ext
+
+    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params)
+    L, T = x.shape
+    out = torch.empty((L, -(-T // window)), dtype=torch.int32,
+                      device=x.device)
+    _ext.launch("four_level_slice_lanes", x.device,
+                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7,
+                x.data_ptr(), lane_params.data_ptr(), out.data_ptr(),
+                *demap, L, T, window)
+    four_level_slice_lanes.launches += 1
+    return out
+
+
 binary_slice_lanes.launches = 0
 quadrature_slice_lanes.launches = 0
+four_level_slice_lanes.launches = 0
 
 
 def decode_emissions(enc: torch.Tensor) -> SlicerOut:

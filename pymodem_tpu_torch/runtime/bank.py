@@ -1,8 +1,9 @@
 """Banked, block-parallel chain execution on one GPU: the host-codec route.
 
 Port of the parts of ``pymodem_tpu.runtime.bank`` that the IL2P decode of
-the ``afsk``, ``afsk_pll``, ``bpsk`` and ``mpsk`` families runs on
-``run_banked(codec="host")``, with the binary and quadrature slicers:
+every modem family (``afsk``, ``afsk_pll``, ``bpsk``, ``qpsk``, ``mpsk``,
+``fsk``) runs on ``run_banked(codec="host")``, with the binary, quadrature
+and four-level slicers:
 
 * **Chain bank axis**: chains with the same static structure (modem family
   and parameter shapes, slicer, rates) stack into one bank, whose
@@ -16,9 +17,10 @@ the ``afsk``, ``afsk_pll``, ``bpsk`` and ``mpsk`` families runs on
   lanes: one thread each in the loop and slicer kernels.
 
 Per bank, every device stage runs on the GPU: framing (``unfold``), the
-modem demod (FIRs on the ``dsp/fir.py`` engines; the carrier loops as
-kernels K2 ``afsk_pll``, K3 ``bpsk`` and K6 ``mpsk``, the MPSK AGC as K4),
-the slicer (K1 binary, K7 quadrature), compaction,
+modem demod (FIRs on the ``dsp/fir.py`` engines, the whole of the ``fsk``
+demod; the carrier loops as kernels K2 ``afsk_pll``, K3 ``bpsk``, K5
+``qpsk`` and K6 ``mpsk``, the MPSK AGC as K4), the slicer (K1 binary, K7
+quadrature, K8 four-level), compaction,
 ``descramble_bytes_multi`` and ``il2p_sync_candidates``.  The byte streams
 and sync maps then come back to the host, where the reference-exact IL2P
 state machines decode each block (``codecs/host.py``), and
@@ -43,6 +45,7 @@ from .. import modems
 from ..config import ChainSpec
 from ..convert import bank_params_from_jax
 from ..device import resolve
+from ..dsp import window_design as wd
 from ..dsp.agc import agc_lanes
 from ..dsp.fir import fir_valid_multi, fir_valid_nd, fir_valid_per_chain
 from ..dsp.loops import (
@@ -51,6 +54,7 @@ from ..dsp.loops import (
     bpsk_costas_lanes,
     lane_params_from_loop,
     mpsk_loop_lanes,
+    qpsk_costas_lanes,
 )
 from ..ops.lfsr import descramble_bytes_multi
 from ..ops.slicers import (
@@ -58,6 +62,7 @@ from ..ops.slicers import (
     compact_bytes,
     compact_windowed,
     decode_emissions,
+    four_level_slice_lanes,
     quadrature_slice_lanes,
     safe_compact_window,
 )
@@ -158,21 +163,9 @@ class Bank:
     trim_post: int = 0
 
 
-_PORTED_MODEMS = ("afsk", "afsk_pll", "bpsk", "mpsk")
-_PORTED_SLICERS = ("binary", "quadrature")
-
-
 def check_chain_supported(chain: ChainSpec) -> None:
-    """Raise NotImplementedError for chains outside the ported slice."""
-    kind = chain.modem.kind
-    if kind not in _PORTED_MODEMS:
-        raise NotImplementedError(
-            f"chain {chain.name!r}: modem {kind!r} is not ported yet "
-            "(ROADMAP Queue 2)")
-    if chain.slicer.kind not in _PORTED_SLICERS:
-        raise NotImplementedError(
-            f"chain {chain.name!r}: slicer {chain.slicer.kind!r} is not "
-            "ported yet (ROADMAP Queue 2, kernel K8)")
+    """Raise NotImplementedError for chains outside the ported slice: every
+    modem and slicer is ported, the AX.25 codec is not."""
     if chain.codec.kind != "il2p":
         raise NotImplementedError(
             f"chain {chain.name!r}: codec {chain.codec.kind!r} is not ported "
@@ -189,8 +182,10 @@ def _modem_geometry(kind: str, p) -> tuple[int, int, int]:
         taps = (p.input_bpf, p.mark_i, p.output_lpf)
     elif kind == "afsk_pll":
         taps = (p.input_bpf, p.output_lpf)
-    elif kind == "bpsk":
+    elif kind in ("bpsk", "qpsk"):
         taps = (p.input_bpf, p.rrc)
+    elif kind == "fsk":
+        taps = (p.input_lpf,)
     else:  # mpsk: the Hilbert FIR sits between the AGC and the loop
         taps = (p.input_bpf, p.hilbert, p.rrc)
     return sum(t.shape[-1] - 1 for t in taps), 0, 1
@@ -212,13 +207,22 @@ def _chain_device_params(chain: ChainSpec) -> dict:
         modem["agc"] = {k: to_host(v) for k, v in mp.agc._asdict().items()}
         d["loop"] = {k: to_host(v) for k, v in
                      modems._loop_params_host(spec)._asdict().items()}
+    if spec.kind == "qpsk":
+        b0, a1 = wd.iir1_lpf_coefs(spec.sample_rate, spec.branch_lpf_cutoff,
+                                   1.0)
+        d["branch_b0"] = np.float32(b0)
+        d["branch_a1"] = np.float32(a1)
     if spec.kind == "mpsk":
         d["pd_granularity"] = np.int32(spec.pd_granularity)
         d["pd_gain"] = np.float32(spec.pd_gain)
+    if spec.kind == "fsk":
+        # invert as a sign multiplier, so that banks mix inverted chains
+        modem["sign"] = np.float32(-1.0 if spec.invert else 1.0)
+        del modem["invert"]
     sl = chain.slicer
     d["sps"] = np.float32(sl.sample_rate / sl.symbol_rate)
     d["lock_rate"] = np.float32(sl.lock_rate)
-    if sl.kind == "quadrature":
+    if sl.kind in ("quadrature", "4level"):
         d["demap"] = np.asarray(sl.demap, dtype=np.int32)
     return d
 
@@ -392,13 +396,17 @@ def _input_bpf(params: dict, blocks: torch.Tensor):
 
 
 def coherent_loop_inputs(params: dict, blocks: torch.Tensor):
-    """(B, Lin) blocks -> the inputs of kernels K2 and K3 for all C*B
-    lanes: ((C*B, L1) band-passed lanes, (15, C*B) lane rows: the loop's,
-    then the fused AGC's)."""
+    """(B, Lin) blocks -> the inputs of kernels K2, K3 and K5 for all C*B
+    lanes: ((C*B, L1) band-passed lanes, lane rows: the loop's 10, for
+    ``qpsk`` the branch IIR's ``branch_b0`` and ``branch_a1``, then the
+    fused AGC's 5)."""
     x, _, normals = _input_bpf(params, blocks)
     C, B, L1 = x.shape
+    branch = [params[k].to(torch.float32).reshape(C).repeat_interleave(B)
+              [None] for k in ("branch_b0", "branch_a1") if k in params]
     lane_params = torch.cat([
         lane_params_from_loop(params["loop"], C, B),
+        *branch,
         agc_lane_params(params["modem"]["agc"], normals, C, B),
     ]).contiguous()
     return x.reshape(C * B, L1).contiguous(), lane_params
@@ -426,6 +434,35 @@ def bpsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
     demod = bpsk_costas_lanes(x, lane_params, params["sine_table"],
                               params["cos_table"])
     return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]), m["rrc"])
+
+
+def qpsk_bank_demod(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the (i, q) Costas-QPSK basebands, each (C, B, L2):
+    band-pass FIR, then the AGC follower and the Costas loop with its
+    branch IIRs as ONE pass of kernel K5 over all C*B lanes, then the
+    per-chain RRC on both rails.  I is the sine branch, Q the cosine
+    branch (psk.py:453-454)."""
+    m = params["modem"]
+    C = m["input_bpf"].shape[0]
+    x, lane_params = coherent_loop_inputs(params, blocks)
+    i_d, q_d = qpsk_costas_lanes(x, lane_params, params["sine_table"],
+                                 params["cos_table"])
+    L1 = x.shape[-1]
+    return (fir_valid_per_chain(i_d.reshape(C, -1, L1), m["rrc"]),
+            fir_valid_per_chain(q_d.reshape(C, -1, L1), m["rrc"]))
+
+
+def fsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
+    """(B, Lin) blocks -> (C, B, L2) FSK basebands: each chain's input
+    filter times its ``sign`` (fsk.py:149-159), all C filters in one pass
+    over the shared blocks.  The sign goes into the taps: negating every
+    term of a sum negates the rounded sum exactly, so this equals the JAX
+    package's filter-then-multiply value for value (an exact zero may take
+    the other sign, which no slicer comparison tells apart) and saves a
+    copy of the basebands."""
+    m = params["modem"]
+    taps = m["input_lpf"] * m["sign"].to(m["input_lpf"].dtype)[:, None]
+    return fir_valid_multi(blocks, taps)
 
 
 def mpsk_agc_inputs(params: dict, blocks: torch.Tensor):
@@ -505,17 +542,18 @@ def mpsk_bank_demod(params: dict, blocks: torch.Tensor):
 
 
 _DEMODS = {"afsk": afsk_bank_demod, "afsk_pll": afsk_pll_bank_demod,
-           "bpsk": bpsk_bank_demod, "mpsk": mpsk_bank_demod}
+           "bpsk": bpsk_bank_demod, "qpsk": qpsk_bank_demod,
+           "mpsk": mpsk_bank_demod, "fsk": fsk_bank_demod}
 
 
 def bank_basebands(bank: Bank, blocks: torch.Tensor):
     """(B, Lin) float32 frames -> (C, B, L2) demodulated basebands, or an
-    (i, q) pair of them for ``mpsk``."""
+    (i, q) pair of them for ``qpsk`` and ``mpsk``."""
     return _DEMODS[bank.kind](bank.params, blocks)
 
 
 def slicer_lane_params(bank: Bank, blocks_per_chain: int) -> torch.Tensor:
-    """(2, C*B) float32 rows (sps, lock_rate) for kernels K1 and K7."""
+    """(2, C*B) float32 rows (sps, lock_rate) for kernels K1, K7 and K8."""
     p = bank.params
     return torch.stack([
         p["sps"].repeat_interleave(blocks_per_chain),
@@ -524,14 +562,18 @@ def slicer_lane_params(bank: Bank, blocks_per_chain: int) -> torch.Tensor:
 
 
 def _bits_per_symbol(slicer) -> int:
-    return getattr(slicer, "bits_per_symbol", 1)
+    """Bits per symbol decision: the quadrature slicer's field, 2 for the
+    four-level slicer (which has no such field), else 1."""
+    return getattr(slicer, "bits_per_symbol",
+                   2 if slicer.kind == "4level" else 1)
 
 
 def slice_lanes(bank: Bank, basebands, window: int) -> torch.Tensor:
     """Basebands -> the (C, B, ceil(L/window)) int32 emission stream: kernel
-    K1 over the C*B lanes of a real baseband, K7 over the lane pairs of an
-    (i, q) one.  The quadrature slicer's demap, state mask and bits per
-    decision are bank-uniform (part of the grouping key)."""
+    K1 (binary) or K8 (four-level) over the C*B lanes of a real baseband,
+    K7 over the lane pairs of an (i, q) one.  The demap (and the quadrature
+    slicer's state mask and bits per decision) are bank-uniform, part of
+    the grouping key."""
     pair = isinstance(basebands, tuple)
     C, B, L2 = (basebands[0] if pair else basebands).shape
     rows = slicer_lane_params(bank, B)
@@ -541,6 +583,10 @@ def slice_lanes(bank: Bank, basebands, window: int) -> torch.Tensor:
 
     if bank.slicer_kind == "binary":
         enc = binary_slice_lanes(lanes(basebands), rows, window=window)
+    elif bank.slicer_kind == "4level":
+        enc = four_level_slice_lanes(lanes(basebands), rows,
+                                     bank.specs[0].slicer.demap,
+                                     window=window)
     else:
         sl = bank.specs[0].slicer
         enc = quadrature_slice_lanes(
@@ -576,7 +622,10 @@ def bank_frames_compute(bank: Bank, blocks: torch.Tensor, capacity: int,
 _ACQ_SECONDS_FLOOR = 0.35
 _ACQ_SYMBOLS = 192.0
 _ACQ_COHERENT_FLOOR = 1.25
-_COHERENT_KINDS = ("afsk_pll", "bpsk", "mpsk")
+_COHERENT_KINDS = ("afsk_pll", "bpsk", "qpsk", "mpsk")
+# the four-level slicer learns its decision threshold from sync patterns
+# on absolute time scales too (the JAX package's validated floor)
+_ACQ_FLOOR_BY_SLICER = {"4level": 1.2}
 # Block length: long enough that the halo tax (block+overlap)/block stays
 # <= 4/3, and otherwise sized so _TARGET_LANES lanes of one bank hold
 # _LANE_BUDGET_BYTES of f32 working set (2.5 live copies per sample).
@@ -593,6 +642,11 @@ _GROUP_BUDGET_BYTES = 16e9
 _BYTES_PER_CHAIN_SAMPLE = {
     # basebands, a chain's four correlator streams, their magnitudes
     "afsk": 16,
+    # the C-filter product and its chain-major copy (the sign rides in the
+    # taps) and the slicer's lanes, ~9; but at 9600 bit/s the sync scan's
+    # int64 windows over the byte slots (~400 B each) peak higher: measured
+    # FSK-9600 sweep 8.9, 4FSK sweep 16.4 (two bits a decision)
+    "fsk": 24,
     # loop lanes, loop output, the output FIR's frames (~2-3) and output;
     # the B-sized frames weigh more in a bank of few chains (measured: PLL
     # pair 32.0, PLL sweep 26.8, BPSK-1200 sweep at 44.1 kHz 28.3)
@@ -602,6 +656,10 @@ _BYTES_PER_CHAIN_SAMPLE = {
     # lanes, the loop's two outputs, the RRC frames (~3) and outputs
     # (QPSK sweep 40.4 and MPSK pair 43.3 measured)
     "mpsk": 48,
+    # loop lanes, the loop's two outputs, the RRC frames (~2) and outputs
+    # of both rails, the slicer's contiguous lane pairs (Costas QPSK sweep
+    # 32.8 measured)
+    "qpsk": 48,
 }
 
 
@@ -626,8 +684,9 @@ def bank_auto_geometry(bank: Bank, sample_rate: float,
     the caller bounds its traffic with ``max_packet_seconds``)."""
     floor = (_ACQ_COHERENT_FLOOR if bank.kind in _COHERENT_KINDS
              else _ACQ_SECONDS_FLOOR)
-    acq = max(floor, max(_ACQ_SYMBOLS / c.slicer.symbol_rate
-                         for c in bank.specs))
+    acq = max(max(_ACQ_FLOOR_BY_SLICER.get(c.slicer.kind, floor)
+                  for c in bank.specs),
+              max(_ACQ_SYMBOLS / c.slicer.symbol_rate for c in bank.specs))
     if max_packet_seconds is None:
         packet = max(_protocol_max_packet_seconds(c) for c in bank.specs)
     else:

@@ -1,7 +1,8 @@
 """Synthetic IL2P fixtures for the ported modem families, jax-free.
 
 Port of the IL2P part of ``pymodem_tpu.synth.fixtures``: modulated frames
-matched to a chain spec (AFSK, AFSK-PLL, BPSK, MPSK), for tests and for
+matched to a chain spec (AFSK, AFSK-PLL, BPSK, Costas QPSK, MPSK, FSK and
+4FSK), for tests and for
 ``chip_smoke.py`` on a machine without JAX.  Modulation goes through the
 port's copy of ``synth/modulate.py``.  The round trip
 decode(modulate(frames)) == frames is what the tests assert.
@@ -71,9 +72,13 @@ def synthesize_for_chain(chain, rate: float, rng: np.random.Generator,
     if modem.kind == "bpsk" or getattr(modem, "constellation", "") == "bpsk":
         return sent, mod.bpsk_modulate(line, rate, modem.symbol_rate,
                                        modem.carrier_freq)
-    if modem.kind == "mpsk":
+    if modem.kind in ("qpsk", "mpsk"):
         return sent, mod.qpsk_modulate(line, rate, modem.symbol_rate,
                                        modem.carrier_freq)
-    raise NotImplementedError(
-        f"modem {modem.kind!r} fixtures are not ported yet "
-        "(ROADMAP Queue 2)")
+    if modem.kind == "fsk":
+        if chain.slicer.kind == "4level":
+            dibits = [(a << 1) | b for a, b in zip(line[::2], line[1::2])]
+            return sent, mod.four_level_modulate(dibits, rate,
+                                                 chain.slicer.symbol_rate)
+        return sent, mod.fsk_modulate(line, rate, modem.symbol_rate)
+    raise ValueError(f"no fixture for modem {modem.kind!r}")

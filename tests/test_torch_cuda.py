@@ -1,4 +1,4 @@
-"""The port's CUDA kernels on the card, against their plain twins.
+"""The port's CUDA kernels (K1-K8) on the card, against their plain twins.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it also
 runs where JAX is not installed (the tests' conftest.py imports JAX, so run
@@ -175,6 +175,56 @@ def test_quadrature_slicer_kernel_matches_twin(cuda, bps, window):
     assert bool(((got & 0x100) != 0).any())
 
 
+def _four_level(seed, n_lanes, n_samples, device):
+    """(L, T) f32 noisy 4-level symbols (+-1, +-3) at 10 +- 0.4 samples
+    per symbol, each lane with its own gain, and their (2, L) rows."""
+    g = np.random.default_rng(seed)
+    sps = g.choice([9.6, 10.0, 10.4], n_lanes).astype(np.float32)
+    lock = g.choice([0.985, 0.9], n_lanes).astype(np.float32)
+    idx = np.arange(n_samples)[None, :] / sps[:, None]
+    sym = g.choice([-3.0, -1.0, 1.0, 3.0],
+                   (n_lanes, int(idx.max()) + 2))
+    x = np.take_along_axis(sym, idx.astype(np.int64), 1)
+    x = (x * g.uniform(0.2, 2.0, (n_lanes, 1))
+         + 0.3 * g.standard_normal(x.shape)).astype(np.float32)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(np.stack([sps, lock])).to(device))
+
+
+@pytest.mark.parametrize("window", [1, 32])
+def test_four_level_slicer_kernel_matches_twin(cuda, window):
+    x, lp = _four_level(8, 300, 4000, cuda)
+    demap = (2, 0, 3, 1)
+    before = tsl.four_level_slice_lanes.launches
+    got = tsl.four_level_slice_lanes(x, lp, demap, window)
+    want = tsl.four_level_slice(x, lp, demap, window)
+    torch.cuda.synchronize()
+    assert tsl.four_level_slice_lanes.launches == before + 1
+    assert torch.equal(got, want)
+    assert bool(((got & 0x100) != 0).any())
+
+
+# the Costas "2400" preset's loop at 44.1 kHz (PLL_PARAMS order), its branch
+# IIR (b0, a1), then AGC rows with normal 2
+_QPSK_ROWS = [2 * np.pi / 44100, 1800.0, 256 / (2 * np.pi), 0.014048,
+              0.971903, 45.0, 450.0, 2e-4, 87.5, 0.0, 0.078930, 0.842139]
+
+
+@pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
+def test_qpsk_costas_kernel_matches_twin(cuda, n_rows):
+    re, im = _carrier(9, 200, 4000, cuda, iq=True)
+    x = (re * 3.0).contiguous()
+    lp = _rows((_QPSK_ROWS + _AGC_ROWS)[:n_rows], 200, cuda, vary=1)
+    sine, cosine = _tables(cuda)
+    before = tloops.qpsk_costas_lanes.launches
+    got = tloops.qpsk_costas_lanes(x, lp, sine, cosine)
+    want = tloops.qpsk_costas(x, lp, sine, cosine)
+    torch.cuda.synchronize()
+    assert tloops.qpsk_costas_lanes.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x, lp = _lanes(2, 8, 100, cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -204,3 +254,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         tloops.mpsk_loop_lanes(x, x, rows12, sine, cosine, tables[:1],
                                index.long())
+    with pytest.raises(ValueError, match="demap"):
+        tsl.four_level_slice_lanes(x, lp, (2, 0, 3))
+    with pytest.raises(ValueError, match="window"):
+        tsl.four_level_slice_lanes(x, lp, (2, 0, 3, 1), window=512)
+    with pytest.raises(ValueError, match="float32"):
+        tsl.four_level_slice_lanes(x.double(), lp.double(), (2, 0, 3, 1))
+    with pytest.raises(ValueError, match="17"):
+        tloops.qpsk_costas_lanes(x, rows15, sine, cosine)
+    rows17 = _rows(_QPSK_ROWS + _AGC_ROWS, 8, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tloops.qpsk_costas_lanes(x.t().contiguous().t(), rows17, sine,
+                                 cosine)
+    with pytest.raises(ValueError, match="NCO tables"):
+        tloops.qpsk_costas_lanes(x, rows17, sine[:128], cosine)

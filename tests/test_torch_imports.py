@@ -122,15 +122,35 @@ def test_tf32_off():
 def test_kernel_wrappers_take_the_twin_only_on_cpu():
     """A CPU tensor runs the plain twin without touching the kernel build;
     another device type raises instead of falling back."""
-    from pymodem_tpu_torch.dsp.loops import afsk_pll_lanes, nco_sine_table
-    from pymodem_tpu_torch.ops.slicers import binary_slice_lanes
+    from pymodem_tpu_torch.dsp.loops import (
+        afsk_pll_lanes,
+        nco_cos_table,
+        nco_sine_table,
+        qpsk_costas_lanes,
+    )
+    from pymodem_tpu_torch.ops.slicers import (
+        binary_slice_lanes,
+        four_level_slice_lanes,
+    )
 
-    k1, k2 = binary_slice_lanes.launches, afsk_pll_lanes.launches
+    wrappers = (binary_slice_lanes, afsk_pll_lanes, four_level_slice_lanes,
+                qpsk_costas_lanes)
+    before = [w.launches for w in wrappers]
     x = torch.zeros(2, 16)
+    tables = (torch.from_numpy(nco_sine_table()),
+              torch.from_numpy(nco_cos_table()))
     binary_slice_lanes(x, torch.ones(2, 2) * 8.0, window=1)
-    afsk_pll_lanes(x, torch.zeros(15, 2),
-                   torch.from_numpy(nco_sine_table()))
-    assert (binary_slice_lanes.launches, afsk_pll_lanes.launches) == (k1, k2)
+    afsk_pll_lanes(x, torch.zeros(15, 2), tables[0])
+    four_level_slice_lanes(x, torch.ones(2, 2) * 8.0, (2, 0, 3, 1), window=2)
+    for n_rows in (17, 12):
+        qpsk_costas_lanes(x, torch.zeros(n_rows, 2), *tables)
+    assert [w.launches for w in wrappers] == before
     meta = torch.zeros(2, 16, device="meta")
+    meta_rows = torch.ones(2, 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        binary_slice_lanes(meta, torch.ones(2, 2, device="meta"))
+        binary_slice_lanes(meta, meta_rows)
+    with pytest.raises(ValueError, match="unsupported device"):
+        four_level_slice_lanes(meta, meta_rows, (2, 0, 3, 1))
+    with pytest.raises(ValueError, match="unsupported device"):
+        qpsk_costas_lanes(meta, torch.zeros(17, 2, device="meta"),
+                          *(t.to("meta") for t in tables))
