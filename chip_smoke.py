@@ -34,7 +34,11 @@ Phases, each printing one line with its seconds:
 7. K3, K4 (over the B shared lanes of the QPSK sweep and the C*B lanes of
    the MPSK pair), K6 and K7 (2 bits per decision on the QPSK sweep, 1 on
    the pair) against their twins on the PSK banks' own inputs (all lanes,
-   a time slice): bitwise; each kernel timed at its full main-path shape;
+   a time slice; for K6 and K7 two slices that are not a multiple of
+   their tiles, one whose rows they copy as they are and one they copy
+   padded, each route checked): bitwise; each kernel timed at its full
+   main-path shape, K6 and K7 with ns a step, the bound and their times
+   before the redesign;
 8. the PSK path end to end, counters set to 0 just before and read just
    after: ``bpsk1200_sweep8`` (8 ``bpsk`` chains, carriers 1500 + 0.25 i
    Hz), ``qpsk2400_sweep8`` (8 ``mpsk`` qpsk_2400 chains, the same
@@ -85,6 +89,17 @@ FSK4_RATE = 48000  # the 4FSK bank (bench.py:230)
 SECONDS = 600
 MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
+# K6's and K7's slices, not multiples of their 128-sample tiles: rows the
+# kernels copy as they are (T % 4 == 0), and rows they copy padded
+ALIGNED_CUT = SLICE + 4
+PADDED_CUT = SLICE + 5
+# their launch geometry (csrc/lane_tiles.cuh, the kernels' kStages)
+LANE_TILES = "32 lanes a block, 128-sample tiles, 3 stages"
+# K6 and K7 before their redesign: ms at full shape on the QPSK sweep (one
+# thread per lane, 128-thread blocks, uncoalesced rows; PERF.md, H100 80GB
+# HBM3 at 700 W)
+K6_BEFORE_MS = 130.771
+K7_BEFORE_MS = 68.236
 SEED = 20261016
 # the H100 SXM's published peaks at its full 700 W:
 # HBM bytes/s and float32 operations/s outside the tensor cores
@@ -346,6 +361,16 @@ def _same(what: str, got, want) -> float:
     return err
 
 
+def _same_route(what: str, *rows, aligned: bool) -> None:
+    """Raise unless the staged lane kernels (K6, K7) take ``rows`` as they
+    are (``aligned``) or through padded copies (not ``aligned``)."""
+    from pymodem_tpu_torch import _ext
+
+    if any(_ext.rows_aligned(t) != aligned for t in rows):
+        raise AssertionError(f"{what}: expected rows the kernel copies "
+                             f"{'as they are' if aligned else 'padded'}")
+
+
 def _cli(cfg_lines, wav, rate, audio, expected: int) -> str:
     """Run the CLI as a subprocess on ``audio`` and a JSONL config made of
     ``cfg_lines`` plus a report; raises unless it exits 0 and reports
@@ -394,6 +419,7 @@ def main() -> int:
         bpsk_costas_lanes,
         mpsk_loop,
         mpsk_loop_lanes,
+        mpsk_tables_staged,
         qpsk_costas,
         qpsk_costas_lanes,
     )
@@ -672,27 +698,42 @@ def main() -> int:
         del x, xs, frames
     kernels["K4"] = max(k4.values(), key=lambda k: k["shape"][0])
 
+    # K6 and K7 (redesigned: staged tiles; their earlier times beside them)
+    # against the twin at full lane count on two cuts that are not a
+    # multiple of the tile: one whose rows the kernels copy as they are, as
+    # on the main path, and one they copy through padded rows; timed at
+    # full shape
     bank, frames = psk_frames("qpsk2400_sweep8")
-    re, im, rows, pd_tables, pd_index = tbank.mpsk_loop_inputs(bank.params,
-                                                               frames)
-    tabs = (bank.params["sine_table"], bank.params["cos_table"])
-    res, ims = cut(re, im)
-    err = _same("K6", mpsk_loop_lanes(res, ims, rows, *tabs, pd_tables,
-                                      pd_index),
-                mpsk_loop(res, ims, rows, *tabs, pd_tables, pd_index))
-    plain = _time_ms(lambda: mpsk_loop(res, ims, rows, *tabs, pd_tables,
-                                       pd_index), 1)
-    ms = _time_ms(lambda: mpsk_loop_lanes(re, im, rows, *tabs, pd_tables,
-                                          pd_index), 3)
-    L, T = re.shape
+    re, im, rows, pd_tables, pd_index, row_of_lane = \
+        tbank.mpsk_loop_inputs(bank.params, frames)
+    k6_args = (rows, bank.params["sine_table"], bank.params["cos_table"],
+               pd_tables, pd_index, row_of_lane)
+    _same_route("K6 at full shape", re, im, aligned=True)
+    err = 0.0
+    for n, aligned in ((ALIGNED_CUT, True), (PADDED_CUT, False)):
+        res, ims = (t[:, :n].contiguous() for t in (re, im))
+        _same_route(f"K6 on {n} samples", res, ims, aligned=aligned)
+        err = max(err, _same(f"K6 on {n} samples",
+                             mpsk_loop_lanes(res, ims, *k6_args),
+                             mpsk_loop(res, ims, *k6_args)))
+    plain = _time_ms(lambda: mpsk_loop(res, ims, *k6_args), 1)
+    ms = _time_ms(lambda: mpsk_loop_lanes(re, im, *k6_args), 3)
+    L = rows.shape[1]
+    R, T = re.shape
     kernels["K6"] = _kernel(
         "mpsk_loop", "mpsk_loop.cu", "pymodem_tpu/dsp/pallas_loops.py:270",
         err, ms, plain,
-        4 * (4 * L * T + 12 * L + 512 + pd_tables.numel() + L),
-        50 * L * T, (L, T), (L, SLICE), smi)
-    print(f"K6 lanes {L} T {T}, {pd_tables.shape[0]} detector table(s): "
-          f"bitwise equal on {L}x{SLICE}; twin {plain:.1f} ms at "
-          f"{L}x{SLICE}; kernel {ms:.3f} ms at full {L}x{T} [{smi}]")
+        4 * (2 * R * T + 2 * L * T + 12 * L + 512 + pd_tables.numel()
+             + 2 * L), 50 * L * T, (L, T), (L, PADDED_CUT), smi)
+    staged = mpsk_tables_staged(pd_tables.numel())
+    print(f"K6 lanes {L} on {R} shared rows, T {T}, {pd_tables.shape[0]} "
+          f"detector table(s): bitwise equal on {L}x{ALIGNED_CUT} (rows as "
+          f"they are) and {L}x{PADDED_CUT} (padded rows); twin "
+          f"{plain:.1f} ms at {L}x{PADDED_CUT}; kernel {ms:.3f} ms at full "
+          f"{L}x{T}, {ms * 1e6 / T:.1f} ns a step, {LANE_TILES}, detector "
+          f"tables in {'shared memory' if staged else 'the read-only cache'};"
+          f" bound {kernels['K6']['bound_ms']:.3f} ms; before the redesign: "
+          f"{K6_BEFORE_MS} ms [{smi}]")
     del re, im, res, ims
     i_d, q_d = tbank.bank_basebands(bank, frames)
     C, B, L3 = i_d.shape
@@ -701,12 +742,18 @@ def main() -> int:
     sl = bank.specs[0].slicer
     lp = tbank.slicer_lane_params(bank, B)
     window = tbank.slicer_window(bank)
-    i_s, q_s = cut(i_l, q_l)
-    err = max(_same(f"K7 window {w}",
-                    quadrature_slice_lanes(i_s, q_s, lp, sl.demap,
-                                           sl.state_mask, 2, w),
-                    quadrature_slice(i_s, q_s, lp, sl.demap, sl.state_mask,
-                                     2, w)) for w in (1, window))
+    _same_route("K7 at full shape", i_l, q_l, aligned=True)
+    err = 0.0
+    for n, aligned in ((ALIGNED_CUT, True), (PADDED_CUT, False)):
+        i_s, q_s = (t[:, :n].contiguous() for t in (i_l, q_l))
+        _same_route(f"K7 on {n} samples", i_s, q_s, aligned=aligned)
+        for w in (1, window):
+            err = max(err, _same(
+                f"K7 window {w} on {n} samples",
+                quadrature_slice_lanes(i_s, q_s, lp, sl.demap,
+                                       sl.state_mask, 2, w),
+                quadrature_slice(i_s, q_s, lp, sl.demap, sl.state_mask, 2,
+                                 w)))
     plain = _time_ms(lambda: quadrature_slice(i_s, q_s, lp, sl.demap,
                                               sl.state_mask, 2, window), 1)
     ms = _time_ms(lambda: quadrature_slice_lanes(i_l, q_l, lp, sl.demap,
@@ -716,10 +763,13 @@ def main() -> int:
         "quadrature_slicer", "quadrature_slicer.cu",
         "pymodem_tpu/ops/pallas_slicers.py:220", err, ms, plain,
         4 * (2 * L * T + 2 * L + L * -(-T // window)), 20 * L * T, (L, T),
-        (L, SLICE), smi)
+        (L, PADDED_CUT), smi)
     print(f"K7 lanes {L} T {T} window {window}: bitwise equal on "
-          f"{L}x{SLICE}; twin {plain:.1f} ms at {L}x{SLICE}; kernel "
-          f"{ms:.3f} ms at full {L}x{T} [{smi}]")
+          f"{L}x{ALIGNED_CUT} and {L}x{PADDED_CUT}, windows 1 and {window}; "
+          f"twin {plain:.1f} ms at {L}x{PADDED_CUT}; kernel {ms:.3f} ms at "
+          f"full {L}x{T}, {ms * 1e6 / T:.1f} ns a step, {LANE_TILES}; bound "
+          f"{kernels['K7']['bound_ms']:.3f} ms; before the redesign: "
+          f"{K7_BEFORE_MS} ms [{smi}]")
     del i_l, q_l, i_s, q_s, frames
     _phase(7, "K3, K4, K6, K7 == twins", t0)
 
@@ -731,12 +781,14 @@ def main() -> int:
     mpsk_kernels = {k: counted[k] for k in ("K4", "K6", "K7")}
     for fn in counted.values():
         fn.launches = 0
+    _ext.lane_rows.copies = 0
     run_path(psk, psk_audio, psk_rate, psk_mps,
              {"bpsk1200_sweep8": {k: counted[k] for k in ("K1", "K3")},
               "qpsk2400_sweep8": mpsk_kernels,
               "mpsk_bpsk1200_pair": mpsk_kernels})
     psk_launches = {k: fn.launches for k, fn in counted.items()}
-    print(f"PSK path: launches {psk_launches}")
+    print(f"PSK path: launches {psk_launches}, padded-row copies for K6 "
+          f"and K7 {_ext.lane_rows.copies}")
     report_banks(psk, psk_audio, psk_rate, psk_mps,
                  {name: len(a[1]) / PSK_RATE for name, a in psk_audio.items()})
     _phase(8, "PSK path end to end", t0)
@@ -817,13 +869,15 @@ def main() -> int:
                "K7": quadrature_slice_lanes, "K8": four_level_slice_lanes}
     for fn in counted.values():
         fn.launches = 0
+    _ext.lane_rows.copies = 0
     run_path(fsk_chains, fsk_audio, fsk_rate, fsk_mps,
              {"fsk9600_sweep8": {"K1": binary_slice_lanes},
               "fsk4_9600_sweep8": {"K8": four_level_slice_lanes},
               "qpsk_costas2400_sweep8": {k: counted[k] for k in ("K5", "K7")}},
              every_chain=True)
     fsk_launches = {k: fn.launches for k, fn in counted.items()}
-    print(f"FSK and Costas-QPSK path: launches {fsk_launches}")
+    print(f"FSK and Costas-QPSK path: launches {fsk_launches}, padded-row "
+          f"copies for K7 {_ext.lane_rows.copies}")
     report_banks(fsk_chains, fsk_audio, fsk_rate, fsk_mps,
                  {name: len(a[1]) / fsk_rate[name]
                   for name, a in fsk_audio.items()})

@@ -140,6 +140,31 @@ def require(device, dtype, **tensors) -> None:
                              f"{device}, got {t.dtype} on {t.device}")
 
 
+def rows_aligned(t) -> bool:
+    """Whether the staged lane kernels (K6, K7) can copy the rows of the
+    contiguous (n, T) tensor ``t`` as they are, by bulk copies: 16-byte
+    aligned starts, T a multiple of 4."""
+    return t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0
+
+
+def lane_rows(t):
+    """The rows of the contiguous (n, T) tensor ``t`` as the staged lane
+    kernels (K6, K7) copy them: ``t`` itself when ``rows_aligned``, else a
+    copy into rows of T rounded up to a multiple of 4 floats, zero-padded.
+    The kernels take the row stride, ``.stride(0)``, and read T samples a
+    row.  ``lane_rows.copies`` counts the copies."""
+    if rows_aligned(t):
+        return t
+    n, T = t.shape
+    out = t.new_zeros((n, -(-T // 4) * 4))
+    out[:, :T] = t
+    lane_rows.copies += 1
+    return out
+
+
+lane_rows.copies = 0
+
+
 def launch(name: str, device, argtypes: tuple, *args) -> None:
     """Launch the C entry point ``name`` with ``args`` on the current
     stream of ``device`` (the stream goes last); raise on a CUDA error."""

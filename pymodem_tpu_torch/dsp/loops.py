@@ -268,12 +268,18 @@ def qpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
 
 def mpsk_loop(re: torch.Tensor, im: torch.Tensor, lane_params: torch.Tensor,
               sine_table: torch.Tensor, cos_table: torch.Tensor,
-              pd_tables: torch.Tensor, pd_index: torch.Tensor):
+              pd_tables: torch.Tensor, pd_index: torch.Tensor,
+              row_of_lane: torch.Tensor | None = None):
     """Plain PyTorch twin of kernel K6, the MPSK loop on the analytic
-    signal: re, im (L, T); lane_params (12, L); the two NCO tables;
-    pd_tables (U, g*g) int32 phase-detector tables (``pd_error_table``, or
-    the f64 reference table at f64) and pd_index (L,) the table of each
-    lane.  Returns the rotated (out_re, out_im), each (L, T)."""
+    signal: re, im (R, T) input rows; lane_params (12, L); the two NCO
+    tables; pd_tables (U, g*g) int32 phase-detector tables
+    (``pd_error_table``, or the f64 reference table at f64); pd_index (L,)
+    the table of each lane; row_of_lane (L,) the input row of each lane
+    (None: lane l reads row l, R == L).  Returns the rotated (out_re,
+    out_im), each (L, T)."""
+    if row_of_lane is not None:
+        rows = row_of_lane.long()
+        re, im = re[rows], im[rows]
     dtype, dev = re.dtype, re.device
     (phase_scale, set_freq, index_scale, b0, a1, gp, gain, pi_i, limit,
      integral0, _pd_gain, gf) = lane_params.to(dtype)
@@ -403,50 +409,86 @@ def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     return out_i, out_q
 
 
+# K6's dynamic shared memory left for its detector tables on Hopper (227 KB
+# a block): csrc/mpsk_loop.cu stages 3 tiles of 128 + 4 samples of re and
+# im for its 32 lanes and the (cos, -sin) table, 1 KB held back for its
+# static arrays
+MPSK_TABLE_SMEM = 232_448 - (3 * 2 * 32 * 132 * 4 + 8 * WAVETABLE_SIZE) - 1024
+
+
+def mpsk_tables_staged(pd_ints: int) -> bool:
+    """Whether K6 stages its ``pd_ints`` detector-table entries in shared
+    memory beside its tiles (else it reads them through the read-only
+    cache)."""
+    return 4 * pd_ints <= MPSK_TABLE_SMEM
+
+
 def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
                     lane_params: torch.Tensor, sine_table: torch.Tensor,
                     cos_table: torch.Tensor, pd_tables: torch.Tensor,
-                    pd_index: torch.Tensor):
-    """Kernel K6 (``csrc/mpsk_loop.cu``) over (L, T) lane pairs; returns
-    (out_re, out_im).
+                    pd_index: torch.Tensor,
+                    row_of_lane: torch.Tensor | None = None):
+    """Kernel K6 (``csrc/mpsk_loop.cu``) over L lanes reading (R, T) input
+    rows (``row_of_lane`` (L,) int32, None for R == L and lane l on row l);
+    returns (out_re, out_im), each (L, T).  Rows that are not 16-byte
+    aligned, or a T that is not a multiple of 4, go to the kernel through
+    padded copies (``_ext.lane_rows``), and the outputs are then views of
+    padded rows.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``mpsk_loop``.  ``pd_tables``
     (U, g*g) may hold any number of tables; each lane's granularity must be
     the tables' g."""
-    _check_rows("mpsk_loop_lanes", re, lane_params,
-                len(PLL_PARAMS) + len(PD_PARAMS), sine_table, cos_table)
-    L = re.shape[0]
-    if im.shape != re.shape or pd_index.shape != (L,) or pd_tables.ndim != 2:
+    L = pd_index.shape[0] if pd_index.ndim == 1 else -1
+    n_rows = len(PLL_PARAMS) + len(PD_PARAMS)
+    if (re.ndim != 2 or im.shape != re.shape or pd_tables.ndim != 2
+            or lane_params.shape != (n_rows, L)
+            or (row_of_lane is None and re.shape[0] != L)
+            or (row_of_lane is not None and row_of_lane.shape != (L,))):
         raise ValueError(f"mpsk_loop_lanes: bad shapes re {tuple(re.shape)}"
-                         f" im {tuple(im.shape)} pd_tables "
+                         f" im {tuple(im.shape)} lane_params "
+                         f"{tuple(lane_params.shape)} pd_tables "
                          f"{tuple(pd_tables.shape)} pd_index "
-                         f"{tuple(pd_index.shape)}")
+                         f"{tuple(pd_index.shape)} row_of_lane "
+                         f"{None if row_of_lane is None else tuple(row_of_lane.shape)}")
+    for t in (sine_table, cos_table):
+        if t.shape != (WAVETABLE_SIZE,):
+            raise ValueError(f"mpsk_loop_lanes: NCO tables must be "
+                             f"({WAVETABLE_SIZE},), got {tuple(t.shape)}")
     if re.device.type == "cpu":
         return mpsk_loop(re, im, lane_params, sine_table, cos_table,
-                         pd_tables, pd_index)
+                         pd_tables, pd_index, row_of_lane)
     from .. import _ext
 
+    if row_of_lane is None:
+        row_of_lane = torch.arange(L, dtype=torch.int32, device=re.device)
     _ext.require(re.device, torch.float32, re=re, im=im,
                  lane_params=lane_params, sine_table=sine_table,
                  cos_table=cos_table)
     _ext.require(re.device, torch.int32, pd_tables=pd_tables,
-                 pd_index=pd_index)
+                 pd_index=pd_index, row_of_lane=row_of_lane)
     n_tab, gg = pd_tables.shape
     g = int(round(gg ** 0.5))
     if g * g != gg or n_tab == 0:
         raise ValueError(f"mpsk_loop_lanes: pd_tables "
                          f"{tuple(pd_tables.shape)} must be (U, g*g)")
-    T = re.shape[1]
-    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    R, T = re.shape
+    re, im = _ext.lane_rows(re), _ext.lane_rows(im)
+    out_re = torch.empty((L, -(-T // 4) * 4), dtype=re.dtype,
+                         device=re.device)
+    out_im = torch.empty_like(out_re)
     _ext.launch("mpsk_loop_lanes", re.device,
-                (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4,
-                re.data_ptr(), im.data_ptr(), lane_params.data_ptr(),
+                (ctypes.c_void_p,) * 2 + (ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_int)
+                + (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6,
+                re.data_ptr(), im.data_ptr(), re.stride(0),
+                row_of_lane.data_ptr(), R, lane_params.data_ptr(),
                 sine_table.data_ptr(), cos_table.data_ptr(),
                 pd_tables.data_ptr(), pd_index.data_ptr(), out_re.data_ptr(),
-                out_im.data_ptr(), L, T, g, n_tab)
+                out_im.data_ptr(), out_re.stride(0), L, T, g, n_tab,
+                int(mpsk_tables_staged(pd_tables.numel())))
     mpsk_loop_lanes.launches += 1
-    return out_re, out_im
+    return out_re[:, :T], out_im[:, :T]
 
 
 afsk_pll_lanes.launches = 0

@@ -277,7 +277,9 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
     """Kernel K7 (``csrc/quadrature_slicer.cu``) over (L, T) I/Q lane
     pairs.  ``demap``, ``state_mask`` and ``bits_per_symbol`` are
     bank-uniform (part of the bank grouping key) and go to the kernel as
-    arguments.
+    arguments.  Rows that are not 16-byte aligned, or a T that is not a
+    multiple of 4, go to the kernel through padded copies
+    (``_ext.lane_rows``).
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``quadrature_slice``."""
@@ -289,12 +291,13 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
                          f"{tuple(lane_params.shape)}")
     _check_window(window)
     if not (len(demap) <= DEMAP_MAX and (state_mask | 3) < len(demap)
+            and all(0 <= v <= 3 for v in demap)
             and bits_per_symbol in (1, 2)):
-        raise ValueError(f"demap of {len(demap)} entries, state_mask "
-                         f"{state_mask:#x}, bits_per_symbol "
-                         f"{bits_per_symbol}: the kernel takes a demap of "
-                         f"at most {DEMAP_MAX} entries covering the state "
-                         "mask and 1 or 2 bits per decision")
+        raise ValueError(f"demap {demap}, state_mask {state_mask:#x}, "
+                         f"bits_per_symbol {bits_per_symbol}: the kernel "
+                         f"takes a demap of at most {DEMAP_MAX} entries of "
+                         "0-3 covering the state mask and 1 or 2 bits per "
+                         "decision")
     if i_lanes.device.type == "cpu":
         return quadrature_slice(i_lanes, q_lanes, lane_params, demap,
                                 state_mask, bits_per_symbol, window)
@@ -303,15 +306,17 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
     _ext.require(i_lanes.device, torch.float32, i_lanes=i_lanes,
                  q_lanes=q_lanes, lane_params=lane_params)
     L, T = i_lanes.shape
+    i_rows, q_rows = _ext.lane_rows(i_lanes), _ext.lane_rows(q_lanes)
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
                       device=i_lanes.device)
-    table = (ctypes.c_int * DEMAP_MAX)(*demap)
+    packed = sum(v << (2 * s) for s, v in enumerate(demap))  # 2 bits each
     _ext.launch("quadrature_slice_lanes", i_lanes.device,
-                (ctypes.c_void_p,) * 4 + (ctypes.POINTER(ctypes.c_int),)
+                (ctypes.c_void_p,) * 2 + (ctypes.c_int,)
+                + (ctypes.c_void_p,) * 2 + (ctypes.c_uint,)
                 + (ctypes.c_int,) * 5,
-                i_lanes.data_ptr(), q_lanes.data_ptr(),
-                lane_params.data_ptr(), out.data_ptr(), table, L, T, window,
-                state_mask, bits_per_symbol)
+                i_rows.data_ptr(), q_rows.data_ptr(), i_rows.stride(0),
+                lane_params.data_ptr(), out.data_ptr(), packed, L, T,
+                window, state_mask, bits_per_symbol)
     quadrature_slice_lanes.launches += 1
     return out
 

@@ -505,12 +505,25 @@ def mpsk_analytic(params: dict, blocks: torch.Tensor):
 
 
 def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
-    """(B, Lin) blocks -> the inputs of kernel K6 for all C*B lanes:
-    (real, imag) (C*B, L2) lanes, (12, C*B) rows (the loop's, then
+    """(B, Lin) blocks -> the inputs of kernel K6 for all C*B lanes: the
+    analytic (real, imag) input rows, (12, C*B) lane rows (the loop's, then
     pd_gain and pd_granularity), the bank's distinct phase-detector tables
-    (U, g*g) int32 and each lane's table (C*B,) int32."""
+    (U, g*g) int32, each lane's table (C*B,) int32 and each lane's input
+    row (C*B,) int32.  A ``pre_shared`` sweep hands over its B shared rows
+    once (lane c*B + b reads row b), not C copies of them; any other bank
+    its C*B rows."""
     real, imag = mpsk_analytic(params, blocks)
     C, B, L2 = real.shape
+    if "pre_shared" in params:
+        real, imag = real[0], imag[0]
+        row_of_lane = torch.arange(B, dtype=torch.int32,
+                                   device=real.device).repeat(C)
+    else:
+        real, imag = real.reshape(C * B, L2), imag.reshape(C * B, L2)
+        row_of_lane = torch.arange(C * B, dtype=torch.int32,
+                                   device=real.device)
+    # contiguous rows: K6 copies whole 16-byte-aligned rows in bulk
+    real, imag = real.contiguous(), imag.contiguous()
 
     def rep(leaf):
         return leaf.to(torch.float32).reshape(C).repeat_interleave(B)
@@ -522,20 +535,22 @@ def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
     tables, chain_table = torch.unique(params["pd_error_table"], dim=0,
                                        return_inverse=True)
     pd_index = chain_table.to(torch.int32).repeat_interleave(B)
-    return (real.reshape(C * B, L2).contiguous(),
-            imag.reshape(C * B, L2).contiguous(), lane_params,
-            tables.contiguous(), pd_index.contiguous())
+    return (real, imag, lane_params, tables.contiguous(),
+            pd_index.contiguous(), row_of_lane)
 
 
 def mpsk_bank_demod(params: dict, blocks: torch.Tensor):
     """(B, Lin) blocks -> the (i, q) MPSK basebands, each (C, B, L3): the
     analytic signal, the carrier loop as ONE pass of kernel K6 over all C*B
-    lanes, then the per-chain RRC on both rails."""
+    lanes (a pre-shared sweep's lanes reading its B shared rows), then the
+    per-chain RRC on both rails."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    re, im, lane_params, tables, pd_index = mpsk_loop_inputs(params, blocks)
+    re, im, lane_params, tables, pd_index, row_of_lane = mpsk_loop_inputs(
+        params, blocks)
     i_d, q_d = mpsk_loop_lanes(re, im, lane_params, params["sine_table"],
-                               params["cos_table"], tables, pd_index)
+                               params["cos_table"], tables, pd_index,
+                               row_of_lane)
     L2 = re.shape[-1]
     return (fir_valid_per_chain(i_d.reshape(C, -1, L2), m["rrc"]),
             fir_valid_per_chain(q_d.reshape(C, -1, L2), m["rrc"]))

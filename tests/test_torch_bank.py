@@ -70,12 +70,33 @@ def audio():
     return sent, mod.to_int16(x)
 
 
+@pytest.fixture(scope="module")
+def audio_1600_1800():
+    """The same frames at 1600/1800 Hz (as chip_smoke.py synthesises), which
+    the "300" preset's correlators decode from any block phase."""
+    rng = np.random.default_rng(20261016)
+    sent = tfx.payloads(rng, count=3, size=10)
+    line = tfx.il2p_line_bits(sent, polynomial=0x3, gap_bits=400)
+    return sent, mod.to_int16(mod.afsk_modulate(line, float(RATE), 300.0,
+                                                1600.0, 1800.0))
+
+
 def _packets(by_name):
     return {
         name: [(list(map(int, p.data)), np_crc16(np.asarray(p.data[:-2])),
                 int(p.streamaddress), int(p.bytes_corrected)) for p in pkts]
         for name, pkts in by_name.items()
     }
+
+
+def _packet_diff(got, want) -> str:
+    """The chains whose packets differ, as (address, CRC, corrected) of
+    each side (port, then JAX)."""
+    return "; ".join(
+        f"{name}: port {[p[1:] for p in got.get(name, [])]} JAX "
+        f"{[p[1:] for p in want.get(name, [])]}"
+        for name in sorted(set(got) | set(want))
+        if got.get(name) != want.get(name))
 
 
 def _flat(tree, prefix=""):
@@ -114,14 +135,20 @@ def test_group_chains_matches_convert(name):
         assert torch.equal(params["sine_table"], torch.from_numpy(xla))
 
 
-@pytest.mark.parametrize("name", ["sweep", "pll_pair"])
-def test_run_banked_matches_jax(name, audio):
-    sent, x = audio
+@pytest.mark.parametrize(
+    "name,audio_name", [("sweep", "audio"), ("pll_pair", "audio"),
+                        ("sweep", "audio_1600_1800")],
+    ids=["sweep", "pll_pair", "sweep_1600_1800"])
+def test_run_banked_matches_jax(name, audio_name, request):
+    """Packets equal the JAX package's; the space-gain sweep also on
+    1600/1800 Hz tones."""
+    sent, x = request.getfixturevalue(audio_name)
     chains = BANKS[name]
     want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="host",
                             **GEOM)
     got = tbank.run_banked(chains, x, codec="host", device="cpu", **GEOM)
-    assert _packets(got) == _packets(want)
+    got_p, want_p = _packets(got), _packets(want)
+    assert got_p == want_p, _packet_diff(got_p, want_p)
     decoded = [bytes(p.data[16:-2]) for pkts in got.values() for p in pkts]
     assert sorted(decoded) == sorted(sent)
 

@@ -133,39 +133,75 @@ def test_bpsk_costas_kernel_matches_twin(cuda):
     assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
-@pytest.mark.parametrize(
-    "gains", [(32.0, 20.0), tuple(8.0 + 2.0 * np.arange(24))],
-    ids=["2_gains", "24_gains"])
-def test_mpsk_loop_kernel_matches_twin(cuda, gains):
-    """Lanes of several detector gains, each reading its own table; 24
-    tables of 16 KB are more than a block's shared memory would hold."""
-    L = 200
-    re, im = _carrier(5, L, 4000, cuda, iq=True)
-    rows = [2 * np.pi / 44100, 1500.0, 256 / (2 * np.pi), 0.0175, 0.965,
-            14400 / 65536 * 0.3, 14400 / 65536, 0.3 / 2000, 31.25, -31.25,
-            32.0, 64.0]
-    lp = _rows(rows, L, cuda, vary=1)
-    sine, cosine = _tables(cuda)
+# the MPSK qpsk_2400 loop at 44.1 kHz (PLL_PARAMS order), pd_gain,
+# pd_granularity
+_MPSK_ROWS = [2 * np.pi / 44100, 1500.0, 256 / (2 * np.pi), 0.0175, 0.965,
+              14400 / 65536 * 0.3, 14400 / 65536, 0.3 / 2000, 31.25, -31.25,
+              32.0, 64.0]
+# samples a lane: a multiple of 4, and 3 tiles of 128 and 5 (padded rows)
+_T_EDGES = [4000, 3 * 128 + 5]
+
+
+def _mpsk_inputs(L, T, n_gains, shared, device, seed=5):
+    """K6 inputs for L lanes (not a multiple of 32) of ``n_gains`` detector
+    tables: (re, im) rows, lane rows, tables, table index, row_of_lane.
+    ``shared``: 8 chains on the same L/8 rows (a pre-shared bank); else one
+    row a lane, the identity map."""
+    B = L // 8 if shared else L
+    re, im = _carrier(seed, B, T, device, iq=True)
+    if shared:
+        row_of_lane = torch.arange(B, device=device).repeat(8)
+    else:
+        row_of_lane = torch.arange(L, device=device)
+    lp = _rows(_MPSK_ROWS, L, device, vary=1)
+    gains = 8.0 + 2.0 * np.arange(n_gains)
     tables = torch.from_numpy(np.stack([
-        tloops.pd_error_table(64, k) for k in gains])).to(cuda)
-    index = (torch.arange(L, device=cuda) % len(gains)).to(torch.int32)
+        tloops.pd_error_table(64, k) for k in gains])).to(device)
+    index = (torch.arange(L, device=device) % n_gains).to(torch.int32)
+    return re, im, lp, tables, index, row_of_lane.to(torch.int32)
+
+
+@pytest.mark.parametrize("T", _T_EDGES)
+@pytest.mark.parametrize("rows", ["identity", "shared"])
+@pytest.mark.parametrize("n_gains", [1, 2, 24],
+                         ids=["1_gain", "2_gains", "24_gains"])
+def test_mpsk_loop_kernel_matches_twin(cuda, n_gains, rows, T):
+    """Lanes of one or several detector gains, each reading its own table
+    (24 tables of 16 KB are more than a block's shared memory holds, so
+    they stay in device memory), on their own rows or on rows shared by 8
+    chains."""
+    L = 200
+    re, im, lp, tables, index, row_of_lane = _mpsk_inputs(
+        L, T, n_gains, rows == "shared", cuda)
+    sine, cosine = _tables(cuda)
     before = tloops.mpsk_loop_lanes.launches
-    got = tloops.mpsk_loop_lanes(re, im, lp, sine, cosine, tables, index)
-    want = tloops.mpsk_loop(re, im, lp, sine, cosine, tables, index)
+    got = tloops.mpsk_loop_lanes(re, im, lp, sine, cosine, tables, index,
+                                 row_of_lane)
+    want = tloops.mpsk_loop(re, im, lp, sine, cosine, tables, index,
+                            row_of_lane)
     torch.cuda.synchronize()
     assert tloops.mpsk_loop_lanes.launches == before + 1
     for g, w in zip(got, want):
+        assert g.shape == (L, T)
         assert torch.isfinite(g).all() and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("window", [1, 32])
+def _quad_demap(bps):
+    if bps == 2:
+        return (3, 1, 2, 0, 2, 3, 0, 1, 1, 0, 3, 2, 0, 2, 1, 3), 0xF
+    return (0, 0, 1, 1), 0x3
+
+
+@pytest.mark.parametrize("T", [3000, 3 * 128 + 5])
+@pytest.mark.parametrize("window", [1, 8, 32, 256])
 @pytest.mark.parametrize("bps", [1, 2])
-def test_quadrature_slicer_kernel_matches_twin(cuda, bps, window):
-    i_l, lp = _lanes(6, 300, 3000, cuda)
-    q_l, _ = _lanes(7, 300, 3000, cuda)
-    demap = ((3, 1, 2, 0, 2, 3, 0, 1, 1, 0, 3, 2, 0, 2, 1, 3) if bps == 2
-             else (0, 0, 1, 1))
-    mask = 0xF if bps == 2 else 0x3
+def test_quadrature_slicer_kernel_matches_twin(cuda, bps, window, T):
+    """300 lanes (not a multiple of 32); T a multiple of 4, or 3 tiles of
+    128 and 5 (rows padded to a multiple of 4, a ragged last tile and
+    window); windows shorter and longer than a tile."""
+    i_l, lp = _lanes(6, 300, T, cuda)
+    q_l, _ = _lanes(7, 300, T, cuda)
+    demap, mask = _quad_demap(bps)
     before = tsl.quadrature_slice_lanes.launches
     got = tsl.quadrature_slice_lanes(i_l, q_l, lp, demap, mask, bps, window)
     want = tsl.quadrature_slice(i_l, q_l, lp, demap, mask, bps, window)
@@ -173,6 +209,59 @@ def test_quadrature_slicer_kernel_matches_twin(cuda, bps, window):
     assert tsl.quadrature_slice_lanes.launches == before + 1
     assert torch.equal(got, want)
     assert bool(((got & 0x100) != 0).any())
+
+
+def _offset_rows(x):
+    """A contiguous copy of the (n, T) tensor ``x`` whose rows start 4
+    bytes past a 16-byte boundary."""
+    n, T = x.shape
+    return torch.empty(n * T + 1, dtype=x.dtype, device=x.device)[1:] \
+        .view(n, T).copy_(x)
+
+
+def test_lane_kernels_take_unaligned_rows(cuda):
+    """K6 and K7 take rows that do not start 16-byte aligned (T a multiple
+    of 4) through padded copies, and give the twins' results."""
+    from pymodem_tpu_torch import _ext
+
+    re, im, lp, tables, index, row_of_lane = _mpsk_inputs(
+        200, 1000, 1, True, cuda, seed=11)
+    re, im = _offset_rows(re), _offset_rows(im)
+    assert not _ext.rows_aligned(re)
+    sine, cosine = _tables(cuda)
+    got = tloops.mpsk_loop_lanes(re, im, lp, sine, cosine, tables, index,
+                                 row_of_lane)
+    want = tloops.mpsk_loop(re, im, lp, sine, cosine, tables, index,
+                            row_of_lane)
+    i_l, lp = _lanes(12, 200, 1000, cuda)
+    q_l, _ = _lanes(13, 200, 1000, cuda)
+    i_l, q_l = _offset_rows(i_l), _offset_rows(q_l)
+    demap, mask = _quad_demap(2)
+    got_q = tsl.quadrature_slice_lanes(i_l, q_l, lp, demap, mask, 2, 32)
+    want_q = tsl.quadrature_slice(i_l, q_l, lp, demap, mask, 2, 32)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got_q, want_q)
+
+
+def test_quadrature_slicer_kernel_nan_and_signed_zero(cuda):
+    """NaN samples cross nothing and decide 0 on their rail; -0.0 is >= 0
+    (a sign bit would say otherwise); kernel and twin agree."""
+    i_l, lp = _lanes(14, 100, 2000, cuda)
+    q_l, _ = _lanes(15, 100, 2000, cuda)
+    g = np.random.default_rng(16)
+    for x in (i_l, q_l):
+        for value, frac in ((float("nan"), 0.05), (-0.0, 0.1), (0.0, 0.1)):
+            x[torch.from_numpy(g.random(tuple(x.shape)) < frac).to(cuda)] = \
+                value
+    demap, mask = _quad_demap(2)
+    for window in (1, 32):
+        got = tsl.quadrature_slice_lanes(i_l, q_l, lp, demap, mask, 2,
+                                         window)
+        want = tsl.quadrature_slice(i_l, q_l, lp, demap, mask, 2, window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def _four_level(seed, n_lanes, n_samples, device):

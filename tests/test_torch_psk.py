@@ -427,6 +427,34 @@ def test_mpsk_twin_picks_each_lanes_table(rng):
             np.testing.assert_array_equal(g[lanes].numpy(), w)
 
 
+@pytest.mark.parametrize("shared", [False, True], ids=["identity", "shared"])
+def test_mpsk_twin_reads_lane_rows(rng, shared):
+    """Lanes that read their input rows through ``row_of_lane`` (the B
+    shared rows of a pre-shared bank, lane c*B + b on row b, or a permuted
+    identity) give bitwise what the rows copied out lane by lane give; the
+    wrapper takes the same route on the CPU."""
+    re, im, _, _, rows = _mpsk_case(rng)
+    sine, cosine = _xla_tables()
+    tables = np.stack([tloops.pd_error_table(G, PD_GAIN)])
+    index = np.zeros(C * B, np.int32)
+    if shared:
+        src_re, src_im = re[0], im[0]  # (B, T)
+        row_of_lane = np.tile(np.arange(B, dtype=np.int32), C)
+    else:
+        src_re, src_im = re.reshape(C * B, T), im.reshape(C * B, T)
+        row_of_lane = rng.permutation(C * B).astype(np.int32)
+    want = tloops.mpsk_loop(*(torch.from_numpy(np.ascontiguousarray(v))
+                              for v in (src_re[row_of_lane],
+                                        src_im[row_of_lane], rows, sine,
+                                        cosine, tables, index)))
+    args = tuple(torch.from_numpy(np.ascontiguousarray(v)) for v in (
+        src_re, src_im, rows, sine, cosine, tables, index, row_of_lane))
+    for got in (tloops.mpsk_loop(*args), tloops.mpsk_loop_lanes(*args)):
+        for g, w in zip(got, want):
+            assert g.shape == (C * B, T)
+            assert torch.equal(g, w)
+
+
 # ---------------------------------------------------------------------------
 # Host parameters and bank parameters
 # ---------------------------------------------------------------------------

@@ -92,6 +92,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         tsl.quadrature_slice_lanes(x, x, lp, (0, 0, 1, 1), 0xF, 2)
     with pytest.raises(ValueError, match="demap"):
         tsl.quadrature_slice_lanes(x, x, lp, _QPSK_DEMAP, 0xF, 3)
+    with pytest.raises(ValueError, match="demap"):  # entries are 2 bits
+        tsl.quadrature_slice_lanes(x, x, lp, (0, 0, 1, 4), 0x3, 1)
     with pytest.raises(ValueError, match="window"):
         tsl.quadrature_slice_lanes(x, x, lp, _QPSK_DEMAP, 0xF, 2, window=6)
     with pytest.raises(ValueError, match="shapes"):
@@ -103,3 +105,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         tsl.quadrature_slice_lanes(meta, meta, lp.to("meta"), _QPSK_DEMAP,
                                    0xF, 2)
+
+
+@pytest.mark.parametrize("T", [16, 389])
+def test_lane_rows_hands_the_kernels_aligned_rows(T):
+    """K6 and K7 copy rows by 16-byte bulk copies: ``lane_rows`` keeps a
+    contiguous tensor with aligned rows as it is and copies any other into
+    zero-padded rows a multiple of 4 floats long, its samples unchanged."""
+    from pymodem_tpu_torch import _ext
+
+    x = torch.from_numpy(np.random.default_rng(T).standard_normal(
+        (3, T)).astype(np.float32)).clone()
+    offset = torch.empty(3 * T + 1)[1:].view(3, T).copy_(x)
+    for t in (x, offset):
+        copies = _ext.lane_rows.copies
+        rows = _ext.lane_rows(t)
+        aligned = T % 4 == 0 and t is x
+        assert _ext.lane_rows.copies == copies + (not aligned)
+        assert _ext.rows_aligned(t) == aligned
+        assert (rows is t) == aligned
+        assert rows.is_contiguous() and rows.data_ptr() % 16 == 0
+        assert rows.shape == (3, -(-T // 4) * 4)
+        assert torch.equal(rows[:, :T], x)
+        assert not rows[:, T:].any()
