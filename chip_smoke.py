@@ -34,24 +34,29 @@ Phases, each printing one line with its seconds:
 7. K3, K4 (over the B shared lanes of the QPSK sweep and the C*B lanes of
    the MPSK pair), K6 and K7 (2 bits per decision on the QPSK sweep, 1 on
    the pair) against their twins on the PSK banks' own inputs (all lanes,
-   a time slice; for K6 and K7 two slices that are not a multiple of
-   their tiles, one whose rows they copy as they are and one they copy
-   padded, each route checked): bitwise; each kernel timed at its full
-   main-path shape, K6 and K7 with ns a step, the bound and their times
-   before the redesign;
+   a time slice; for the staged K4, K6 and K7 two slices that are not a
+   multiple of their tiles, one whose rows they copy as they are and one
+   they copy padded, each route checked): bitwise; each kernel timed at
+   its full main-path shape, K4, K6 and K7 with ns a step, the bound and
+   their times before the redesign, K4 with its padded-row copy;
 8. the PSK path end to end, counters set to 0 just before and read just
-   after: ``bpsk1200_sweep8`` (8 ``bpsk`` chains, carriers 1500 + 0.25 i
-   Hz), ``qpsk2400_sweep8`` (8 ``mpsk`` qpsk_2400 chains, the same
-   carriers, pre-shared) and ``mpsk_bpsk1200_pair`` (2 ``mpsk`` bpsk_1200
-   chains, AGC attack 500 and 400, not shared), each decoding every frame
-   with none rejected; warm reruns, splits and peak device memory;
+   after (launches and padded-row copies per bank and per path):
+   ``bpsk1200_sweep8`` (8 ``bpsk`` chains, carriers 1500 + 0.25 i Hz),
+   ``qpsk2400_sweep8`` (8 ``mpsk`` qpsk_2400 chains, the same carriers,
+   pre-shared) and ``mpsk_bpsk1200_pair`` (2 ``mpsk`` bpsk_1200 chains, AGC
+   attack 500 and 400, not shared), each decoding every frame with none
+   rejected; warm reruns, splits and peak device memory;
 9. the CLI as a subprocess on a WAV and a QPSK-2400 JSONL config;
-10. K8 (windows 1 and the bank's) and K5 (AGC fused) against their twins on
-    the new banks' own inputs (all lanes, a time slice): bitwise; each
-    kernel timed at its full main-path shape;
+10. K8 (windows 1 and the bank's) and K5 against their twins on the
+    banks' own inputs (all lanes, a time slice; K5 on the two slices of
+    K4, on the bank's R shared rows and on identity rows, with 17 rows
+    (AGC fused) and 12): bitwise; each kernel timed at its full main-path
+    shape, K5 with ns a step, the bound, its padded-row copy and its time
+    before the redesign;
 11. the FSK and Costas-QPSK path end to end, counters set to 0 just before
-    and read just after: ``fsk9600_sweep8`` (8 ``fsk`` "9600" chains at
-    96 kHz, input cutoffs 6000 + 5 i Hz, binary slicer, G3RUH scrambler),
+    and read just after (launches and padded-row copies as in 8):
+    ``fsk9600_sweep8`` (8 ``fsk`` "9600" chains at 96 kHz, input cutoffs
+    6000 + 5 i Hz, binary slicer, G3RUH scrambler),
     ``fsk4_9600_sweep8`` (8 ``fsk`` "4800" chains at 48 kHz, cutoffs
     3000 + 5 i Hz, four-level slicer at 4800 Bd) and
     ``qpsk_costas2400_sweep8`` (8 ``qpsk`` "2400" chains at 44.1 kHz,
@@ -89,15 +94,19 @@ FSK4_RATE = 48000  # the 4FSK bank (bench.py:230)
 SECONDS = 600
 MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
-# K6's and K7's slices, not multiples of their 128-sample tiles: rows the
-# kernels copy as they are (T % 4 == 0), and rows they copy padded
+# the staged lane kernels' (K4-K7) slices, not multiples of their
+# 128-sample tiles: rows the kernels copy as they are (T % 4 == 0), and
+# rows they copy padded
 ALIGNED_CUT = SLICE + 4
 PADDED_CUT = SLICE + 5
-# their launch geometry (csrc/lane_tiles.cuh, the kernels' kStages)
-LANE_TILES = "32 lanes a block, 128-sample tiles, 3 stages"
-# K6 and K7 before their redesign: ms at full shape on the QPSK sweep (one
+# their launch geometry (csrc/lane_tiles.cuh)
+LANE_TILES = "32 lanes a block, 128-sample tiles"
+# K4-K7 before their redesign: ms at full shape on the main paths (one
 # thread per lane, 128-thread blocks, uncoalesced rows; PERF.md, H100 80GB
-# HBM3 at 700 W)
+# HBM3 at 700 W): K4 on the QPSK sweep's 118 shared lanes and the MPSK
+# pair's 186, K5 on the Costas sweep, K6 and K7 on the QPSK sweep
+K4_BEFORE_MS = {"qpsk2400_sweep8": 93.461, "mpsk_bpsk1200_pair": 72.236}
+K5_BEFORE_MS = 147.222
 K6_BEFORE_MS = 130.771
 K7_BEFORE_MS = 68.236
 SEED = 20261016
@@ -362,7 +371,7 @@ def _same(what: str, got, want) -> float:
 
 
 def _same_route(what: str, *rows, aligned: bool) -> None:
-    """Raise unless the staged lane kernels (K6, K7) take ``rows`` as they
+    """Raise unless the staged lane kernels (K4-K7) take ``rows`` as they
     are (``aligned``) or through padded copies (not ``aligned``)."""
     from pymodem_tpu_torch import _ext
 
@@ -535,14 +544,16 @@ def main() -> int:
         itself; fail unless the bank launched each wrapper of
         ``kernels_of[name]``; print each bank's peak device memory against
         the bytes per chain-sample that runtime/bank.py budgets for its
-        family."""
+        family, its launches and its padded-row copies (_ext.lane_rows)."""
         for name, chains in bank_chains.items():
             rate = rate_of[name]
             before = {k: fn.launches for k, fn in kernels_of[name].items()}
+            copies = _ext.lane_rows.copies
             torch.cuda.reset_peak_memory_stats()
             result = run(RunPlan(chains=tuple(chains), reports=reports),
                          audios[name][1], rate, mps_of[name])
             peak = torch.cuda.max_memory_allocated()
+            copies = _ext.lane_rows.copies - copies
             _check_bank(name, result, audios[name][0])
             missed = [k for k, fn in kernels_of[name].items()
                       if fn.launches == before[k]]
@@ -559,8 +570,11 @@ def main() -> int:
             plan_ = tbank.bank_plan(bank_, len(audios[name][1]),
                                     max_packet_seconds=mps_of[name])
             samples = len(chains) * plan_.n_blocks * plan_.block_input_len
+            launched = {k: fn.launches - before[k]
+                        for k, fn in kernels_of[name].items()}
             print(f"bank {name}: {len(audios[name][0])} frames decoded, 0 "
-                  f"rejected; peak device memory {peak / 2**30:.2f} GiB, "
+                  f"rejected; launches {launched}, padded-row copies "
+                  f"{copies}; peak device memory {peak / 2**30:.2f} GiB, "
                   f"{peak / samples:.1f} bytes per chain-sample (budgeted "
                   f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]}) [{smi}]")
 
@@ -658,25 +672,40 @@ def main() -> int:
           f"{L}x{T} [{smi}]")
     del x, xs, frames
 
+    # K4 (redesigned: staged tiles; its earlier times beside it) on both of
+    # its banks against the twin at full lane count on the two cuts, timed
+    # at full shape
     k4 = {}
     for name in ("qpsk2400_sweep8", "mpsk_bpsk1200_pair"):
         bank, frames = psk_frames(name)
         x, rows = tbank.mpsk_agc_inputs(bank.params, frames)
-        (xs,) = cut(x)
-        err = _same(f"K4 on {name}", agc_lanes(xs, rows),
-                    agc_follower(xs, rows))
+        err = 0.0
+        for n, aligned in ((ALIGNED_CUT, True), (PADDED_CUT, False)):
+            xs = x[:, :n].contiguous()
+            _same_route(f"K4 on {name}, {n} samples", xs, aligned=aligned)
+            err = max(err, _same(f"K4 on {name}, {n} samples",
+                                 agc_lanes(xs, rows), agc_follower(xs, rows)))
         plain = _time_ms(lambda: agc_follower(xs, rows), 1)
         ms = _time_ms(lambda: agc_lanes(x, rows), 3)
         L, T = x.shape
+        aligned = _ext.rows_aligned(x)
+        copy_ms = 0.0 if aligned else _time_ms(lambda: _ext.lane_rows(x), 3)
         k4[name] = _kernel(
             "agc_lanes", "agc_lanes.cu",
             "pymodem_tpu/dsp/pallas_loops.py:83", err, ms, plain,
-            4 * (2 * L * T + 5 * L), 12 * L * T, (L, T), (L, SLICE), smi)
+            4 * (2 * L * T + 5 * L), 12 * L * T, (L, T), (L, PADDED_CUT),
+            smi)
         print(f"K4 on {name} ({len(bank.specs)} chains, "
               f"{'B shared' if 'pre_shared' in bank.params else 'C*B'} "
-              f"lanes) lanes {L} T {T}: bitwise equal on {L}x{SLICE}; twin "
-              f"{plain:.1f} ms at {L}x{SLICE}; kernel {ms:.3f} ms at full "
-              f"{L}x{T} [{smi}]")
+              f"lanes) lanes {L} T {T}: bitwise equal on {L}x{ALIGNED_CUT} "
+              f"(rows as they are) and {L}x{PADDED_CUT} (padded rows); twin "
+              f"{plain:.1f} ms at {L}x{PADDED_CUT}; kernel {ms:.3f} ms at "
+              f"full {L}x{T}, {ms * 1e6 / T:.1f} ns a step, {LANE_TILES}, "
+              f"outputs by four gain warps, "
+              f"rows {'as they are' if aligned else 'padded'} (padded-row "
+              f"copy {copy_ms:.3f} ms, in the kernel's time); bound "
+              f"{k4[name]['bound_ms']:.3f} ms; before the redesign: "
+              f"{K4_BEFORE_MS[name]} ms [{smi}]")
         if name == "mpsk_bpsk1200_pair":
             # 1 bit per decision: K7 on the pair's own basebands
             i_d, q_d = tbank.bank_basebands(bank, frames)
@@ -787,8 +816,8 @@ def main() -> int:
               "qpsk2400_sweep8": mpsk_kernels,
               "mpsk_bpsk1200_pair": mpsk_kernels})
     psk_launches = {k: fn.launches for k, fn in counted.items()}
-    print(f"PSK path: launches {psk_launches}, padded-row copies for K6 "
-          f"and K7 {_ext.lane_rows.copies}")
+    print(f"PSK path: launches {psk_launches}, padded-row copies for K4, "
+          f"K6 and K7 {_ext.lane_rows.copies}")
     report_banks(psk, psk_audio, psk_rate, psk_mps,
                  {name: len(a[1]) / PSK_RATE for name, a in psk_audio.items()})
     _phase(8, "PSK path end to end", t0)
@@ -843,23 +872,48 @@ def main() -> int:
           f"{ms:.3f} ms at full {L}x{T} [{smi}]")
     del x, xs
 
+    # K5 (redesigned: staged tiles, the AGC on the copy warp; its earlier
+    # time beside it) against the twin at full lane count on the two cuts,
+    # on the main path's shared rows and on identity rows (the C*B rows
+    # copied out), in the 17-row (AGC fused) and the 12-row form; timed at
+    # full shape on the shared rows
     bank, frames = fsk_frames("qpsk_costas2400_sweep8")
-    x, rows = tbank.coherent_loop_inputs(bank.params, frames)
+    x, rows, row_of_lane = tbank.qpsk_loop_inputs(bank.params, frames)
     del frames
     tabs = (bank.params["sine_table"], bank.params["cos_table"])
-    (xs,) = cut(x)
-    err = _same("K5", qpsk_costas_lanes(xs, rows, *tabs),
-                qpsk_costas(xs, rows, *tabs))
-    plain = _time_ms(lambda: qpsk_costas(xs, rows, *tabs), 1)
-    ms = _time_ms(lambda: qpsk_costas_lanes(x, rows, *tabs), 3)
-    L, T = x.shape
+    err = 0.0
+    for n, aligned in ((ALIGNED_CUT, True), (PADDED_CUT, False)):
+        xs = x[:, :n].contiguous()
+        xi = xs[row_of_lane.long()].contiguous()
+        _same_route(f"K5 on {n} samples", xs, xi, aligned=aligned)
+        for lp in (rows, rows[:12].contiguous()):
+            for inp, rol, what in ((xs, row_of_lane, "shared rows"),
+                                   (xi, None, "identity rows")):
+                err = max(err, _same(
+                    f"K5 ({lp.shape[0]} rows, {what}) on {n} samples",
+                    qpsk_costas_lanes(inp, lp, *tabs, rol),
+                    qpsk_costas(inp, lp, *tabs, rol)))
+    del xi
+    plain = _time_ms(lambda: qpsk_costas(xs, rows, *tabs, row_of_lane), 1)
+    ms = _time_ms(lambda: qpsk_costas_lanes(x, rows, *tabs, row_of_lane), 3)
+    L = rows.shape[1]
+    R, T = x.shape
+    aligned = _ext.rows_aligned(x)
+    copy_ms = 0.0 if aligned else _time_ms(lambda: _ext.lane_rows(x), 3)
     kernels["K5"] = _kernel(
         "qpsk_costas_loop", "qpsk_costas_loop.cu",
         "pymodem_tpu/dsp/pallas_loops.py:270", err, ms, plain,
-        4 * (3 * L * T + 17 * L + 512), 60 * L * T, (L, T), (L, SLICE), smi)
-    print(f"K5 lanes {L} T {T} ({rows.shape[0]} rows, AGC fused): bitwise "
-          f"equal on {L}x{SLICE}; twin {plain:.1f} ms at {L}x{SLICE}; "
-          f"kernel {ms:.3f} ms at full {L}x{T} [{smi}]")
+        4 * (R * T + 2 * L * T + 17 * L + 512 + L), 60 * L * T, (L, T),
+        (L, PADDED_CUT), smi)
+    print(f"K5 lanes {L} on {R} shared rows, T {T} ({rows.shape[0]} rows, "
+          f"AGC fused): bitwise equal on {L}x{ALIGNED_CUT} (rows as they "
+          f"are) and {L}x{PADDED_CUT} (padded rows), shared and identity "
+          f"rows, 17 and 12 rows; twin {plain:.1f} ms at {L}x{PADDED_CUT}; "
+          f"kernel {ms:.3f} ms at full {L}x{T}, {ms * 1e6 / T:.1f} ns a "
+          f"step, {LANE_TILES}, rows {'as they are' if aligned else 'padded'}"
+          f" (padded-row copy {copy_ms:.3f} ms, in the kernel's time); bound "
+          f"{kernels['K5']['bound_ms']:.3f} ms; before the redesign: "
+          f"{K5_BEFORE_MS} ms [{smi}]")
     del x, xs, rows
     _phase(10, "K8, K5 == twins", t0)
 
@@ -877,7 +931,7 @@ def main() -> int:
              every_chain=True)
     fsk_launches = {k: fn.launches for k, fn in counted.items()}
     print(f"FSK and Costas-QPSK path: launches {fsk_launches}, padded-row "
-          f"copies for K7 {_ext.lane_rows.copies}")
+          f"copies for K5 and K7 {_ext.lane_rows.copies}")
     report_banks(fsk_chains, fsk_audio, fsk_rate, fsk_mps,
                  {name: len(a[1]) / fsk_rate[name]
                   for name, a in fsk_audio.items()})

@@ -141,7 +141,7 @@ def require(device, dtype, **tensors) -> None:
 
 
 def rows_aligned(t) -> bool:
-    """Whether the staged lane kernels (K6, K7) can copy the rows of the
+    """Whether the staged lane kernels (K4-K7) can copy the rows of the
     contiguous (n, T) tensor ``t`` as they are, by bulk copies: 16-byte
     aligned starts, T a multiple of 4."""
     return t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0
@@ -149,7 +149,7 @@ def rows_aligned(t) -> bool:
 
 def lane_rows(t):
     """The rows of the contiguous (n, T) tensor ``t`` as the staged lane
-    kernels (K6, K7) copy them: ``t`` itself when ``rows_aligned``, else a
+    kernels (K4-K7) copy them: ``t`` itself when ``rows_aligned``, else a
     copy into rows of T rounded up to a multiple of 4 floats, zero-padded.
     The kernels take the row stride, ``.stride(0)``, and read T samples a
     row.  ``lane_rows.copies`` counts the copies."""

@@ -1,8 +1,7 @@
-// Staged lane tiles for the lane kernels K6 and K7: a block serves
-// kLanes lanes and walks time in tiles of kTile samples, bringing each
-// lane's next tile of its input rows into shared memory while the lanes
-// work on the current one, and writing (L, T) outputs back from a shared
-// tile.
+// Staged lane tiles for the lane kernels K4-K7: a block serves kLanes
+// lanes and walks time in tiles of kTile samples, bringing each lane's
+// next tile of its input rows into shared memory while the lanes work on
+// the current one, and writing (L, T) outputs back from a shared tile.
 //
 // Layout: a shared tile holds one row of kTile + 4 floats per lane.  A
 // thread reading a float4 of its own row then hits 8 distinct 16-byte bank
@@ -27,9 +26,9 @@
 namespace pymodem {
 
 // lanes (and copy threads) a block.  The kernels declare
-// __launch_bounds__(2 * kLanes, 1): without the 1 (one resident block an
-// SM suffices), ptxas budgets registers for many resident 64-thread blocks
-// and gives K7 48 registers where it takes 72, ~20% slower on an H100.
+// __launch_bounds__(threads, 1): without the 1 (one resident block an SM
+// suffices), ptxas budgets registers for many resident blocks and gives
+// K7 48 registers where it takes 72, ~20% slower on an H100.
 constexpr int kLanes = 32;
 constexpr int kTile = 128;   // samples a tile
 constexpr int kStride = kTile + 4;  // floats a lane row of a shared tile

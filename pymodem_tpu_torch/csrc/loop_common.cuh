@@ -1,4 +1,4 @@
-// Device helpers shared by the carrier-loop kernels K2, K3, K4 and K6:
+// Device helpers shared by the carrier-loop kernels K2-K6:
 // the AGC envelope follower, the NCO step and the PI update, each in the
 // JAX package's op order (pymodem_tpu/dsp/loops.py, dsp/agc.py), so that a
 // kernel built with -fmad=false and without fast math equals its plain
@@ -33,8 +33,9 @@ struct Agc {
         sustain_inc(rows[3 * stride]),
         target(rows[4 * stride]) {}
 
-  // one step (dsp/agc.py agc_step); target * x / env is an IEEE divide
-  __device__ __forceinline__ float step(float x) {
+  // the envelope and sustain update of one step (dsp/agc.py agc_step);
+  // returns the new envelope
+  __device__ __forceinline__ float follow(float x) {
     const float cv = fabsf(x);
     if (cv > env) {
       env = min_nan(env + attack, cv);
@@ -42,8 +43,17 @@ struct Agc {
     }
     if (sustain >= sustain_time) env = max_nan(env - decay, 0.0f);
     sustain = sustain + sustain_inc;
-    return env != 0.0f ? target * x / env : x;
+    return env;
   }
+
+  // the step's output for envelope e: target * x / e is an IEEE divide,
+  // and x passes unchanged while e is 0
+  __device__ __forceinline__ float gain(float x, float e) const {
+    return e != 0.0f ? target * x / e : x;
+  }
+
+  // one step: follow, then gain
+  __device__ __forceinline__ float step(float x) { return gain(x, follow(x)); }
 };
 
 // The NCO, loop IIR and PI controller of one lane: rows PLL_PARAMS
@@ -73,6 +83,25 @@ struct Loop {
     if (ph >= two_pi) ph = ph - two_pi;
     if (ph < 0.0f) ph = ph + two_pi;
     if (ph < 0.0f) ph = ph + two_pi;
+    phase = ph;
+    return __float2int_rz(ph * index_scale) & (kTableSize - 1);
+  }
+
+  // nco() with its four conditional wraps (+-2pi twice each way, in that
+  // order) taken as selects among candidates computed side by side: a
+  // phase at or above 2pi never ends below 0, so the taken path does the
+  // same arithmetic and the phase is the same, in fewer dependent steps
+  // (the staged loops K5 and K6)
+  __device__ __forceinline__ int nco_select() {
+    const float two_pi = __int_as_float(0x40c90fdb);  // float32(2*pi)
+    const float p = phase + phase_scale * (set_freq + control);
+    const float d1 = p - two_pi;
+    const float d2 = d1 - two_pi;
+    const float u1 = p + two_pi;
+    const float u2 = u1 + two_pi;
+    const float down = d1 >= two_pi ? d2 : d1;
+    const float up = u1 < 0.0f ? u2 : u1;
+    const float ph = p >= two_pi ? down : (p < 0.0f ? up : p);
     phase = ph;
     return __float2int_rz(ph * index_scale) & (kTableSize - 1);
   }

@@ -27,16 +27,16 @@
 // as float4s, four steps at a time, and writes re' and im' back in place.
 // Sine and cosine of the 256 NCO angles sit in one shared float2 table
 // (cos, -sin), one 8-byte read a step; the NCO's four conditional wraps
-// become selects.  The phase detector is a pure function of the folded
-// pair (a, b) in [0, g)^2 and the chain's gain, so the caller hands in
-// int32 error tables (U, g*g), built on the host from the JAX package's
-// f32 formula (dsp/loops.py pd_error_table), with each lane's table; a
-// launch stages them in shared memory as floats when the U tables fit
-// beside the tiles (faster on the QPSK bank, PERF.md) and reads them
-// through the read-only data cache otherwise, so a bank may carry any
-// number of distinct gains.  This replaces the Pallas kernel's minimax
-// atan (which Mosaic needed) and CUDA's atan2f, whose rounding is not
-// XLA's.  Built with -fmad=false and without fast math, in the JAX op
+// become selects (Loop::nco_select).  The phase detector is a pure
+// function of the folded pair (a, b) in [0, g)^2 and the chain's gain, so
+// the caller hands in int32 error tables (U, g*g), built on the host from
+// the JAX package's f32 formula (dsp/loops.py pd_error_table), with each
+// lane's table; a launch stages them in shared memory as floats when the
+// U tables fit beside the tiles (faster on the QPSK bank, PERF.md) and
+// reads them through the read-only data cache otherwise, so a bank may
+// carry any number of distinct gains.  This replaces the Pallas kernel's
+// minimax atan (which Mosaic needed) and CUDA's atan2f, whose rounding is
+// not XLA's.  Built with -fmad=false and without fast math, in the JAX op
 // order; rintf rounds half to even like jnp.round and torch.round.
 
 #include <cuda_runtime.h>
@@ -65,31 +65,12 @@ struct Lane {
   const float* table_f;  // the lane's detector table, staged as floats
   const int* table_i;    // or in device memory
 
-  // Loop::nco with its four conditional wraps (+-2pi twice each way, in
-  // that order) taken as selects among candidates computed side by side:
-  // a phase at or above 2pi never ends below 0, so the taken path does the
-  // same arithmetic and the phase is the same, in fewer dependent steps.
-  __device__ __forceinline__ int nco() {
-    const float two_pi = __int_as_float(0x40c90fdb);  // float32(2*pi)
-    const float p = loop.phase + loop.phase_scale * (loop.set_freq +
-                                                     loop.control);
-    const float d1 = p - two_pi;
-    const float d2 = d1 - two_pi;
-    const float u1 = p + two_pi;
-    const float u2 = u1 + two_pi;
-    const float down = d1 >= two_pi ? d2 : d1;
-    const float up = u1 < 0.0f ? u2 : u1;
-    const float ph = p >= two_pi ? down : (p < 0.0f ? up : p);
-    loop.phase = ph;
-    return __float2int_rz(ph * loop.index_scale) & (kTableSize - 1);
-  }
-
   // one sample: rotate (re, im) by the NCO into (o_re, o_im), then the
   // detector and the loop update
   template <bool kPdShared>
   __device__ __forceinline__ void step(const float2* sc, float re_t,
                                        float im_t, float& o_re, float& o_im) {
-    const float2 cs = sc[nco()];
+    const float2 cs = sc[loop.nco_select()];
     const float c = cs.x;
     const float ns = cs.y;
     o_re = (re_t * c) - (im_t * ns);

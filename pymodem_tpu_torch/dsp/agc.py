@@ -63,7 +63,10 @@ def agc_follower(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
 
 
 def agc_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
-    """Kernel K4 (``csrc/agc_lanes.cu``) over (L, T) lanes.
+    """Kernel K4 (``csrc/agc_lanes.cu``) over (L, T) lanes.  Rows that are
+    not 16-byte aligned, or a T that is not a multiple of 4, go to the
+    kernel through a padded copy (``_ext.lane_rows``), and the output is
+    then a view of padded rows.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``agc_follower``."""
@@ -75,13 +78,16 @@ def agc_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
     from .. import _ext
 
     _ext.require(x.device, torch.float32, x=x, lane_params=lane_params)
-    out = torch.empty_like(x)
     L, T = x.shape
+    x = _ext.lane_rows(x)
+    out = torch.empty((L, -(-T // 4) * 4), dtype=x.dtype, device=x.device)
     _ext.launch("agc_lanes", x.device,
-                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2,
-                x.data_ptr(), lane_params.data_ptr(), out.data_ptr(), L, T)
+                (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p) + (ctypes.c_int,) * 3,
+                x.data_ptr(), x.stride(0), lane_params.data_ptr(),
+                out.data_ptr(), out.stride(0), L, T)
     agc_lanes.launches += 1
-    return out
+    return out[:, :T]
 
 
 agc_lanes.launches = 0

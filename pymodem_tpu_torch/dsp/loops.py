@@ -224,13 +224,17 @@ def bpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
 
 
 def qpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
-                sine_table: torch.Tensor, cos_table: torch.Tensor):
+                sine_table: torch.Tensor, cos_table: torch.Tensor,
+                row_of_lane: torch.Tensor | None = None):
     """Plain PyTorch twin of kernel K5, the QPSK Costas loop with branch
-    IIRs: x (L, T); lane_params (17, L) with the AGC fused or (12, L)
-    without (``PLL_PARAMS``, ``BRANCH_PARAMS``, then ``AGC_PARAMS``); the
-    two (256,) tables.  Returns (i, q), each (L, T): I is the sine branch's
-    IIR output and Q the cosine branch's (psk.py:453-454).  The phase
-    detector's sign takes +1 at 0."""
+    IIRs: x (R, T) input rows; lane_params (17, L) with the AGC fused or
+    (12, L) without (``PLL_PARAMS``, ``BRANCH_PARAMS``, then
+    ``AGC_PARAMS``); the two (256,) tables; row_of_lane (L,) the input row
+    of each lane (None: lane l reads row l, R == L).  Returns (i, q), each
+    (L, T): I is the sine branch's IIR output and Q the cosine branch's
+    (psk.py:453-454).  The phase detector's sign takes +1 at 0."""
+    if row_of_lane is not None:
+        x = x[row_of_lane.long()]
     dtype, dev = x.dtype, x.device
     rows = lane_params.to(dtype)
     (phase_scale, set_freq, index_scale, b0, a1, gp, gain, pi_i, limit,
@@ -378,10 +382,15 @@ def bpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
 
 
 def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
-                      sine_table: torch.Tensor, cos_table: torch.Tensor):
-    """Kernel K5 (``csrc/qpsk_costas_loop.cu``) over (L, T) lanes: 17 rows
-    run the AGC fused (the bank's form), 12 rows the loop alone.  Returns
-    (i, q).
+                      sine_table: torch.Tensor, cos_table: torch.Tensor,
+                      row_of_lane: torch.Tensor | None = None):
+    """Kernel K5 (``csrc/qpsk_costas_loop.cu``) over L lanes reading (R, T)
+    input rows (``row_of_lane`` (L,) int32 in [0, R), None for R == L and
+    lane l on row l): 17 rows run the AGC fused (the bank's form), 12 rows
+    the loop alone.  Returns (i, q), each (L, T).  Rows that are not
+    16-byte aligned, or a T that is not a multiple of 4, go to the kernel
+    through a padded copy (``_ext.lane_rows``), and the outputs are then
+    views of padded rows.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``qpsk_costas``."""
@@ -390,23 +399,48 @@ def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     if n_rows not in (n_loop, n_loop + len(AGC_PARAMS)):
         raise ValueError(f"qpsk_costas_lanes: {n_rows} lane rows, need "
                          f"{n_loop} or {n_loop + len(AGC_PARAMS)}")
-    _check_rows("qpsk_costas_lanes", x, lane_params, n_rows, sine_table,
-                cos_table)
+    L = lane_params.shape[1]
+    if x.ndim != 2 or (row_of_lane is None and x.shape[0] != L):
+        raise ValueError(f"qpsk_costas_lanes: bad shapes x "
+                         f"{tuple(x.shape)} lane_params "
+                         f"{tuple(lane_params.shape)}")
+    for t in (sine_table, cos_table):
+        if t.shape != (WAVETABLE_SIZE,):
+            raise ValueError(f"qpsk_costas_lanes: NCO tables must be "
+                             f"({WAVETABLE_SIZE},), got {tuple(t.shape)}")
+    if row_of_lane is not None:
+        if row_of_lane.dtype != torch.int32 or row_of_lane.shape != (L,):
+            raise ValueError(f"qpsk_costas_lanes: row_of_lane must be ({L},)"
+                             f" int32, got {tuple(row_of_lane.shape)} "
+                             f"{row_of_lane.dtype}")
+        if L and not (0 <= int(row_of_lane.min())
+                      and int(row_of_lane.max()) < x.shape[0]):
+            raise ValueError(f"qpsk_costas_lanes: row_of_lane outside the "
+                             f"{x.shape[0]} input rows")
     if x.device.type == "cpu":
-        return qpsk_costas(x, lane_params, sine_table, cos_table)
+        return qpsk_costas(x, lane_params, sine_table, cos_table,
+                           row_of_lane)
     from .. import _ext
 
+    if row_of_lane is None:
+        row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
     _ext.require(x.device, torch.float32, x=x, lane_params=lane_params,
                  sine_table=sine_table, cos_table=cos_table)
-    L, T = x.shape
-    out_i, out_q = torch.empty_like(x), torch.empty_like(x)
+    _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
+    R, T = x.shape
+    x = _ext.lane_rows(x)
+    out_i = torch.empty((L, -(-T // 4) * 4), dtype=x.dtype, device=x.device)
+    out_q = torch.empty_like(out_i)
     _ext.launch("qpsk_costas_lanes", x.device,
-                (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3,
-                x.data_ptr(), lane_params.data_ptr(), sine_table.data_ptr(),
-                cos_table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(), L,
-                T, int(n_rows > n_loop))
+                (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int) + (ctypes.c_void_p,) * 5
+                + (ctypes.c_int,) * 4,
+                x.data_ptr(), x.stride(0), row_of_lane.data_ptr(), R,
+                lane_params.data_ptr(), sine_table.data_ptr(),
+                cos_table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(),
+                out_i.stride(0), L, T, int(n_rows > n_loop))
     qpsk_costas_lanes.launches += 1
-    return out_i, out_q
+    return out_i[:, :T], out_q[:, :T]
 
 
 # K6's dynamic shared memory left for its detector tables on Hopper (227 KB

@@ -395,21 +395,46 @@ def _input_bpf(params: dict, blocks: torch.Tensor):
     return x, None, x.amax(dim=(1, 2))
 
 
-def coherent_loop_inputs(params: dict, blocks: torch.Tensor):
-    """(B, Lin) blocks -> the inputs of kernels K2, K3 and K5 for all C*B
-    lanes: ((C*B, L1) band-passed lanes, lane rows: the loop's 10, for
+def _coherent_lane_params(params: dict, normals: torch.Tensor, C: int,
+                          B: int) -> torch.Tensor:
+    """The (n, C*B) lane rows of kernels K2, K3 and K5: the loop's 10, for
     ``qpsk`` the branch IIR's ``branch_b0`` and ``branch_a1``, then the
-    fused AGC's 5)."""
-    x, _, normals = _input_bpf(params, blocks)
-    C, B, L1 = x.shape
+    fused AGC's 5."""
     branch = [params[k].to(torch.float32).reshape(C).repeat_interleave(B)
               [None] for k in ("branch_b0", "branch_a1") if k in params]
-    lane_params = torch.cat([
+    return torch.cat([
         lane_params_from_loop(params["loop"], C, B),
         *branch,
         agc_lane_params(params["modem"]["agc"], normals, C, B),
     ]).contiguous()
-    return x.reshape(C * B, L1).contiguous(), lane_params
+
+
+def coherent_loop_inputs(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the inputs of kernels K2 and K3 for all C*B
+    lanes: ((C*B, L1) band-passed lanes, their lane rows)."""
+    x, _, normals = _input_bpf(params, blocks)
+    C, B, L1 = x.shape
+    return (x.reshape(C * B, L1).contiguous(),
+            _coherent_lane_params(params, normals, C, B))
+
+
+def qpsk_loop_inputs(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the inputs of kernel K5 for all C*B lanes: the
+    band-passed input rows, (17, C*B) lane rows and each lane's input row
+    (C*B,) int32.  A ``pre_shared`` sweep hands over its B shared rows
+    once (lane c*B + b reads row b), not C copies of them; any other bank
+    its C*B rows."""
+    x, x1, normals = _input_bpf(params, blocks)
+    C, B, L1 = x.shape
+    if x1 is not None:
+        rows = x1.contiguous()
+        row_of_lane = torch.arange(B, dtype=torch.int32,
+                                   device=x1.device).repeat(C)
+    else:
+        rows = x.reshape(C * B, L1).contiguous()
+        row_of_lane = torch.arange(C * B, dtype=torch.int32,
+                                   device=x.device)
+    return rows, _coherent_lane_params(params, normals, C, B), row_of_lane
 
 
 def afsk_pll_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
@@ -441,12 +466,13 @@ def qpsk_bank_demod(params: dict, blocks: torch.Tensor):
     band-pass FIR, then the AGC follower and the Costas loop with its
     branch IIRs as ONE pass of kernel K5 over all C*B lanes, then the
     per-chain RRC on both rails.  I is the sine branch, Q the cosine
-    branch (psk.py:453-454)."""
+    branch (psk.py:453-454).  A pre-shared sweep's lanes read its B shared
+    band-passed rows."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params = coherent_loop_inputs(params, blocks)
+    x, lane_params, row_of_lane = qpsk_loop_inputs(params, blocks)
     i_d, q_d = qpsk_costas_lanes(x, lane_params, params["sine_table"],
-                                 params["cos_table"])
+                                 params["cos_table"], row_of_lane)
     L1 = x.shape[-1]
     return (fir_valid_per_chain(i_d.reshape(C, -1, L1), m["rrc"]),
             fir_valid_per_chain(q_d.reshape(C, -1, L1), m["rrc"]))

@@ -109,16 +109,63 @@ def _rows(values, L, device, vary=None):
     return lp.to(device).contiguous()
 
 
-def test_agc_kernel_matches_twin(cuda):
-    x = _carrier(3, 150, 4000, cuda) * torch.linspace(0.1, 3, 150,
-                                                      device=cuda)[:, None]
+def _offset_rows(x):
+    """A contiguous copy of the (n, T) tensor ``x`` whose rows start 4
+    bytes past a 16-byte boundary."""
+    n, T = x.shape
+    return torch.empty(n * T + 1, dtype=x.dtype, device=x.device)[1:] \
+        .view(n, T).copy_(x)
+
+
+def _special(x, seed):
+    """``x`` with an all-zero row (0), a row of -0.0 (1), and NaN, -0.0 and
+    0.0 sprinkled over rows 2-5."""
+    g = np.random.default_rng(seed)
+    x = x.clone()
+    x[0] = 0.0
+    x[1] = -0.0
+    part = x[2:6]
+    for value, frac in ((float("nan"), 0.02), (-0.0, 0.1), (0.0, 0.1)):
+        part[torch.from_numpy(g.random(tuple(part.shape)) < frac)
+             .to(x.device)] = value
+    return x
+
+
+def _same_bits(got, want):
+    """Equal bit for bit, except that any NaN equals any NaN."""
+    nan = torch.tensor(float("nan"), device=got.device)
+    return torch.equal(torch.where(got.isnan(), nan, got).view(torch.int32),
+                       torch.where(want.isnan(), nan, want).view(torch.int32))
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+@pytest.mark.parametrize("rows", ["as_they_are", "offset", "special"])
+def test_agc_kernel_matches_twin(cuda, rows, T):
+    """150 lanes (not a multiple of 32); T a multiple of 4, or 3 tiles of
+    128 and 5 (padded rows); rows that start off a 16-byte boundary
+    (padded); zero, -0.0 and NaN samples, where the envelope stays 0 and
+    the output is the input."""
+    from pymodem_tpu_torch import _ext
+
+    x = _carrier(3, 150, T, cuda) * torch.linspace(0.1, 3, 150,
+                                                   device=cuda)[:, None]
+    if rows == "offset":
+        x = _offset_rows(x)
+    elif rows == "special":
+        x = _special(x, 17)
+    assert _ext.rows_aligned(x) == (rows != "offset" and T % 4 == 0)
     lp = _rows(_AGC_ROWS, 150, cuda)
     before = tagc.agc_lanes.launches
     got = tagc.agc_lanes(x, lp)
     want = tagc.agc_follower(x, lp)
     torch.cuda.synchronize()
     assert tagc.agc_lanes.launches == before + 1
-    assert torch.isfinite(got).all() and torch.equal(got, want)
+    assert got.shape == (150, T)
+    assert _same_bits(got, want)
+    if rows == "special":
+        assert _same_bits(got[:2], x[:2])  # the envelope stays 0
+    else:
+        assert torch.isfinite(got).all()
 
 
 def test_bpsk_costas_kernel_matches_twin(cuda):
@@ -211,14 +258,6 @@ def test_quadrature_slicer_kernel_matches_twin(cuda, bps, window, T):
     assert bool(((got & 0x100) != 0).any())
 
 
-def _offset_rows(x):
-    """A contiguous copy of the (n, T) tensor ``x`` whose rows start 4
-    bytes past a 16-byte boundary."""
-    n, T = x.shape
-    return torch.empty(n * T + 1, dtype=x.dtype, device=x.device)[1:] \
-        .view(n, T).copy_(x)
-
-
 def test_lane_kernels_take_unaligned_rows(cuda):
     """K6 and K7 take rows that do not start 16-byte aligned (T a multiple
     of 4) through padded copies, and give the twins' results."""
@@ -299,19 +338,47 @@ _QPSK_ROWS = [2 * np.pi / 44100, 1800.0, 256 / (2 * np.pi), 0.014048,
               0.971903, 45.0, 450.0, 2e-4, 87.5, 0.0, 0.078930, 0.842139]
 
 
+@pytest.mark.parametrize("T", _T_EDGES)
+@pytest.mark.parametrize("chains", [0, 1, 2, 8],
+                         ids=["identity", "shared_1", "shared_2",
+                              "shared_8"])
 @pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
-def test_qpsk_costas_kernel_matches_twin(cuda, n_rows):
-    re, im = _carrier(9, 200, 4000, cuda, iq=True)
+def test_qpsk_costas_kernel_matches_twin(cuda, n_rows, chains, T):
+    """Both row forms; 200 lanes on their own rows, or C chains of 37 lanes
+    on 37 shared rows (``row_of_lane``, a pre-shared bank); T a multiple of
+    4, or 3 tiles of 128 and 5 (padded rows)."""
+    n_in = 200 if chains == 0 else 37
+    L = 200 if chains == 0 else 37 * chains
+    re, _ = _carrier(9, n_in, T, cuda, iq=True)
     x = (re * 3.0).contiguous()
-    lp = _rows((_QPSK_ROWS + _AGC_ROWS)[:n_rows], 200, cuda, vary=1)
+    row_of_lane = None if chains == 0 else torch.arange(
+        n_in, dtype=torch.int32, device=cuda).repeat(chains)
+    lp = _rows((_QPSK_ROWS + _AGC_ROWS)[:n_rows], L, cuda, vary=1)
     sine, cosine = _tables(cuda)
     before = tloops.qpsk_costas_lanes.launches
-    got = tloops.qpsk_costas_lanes(x, lp, sine, cosine)
-    want = tloops.qpsk_costas(x, lp, sine, cosine)
+    got = tloops.qpsk_costas_lanes(x, lp, sine, cosine, row_of_lane)
+    want = tloops.qpsk_costas(x, lp, sine, cosine, row_of_lane)
     torch.cuda.synchronize()
     assert tloops.qpsk_costas_lanes.launches == before + 1
     for g, w in zip(got, want):
+        assert g.shape == (L, T)
         assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
+def test_qpsk_costas_kernel_special_rows(cuda, n_rows):
+    """Zero, -0.0 and NaN samples, and rows that start off a 16-byte
+    boundary (padded copies): kernel and twin agree bit for bit."""
+    re, _ = _carrier(10, 100, 1000, cuda, iq=True)
+    x = _offset_rows(_special(re * 3.0, 18))
+    lp = _rows((_QPSK_ROWS + _AGC_ROWS)[:n_rows], 100, cuda, vary=1)
+    sine, cosine = _tables(cuda)
+    got = tloops.qpsk_costas_lanes(x, lp, sine, cosine)
+    want = tloops.qpsk_costas(x, lp, sine, cosine)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+        assert torch.isfinite(g[6:]).all()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

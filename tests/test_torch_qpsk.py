@@ -248,6 +248,38 @@ def test_qpsk_wrapper_refuses_other_row_counts():
         tloops.qpsk_costas_lanes(x, torch.zeros(15, 2), *tabs)
 
 
+@pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
+def test_qpsk_shared_rows_equal_copied_rows(rng, n_rows):
+    """K5's lanes on B shared rows through ``row_of_lane`` (a pre-shared
+    bank: lane c*B + b reads row b) give, bitwise, what they give on the
+    C*B rows copied out."""
+    x, _, _, _, _, rows = _case(rng)
+    shared = torch.from_numpy(x[0])  # (B, T): every chain reads chain 0's
+    row_of_lane = torch.arange(B, dtype=torch.int32).repeat(C)
+    lp = torch.from_numpy(np.ascontiguousarray(rows[:n_rows]))
+    tabs = (torch.from_numpy(tloops.nco_sine_table()),
+            torch.from_numpy(tloops.nco_cos_table()))
+    got = tloops.qpsk_costas_lanes(shared, lp, *tabs, row_of_lane)
+    want = tloops.qpsk_costas_lanes(shared.repeat(C, 1), lp, *tabs)
+    for g, w in zip(got, want):
+        assert g.shape == (C * B, T)
+        assert torch.equal(g, w)
+
+
+def test_qpsk_wrapper_refuses_bad_row_of_lane():
+    """``row_of_lane`` must be (L,) int32 inside the R input rows."""
+    x = torch.zeros(3, 8)
+    lp = torch.zeros(17, 6)
+    tabs = (torch.zeros(256), torch.zeros(256))
+    ok = torch.tensor([0, 1, 2, 0, 1, 2], dtype=torch.int32)
+    for bad, what in ((ok.long(), "int32"), (ok[:5], "int32"),
+                      (ok - 1, "outside"), (ok + 1, "outside")):
+        with pytest.raises(ValueError, match=what):
+            tloops.qpsk_costas_lanes(x, lp, *tabs, bad)
+    with pytest.raises(ValueError, match="bad shapes"):  # R != L, no map
+        tloops.qpsk_costas_lanes(x, lp, *tabs)
+
+
 # ---------------------------------------------------------------------------
 # Host parameters, bank parameters, end to end
 # ---------------------------------------------------------------------------
@@ -325,11 +357,20 @@ def test_group_chains_matches_convert(name):
         assert torch.equal(got[key], want[key]), key
     assert ("pre_shared" in tb.params) == (name == "sweep")
     assert got["branch_b0/"].shape == (len(chains),)
-    # the lane rows K5 reads: the loop's, the branch IIR's, the AGC's
+    # K5's inputs: the pre-shared sweep's B rows (lane c*B + b on row b),
+    # the pair's C*B; lane rows the loop's, the branch IIR's, the AGC's
     frames = torch.zeros(2, 4000)
-    x, rows = tbank.coherent_loop_inputs(tb.params, frames)
-    assert rows.shape == (17, x.shape[0])
+    x, rows, row_of_lane = tbank.qpsk_loop_inputs(tb.params, frames)
+    n_chains = len(chains)
+    assert rows.shape == (17, 2 * n_chains)
     assert torch.equal(rows[10], tb.params["branch_b0"].repeat_interleave(2))
+    assert row_of_lane.dtype == torch.int32
+    if name == "sweep":
+        assert x.shape[0] == 2
+        assert row_of_lane.tolist() == [0, 1] * n_chains
+    else:
+        assert x.shape[0] == 2 * n_chains
+        assert row_of_lane.tolist() == list(range(2 * n_chains))
     static = jbank._slicer_static(jb)
     assert tbank.slicer_window(tb) == static["compact_window"]
     plan = tbank.default_block_plan(44100 * 20, tb.trim, 44100.0, 4.0, 2.0)
