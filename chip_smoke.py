@@ -21,8 +21,15 @@ Phases, each printing one line with its seconds:
 1. environment: torch and CUDA versions, the card, its power limit;
 2. build every kernel from ``pymodem_tpu_torch/csrc`` with nvcc (one
    process per source, in parallel);
-3. K1 against its twin on the 64-chain sweep bank's own basebands (all
-   lanes, a time slice), window 1 and the bank's window: bitwise;
+3. the sweep bank's basebands on the device against the same demod on the
+   CPU (on a failure it prints the TF32 and precision settings, the torch,
+   CUDA and cuBLAS versions, where the largest difference sits, each
+   side's error against a float64 CPU demod and whether a second device
+   computation repeats the first, then fails); K1 against its twin on the
+   64-chain sweep bank's own basebands at the full lane count, on a slice
+   whose rows it copies as they are and one it copies padded (each route
+   checked), windows 1 and the bank's: bitwise; K1 timed at full shape
+   with ns a step, the bound and its time before the redesign;
 4. K2 against its twin on the 8-chain PLL bank's own lanes: bitwise;
 5. the AFSK path end to end, the kernels' launch counters set to 0 just
    before and read just after: the 64-chain space-gain sweep, the PLL
@@ -38,7 +45,8 @@ Phases, each printing one line with its seconds:
    multiple of their tiles, one whose rows they copy as they are and one
    they copy padded, each route checked): bitwise; each kernel timed at
    its full main-path shape, K4, K6 and K7 with ns a step, the bound and
-   their times before the redesign, K4 with its padded-row copy;
+   their times before the redesign, K4 with its padded-row copy; K1
+   checked and timed as in 3 on the BPSK sweep's basebands;
 8. the PSK path end to end, counters set to 0 just before and read just
    after (launches and padded-row copies per bank and per path):
    ``bpsk1200_sweep8`` (8 ``bpsk`` chains, carriers 1500 + 0.25 i Hz),
@@ -48,11 +56,11 @@ Phases, each printing one line with its seconds:
    rejected; warm reruns, splits and peak device memory;
 9. the CLI as a subprocess on a WAV and a QPSK-2400 JSONL config;
 10. K8 (windows 1 and the bank's) and K5 against their twins on the
-    banks' own inputs (all lanes, a time slice; K5 on the two slices of
-    K4, on the bank's R shared rows and on identity rows, with 17 rows
-    (AGC fused) and 12): bitwise; each kernel timed at its full main-path
-    shape, K5 with ns a step, the bound, its padded-row copy and its time
-    before the redesign;
+    banks' own inputs (all lanes, the two slices of K4; K5 on the bank's
+    R shared rows and on identity rows, with 17 rows (AGC fused) and 12):
+    bitwise; each kernel timed at its full main-path shape with ns a step,
+    the bound, its padded-row copy and its time before the redesign; K1
+    checked and timed as in 3 on the FSK-9600 sweep's basebands;
 11. the FSK and Costas-QPSK path end to end, counters set to 0 just before
     and read just after (launches and padded-row copies as in 8):
     ``fsk9600_sweep8`` (8 ``fsk`` "9600" chains at 96 kHz, input cutoffs
@@ -72,7 +80,8 @@ outside a checkout of the repository, it exits non-zero before printing a
 result.  The last three lines are the card's ``nvidia-smi`` name and power
 limit, one JSON object describing each kernel (launches on the main paths,
 max abs error against the twin, kernel milliseconds at the full main-path
-shape, the twin's on a time slice, the bound) and
+shape, the twin's on a time slice, the bound; K1 also at the BPSK and
+FSK-9600 sweeps' shapes) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,21 +103,24 @@ FSK4_RATE = 48000  # the 4FSK bank (bench.py:230)
 SECONDS = 600
 MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
-# the staged lane kernels' (K4-K7) slices, not multiples of their
+# the staged lane kernels' (K1, K4-K8) slices, not multiples of their
 # 128-sample tiles: rows the kernels copy as they are (T % 4 == 0), and
 # rows they copy padded
 ALIGNED_CUT = SLICE + 4
 PADDED_CUT = SLICE + 5
 # their launch geometry (csrc/lane_tiles.cuh)
 LANE_TILES = "32 lanes a block, 128-sample tiles"
-# K4-K7 before their redesign: ms at full shape on the main paths (one
-# thread per lane, 128-thread blocks, uncoalesced rows; PERF.md, H100 80GB
-# HBM3 at 700 W): K4 on the QPSK sweep's 118 shared lanes and the MPSK
-# pair's 186, K5 on the Costas sweep, K6 and K7 on the QPSK sweep
+# K1 and K4-K8 before their redesign: ms at full shape on the main paths
+# (one thread per lane, 128-thread blocks, uncoalesced rows; PERF.md, H100
+# 80GB HBM3 at 700 W): K1 on the AFSK sweep, K4 on the QPSK sweep's 118
+# shared lanes and the MPSK pair's 186, K5 on the Costas sweep, K6 and K7
+# on the QPSK sweep, K8 on the 4FSK sweep
+K1_BEFORE_MS = {"sweep64": 23.994}
 K4_BEFORE_MS = {"qpsk2400_sweep8": 93.461, "mpsk_bpsk1200_pair": 72.236}
 K5_BEFORE_MS = 147.222
 K6_BEFORE_MS = 130.771
 K7_BEFORE_MS = 68.236
+K8_BEFORE_MS = 109.962
 SEED = 20261016
 # the H100 SXM's published peaks at its full 700 W:
 # HBM bytes/s and float32 operations/s outside the tensor cores
@@ -371,13 +383,103 @@ def _same(what: str, got, want) -> float:
 
 
 def _same_route(what: str, *rows, aligned: bool) -> None:
-    """Raise unless the staged lane kernels (K4-K7) take ``rows`` as they
+    """Raise unless the staged lane kernels (K1, K4-K8) take ``rows`` as they
     are (``aligned``) or through padded copies (not ``aligned``)."""
     from pymodem_tpu_torch import _ext
 
     if any(_ext.rows_aligned(t) != aligned for t in rows):
         raise AssertionError(f"{what}: expected rows the kernel copies "
                              f"{'as they are' if aligned else 'padded'}")
+
+
+def _copy_ms(x) -> float:
+    """Milliseconds of the padded-row copy the staged kernels make of
+    ``x`` (``_ext.lane_rows``), 0 when they take its rows as they are."""
+    from pymodem_tpu_torch import _ext
+
+    return 0.0 if _ext.rows_aligned(x) else _time_ms(
+        lambda: _ext.lane_rows(x), 3)
+
+
+def _tree_f64(tree):
+    """A bank's parameter tree with every float tensor in float64."""
+    if isinstance(tree, dict):
+        return {k: _tree_f64(v) for k, v in tree.items()}
+    return tree.double() if tree.is_floating_point() else tree
+
+
+def _cublas_version() -> str:
+    """The version of the cuBLAS library torch loaded."""
+    import ctypes
+
+    import torch
+
+    name = f"libcublas.so.{(torch.version.cuda or '12').split('.')[0]}"
+    try:
+        lib = ctypes.CDLL(name)
+    except OSError as exc:
+        return f"not found ({exc})"
+    parts = []
+    for prop in range(3):  # MAJOR_VERSION, MINOR_VERSION, PATCH_LEVEL
+        value = ctypes.c_int()
+        lib.cublasGetProperty(prop, ctypes.byref(value))
+        parts.append(str(value.value))
+    return ".".join(parts)
+
+
+def _check_basebands(bank, cpu_bank, frames, basebands) -> None:
+    """The device demod (``basebands`` of ``bank`` over ``frames``) against
+    the same code on the CPU, on the first two blocks: f32 sums in another
+    order, so a few ulps of the terms, same signs.  On a failure, prints
+    what could explain it and raises."""
+    import numpy as np
+    import torch
+
+    from pymodem_tpu_torch.runtime import bank as tbank
+
+    ref = tbank.bank_basebands(cpu_bank, frames[:2].cpu())
+    dev_bb = basebands[:, :2].cpu()
+    rel = float((dev_bb - ref).abs().max() / ref.abs().max())
+    sign = float((torch.sign(dev_bb) == torch.sign(ref)).double().mean())
+    print(f"sweep basebands, device vs CPU on 2 blocks: max |diff| / max "
+          f"|ref| = {rel:.3g}, sign agreement {sign:.6f}")
+    if rel < 1e-5 and sign > 0.999:
+        return
+    b = torch.backends
+
+    def precision(backend):
+        return getattr(backend, "fp32_precision", "absent")
+
+    print(f"  TF32: matmul allow_tf32 {b.cuda.matmul.allow_tf32}, cuDNN "
+          f"allow_tf32 {b.cudnn.allow_tf32}; fp32_precision: matmul "
+          f"{precision(b.cuda.matmul)}, cuDNN {precision(b.cudnn)}, mkldnn "
+          f"{precision(b.mkldnn)}; float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()}")
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, cuBLAS "
+          f"{_cublas_version()}")
+    diff = (dev_bb - ref).abs()
+    c, blk, t = (int(i) for i in np.unravel_index(int(diff.argmax()),
+                                                  tuple(diff.shape)))
+    print(f"  largest |diff| {float(diff.max()):.6g} at chain {c}, block "
+          f"{blk}, sample {t}: device {float(dev_bb[c, blk, t])!r}, CPU "
+          f"{float(ref[c, blk, t])!r}")
+    f64_bank = replace(cpu_bank, params=_tree_f64(cpu_bank.params))
+    exact = tbank.bank_basebands(f64_bank, frames[:2].cpu().double())
+    scale = float(exact.abs().max())
+    for side, bb in (("device", dev_bb), ("CPU", ref)):
+        err = (bb.double() - exact).abs()
+        print(f"  {side} float32 against a float64 demod on the CPU: max "
+              f"|err| / max |ref| {float(err.max()) / scale:.3g}; at the "
+              f"largest difference {float(err[c, blk, t]):.6g}")
+    again = tbank.bank_basebands(bank, frames)[:, :2].cpu()
+    alone = tbank.bank_basebands(bank, frames[:2]).cpu()
+    print(f"  a second device demod of all blocks "
+          f"{'repeats' if torch.equal(again, dev_bb) else 'differs from'} "
+          f"the first (max |diff| {float((again - dev_bb).abs().max()):.3g})"
+          f"; a device demod of the two blocks alone: max |diff| to the "
+          f"first {float((alone - dev_bb).abs().max()):.3g}, to the CPU "
+          f"{float((alone - ref).abs().max()):.3g}")
+    raise AssertionError("device basebands disagree with the CPU")
 
 
 def _cli(cfg_lines, wav, rate, audio, expected: int) -> str:
@@ -462,7 +564,51 @@ def main() -> int:
     audio_t = torch.from_numpy(audio).to(dev)
     kernels = {}
 
-    # 3. K1 against its twin on the sweep bank's basebands
+    def check_staged(what, kernel, twin, x, windows):
+        """``kernel`` against ``twin`` at the full lane count of ``x`` on
+        two slices that are not a multiple of the 128-sample tile: one
+        whose rows the staged kernel copies as they are and one it copies
+        padded (each route checked), at each of ``windows``.  Returns the
+        max abs error and the padded slice."""
+        err = 0.0
+        for n, aligned in ((ALIGNED_CUT, True), (PADDED_CUT, False)):
+            xs = x[:, :n].contiguous()
+            _same_route(f"{what} on {n} samples", xs, aligned=aligned)
+            for w in windows:
+                err = max(err, _same(f"{what} window {w} on {n} samples",
+                                     kernel(xs, w), twin(xs, w)))
+        return err, xs
+
+    def k1_at(name, x, lp, window):
+        """K1 on bank ``name``'s (L, T) basebands ``x``: against its twin
+        (``check_staged``), timed at full shape; its kernels-line entry."""
+        err, xs = check_staged(f"K1 on {name}",
+                               lambda t, w: binary_slice_lanes(t, lp, w),
+                               lambda t, w: binary_slice(t, lp, w), x,
+                               (1, window))
+        plain = _time_ms(lambda: binary_slice(xs, lp, window), 1)
+        ms = _time_ms(lambda: binary_slice_lanes(x, lp, window), 5)
+        copy_ms = _copy_ms(x)
+        aligned = _ext.rows_aligned(x)
+        L, T = x.shape
+        k = _kernel(
+            "binary_slicer", "binary_slicer.cu",
+            "pymodem_tpu/ops/pallas_slicers.py:32", err, ms, plain,
+            4 * (L * T + 2 * L + L * -(-T // window)), 15 * L * T, (L, T),
+            (L, PADDED_CUT), smi)
+        before = K1_BEFORE_MS.get(name)
+        print(f"K1 on {name} lanes {L} T {T} window {window}: bitwise equal "
+              f"on {L}x{ALIGNED_CUT} (rows as they are) and {L}x{PADDED_CUT}"
+              f" (padded rows), windows 1 and {window}; twin {plain:.1f} ms "
+              f"at {L}x{PADDED_CUT}; kernel {ms:.3f} ms at full {L}x{T}, "
+              f"{ms * 1e6 / T:.1f} ns a step, {LANE_TILES}, rows "
+              f"{'as they lie' if aligned else 'padded'} (padded-row copy "
+              f"{copy_ms:.3f} ms, in the kernel's time); bound "
+              f"{k['bound_ms']:.3f} ms; before the redesign: "
+              f"{f'{before} ms' if before else 'not measured'} [{smi}]")
+        return k
+
+    # 3. the sweep bank's basebands against the CPU, K1 against its twin
     t0 = time.time()
     bank = tbank.group_chains(banks["sweep64"], dev)[0]
     plan = tbank.bank_plan(bank, len(audio),
@@ -473,33 +619,11 @@ def main() -> int:
     x_full = base_bb.reshape(C * B, L2).contiguous()
     lp = tbank.slicer_lane_params(bank, B)
     window = tbank.slicer_window(bank)
-    # the device demod against the same code on the CPU, on two blocks:
-    # f32 sums in another order, so a few ulps of the terms, same signs
     cpu_bank = tbank.group_chains(banks["sweep64"], "cpu")[0]
-    ref = tbank.bank_basebands(cpu_bank, frames[:2].cpu())
-    dev_bb = base_bb[:, :2].cpu()
-    rel = float((dev_bb - ref).abs().max() / ref.abs().max())
-    sign = float((torch.sign(dev_bb) == torch.sign(ref)).double().mean())
-    print(f"sweep basebands, device vs CPU on 2 blocks: max |diff| / max "
-          f"|ref| = {rel:.3g}, sign agreement {sign:.6f}")
-    if not (rel < 1e-5 and sign > 0.999):
-        raise AssertionError("device basebands disagree with the CPU")
-    del base_bb, dev_bb, ref
-    x_slice = x_full[:, :SLICE].contiguous()
-    err = max(_same(f"K1 window {w}", binary_slice_lanes(x_slice, lp, w),
-                    binary_slice(x_slice, lp, w)) for w in (1, window))
-    k1_plain = _time_ms(lambda: binary_slice(x_slice, lp, window), 1)
-    k1_ms = _time_ms(lambda: binary_slice_lanes(x_full, lp, window), 5)
-    L, T = x_full.shape
-    kernels["K1"] = _kernel(
-        "binary_slicer", "binary_slicer.cu",
-        "pymodem_tpu/ops/pallas_slicers.py:32", err, k1_ms, k1_plain,
-        4 * (L * T + 2 * L + L * -(-T // window)), 15 * L * T, (L, T),
-        (L, SLICE), smi)
-    print(f"K1 lanes {L} T {T} window {window}: bitwise equal on "
-          f"{L}x{SLICE}; twin {k1_plain:.1f} ms at {L}x{SLICE}; kernel "
-          f"{k1_ms:.3f} ms at full {L}x{T} [{smi}]")
-    del x_full, x_slice, frames
+    _check_basebands(bank, cpu_bank, frames, base_bb)
+    del base_bb
+    kernels["K1"] = k1_at("sweep64", x_full, lp, window)
+    del x_full, frames
     _phase(3, "K1 binary slicer == twin", t0)
 
     # 4. K2 against its twin on the PLL sweep bank's lanes
@@ -670,7 +794,13 @@ def main() -> int:
     print(f"K3 lanes {L} T {T}: bitwise equal on {L}x{SLICE}; twin "
           f"{plain:.1f} ms at {L}x{SLICE}; kernel {ms:.3f} ms at full "
           f"{L}x{T} [{smi}]")
-    del x, xs, frames
+    del x, xs
+    bb = tbank.bank_basebands(bank, frames)
+    C, B, L2 = bb.shape
+    k1_banks = {"bpsk1200_sweep8": k1_at(
+        "bpsk1200_sweep8", bb.reshape(C * B, L2).contiguous(),
+        tbank.slicer_lane_params(bank, B), tbank.slicer_window(bank))}
+    del bb, frames
 
     # K4 (redesigned: staged tiles; its earlier times beside it) on both of
     # its banks against the twin at full lane count on the two cuts, timed
@@ -689,7 +819,7 @@ def main() -> int:
         ms = _time_ms(lambda: agc_lanes(x, rows), 3)
         L, T = x.shape
         aligned = _ext.rows_aligned(x)
-        copy_ms = 0.0 if aligned else _time_ms(lambda: _ext.lane_rows(x), 3)
+        copy_ms = _copy_ms(x)
         k4[name] = _kernel(
             "agc_lanes", "agc_lanes.cu",
             "pymodem_tpu/dsp/pallas_loops.py:83", err, ms, plain,
@@ -800,7 +930,7 @@ def main() -> int:
           f"{kernels['K7']['bound_ms']:.3f} ms; before the redesign: "
           f"{K7_BEFORE_MS} ms [{smi}]")
     del i_l, q_l, i_s, q_s, frames
-    _phase(7, "K3, K4, K6, K7 == twins", t0)
+    _phase(7, "K3, K4, K6, K7, K1 == twins", t0)
 
     # 8. the PSK path end to end
     t0 = time.time()
@@ -816,8 +946,8 @@ def main() -> int:
               "qpsk2400_sweep8": mpsk_kernels,
               "mpsk_bpsk1200_pair": mpsk_kernels})
     psk_launches = {k: fn.launches for k, fn in counted.items()}
-    print(f"PSK path: launches {psk_launches}, padded-row copies for K4, "
-          f"K6 and K7 {_ext.lane_rows.copies}")
+    print(f"PSK path: launches {psk_launches}, padded-row copies for K1, "
+          f"K4, K6 and K7 {_ext.lane_rows.copies}")
     report_banks(psk, psk_audio, psk_rate, psk_mps,
                  {name: len(a[1]) / PSK_RATE for name, a in psk_audio.items()})
     _phase(8, "PSK path end to end", t0)
@@ -847,30 +977,57 @@ def main() -> int:
                                 max_packet_seconds=fsk_mps[name])
         return bank_, tbank.frame_blocks(wave, plan_).to(torch.float32)
 
+    # the FSK basebands' rows as the bank hands them to K1 and K8: the
+    # FIR's output rows, a multiple of 4 floats apart (runtime/bank.py
+    # slice_lanes)
+    bank, frames = fsk_frames("fsk9600_sweep8")
+    bb = tbank.bank_basebands(bank, frames)
+    C, B, L2 = bb.shape
+    del frames
+    k1_banks["fsk9600_sweep8"] = k1_at(
+        "fsk9600_sweep8", bb.reshape(C * B, L2),
+        tbank.slicer_lane_params(bank, B), tbank.slicer_window(bank))
+    del bb
+
+    # K8 (redesigned: staged tiles, the ring's values on four value warps;
+    # its earlier time beside it) against the twin at full lane count on
+    # the two cuts, timed at full shape
     bank, frames = fsk_frames("fsk4_9600_sweep8")
     bb = tbank.bank_basebands(bank, frames)
     C, B, L2 = bb.shape
-    x = bb.reshape(C * B, L2).contiguous()
-    del bb, frames
+    x = bb.reshape(C * B, L2)
+    del frames
     lp = tbank.slicer_lane_params(bank, B)
     window = tbank.slicer_window(bank)
     demap = bank.specs[0].slicer.demap
-    (xs,) = cut(x)
-    err = max(_same(f"K8 window {w}",
-                    four_level_slice_lanes(xs, lp, demap, w),
-                    four_level_slice(xs, lp, demap, w)) for w in (1, window))
+    # the twin on the CPU, where the tests hold it against the JAX scan: on
+    # the card torch divides by a Python scalar as a multiply by its
+    # reciprocal, so the twin's |x| * 2 / 3 there is not the scan's
+    lp_cpu = lp.cpu()
+    err, xs = check_staged(
+        "K8", lambda t, w: four_level_slice_lanes(t, lp, demap, w),
+        lambda t, w: four_level_slice(t.cpu(), lp_cpu, demap, w).to(dev), x,
+        (1, window))
     plain = _time_ms(lambda: four_level_slice(xs, lp, demap, window), 1)
     ms = _time_ms(lambda: four_level_slice_lanes(x, lp, demap, window), 3)
+    copy_ms = _copy_ms(x)
+    aligned = _ext.rows_aligned(x)
     L, T = x.shape
     kernels["K8"] = _kernel(
         "four_level_slicer", "four_level_slicer.cu",
         "pymodem_tpu/ops/pallas_slicers.py:297", err, ms, plain,
         4 * (L * T + 2 * L + L * -(-T // window)), 35 * L * T, (L, T),
-        (L, SLICE), smi)
+        (L, PADDED_CUT), smi)
     print(f"K8 lanes {L} T {T} window {window}: bitwise equal on "
-          f"{L}x{SLICE}; twin {plain:.1f} ms at {L}x{SLICE}; kernel "
-          f"{ms:.3f} ms at full {L}x{T} [{smi}]")
-    del x, xs
+          f"{L}x{ALIGNED_CUT} (rows as they are) and {L}x{PADDED_CUT} "
+          f"(padded rows), windows 1 and {window}; twin {plain:.1f} ms at "
+          f"{L}x{PADDED_CUT}; kernel {ms:.3f} ms at full {L}x{T}, "
+          f"{ms * 1e6 / T:.1f} ns a step, {LANE_TILES}, ring values on four "
+          f"value warps, rows {'as they lie' if aligned else 'padded'} "
+          f"(padded-row copy {copy_ms:.3f} ms, in the kernel's time); bound "
+          f"{kernels['K8']['bound_ms']:.3f} ms; before the redesign: "
+          f"{K8_BEFORE_MS} ms [{smi}]")
+    del x, xs, bb
 
     # K5 (redesigned: staged tiles, the AGC on the copy warp; its earlier
     # time beside it) against the twin at full lane count on the two cuts,
@@ -899,7 +1056,7 @@ def main() -> int:
     L = rows.shape[1]
     R, T = x.shape
     aligned = _ext.rows_aligned(x)
-    copy_ms = 0.0 if aligned else _time_ms(lambda: _ext.lane_rows(x), 3)
+    copy_ms = _copy_ms(x)
     kernels["K5"] = _kernel(
         "qpsk_costas_loop", "qpsk_costas_loop.cu",
         "pymodem_tpu/dsp/pallas_loops.py:270", err, ms, plain,
@@ -915,7 +1072,7 @@ def main() -> int:
           f"{kernels['K5']['bound_ms']:.3f} ms; before the redesign: "
           f"{K5_BEFORE_MS} ms [{smi}]")
     del x, xs, rows
-    _phase(10, "K8, K5 == twins", t0)
+    _phase(10, "K1, K8, K5 == twins", t0)
 
     # 11. the FSK and Costas-QPSK path end to end
     t0 = time.time()
@@ -931,7 +1088,7 @@ def main() -> int:
              every_chain=True)
     fsk_launches = {k: fn.launches for k, fn in counted.items()}
     print(f"FSK and Costas-QPSK path: launches {fsk_launches}, padded-row "
-          f"copies for K5 and K7 {_ext.lane_rows.copies}")
+          f"copies for K1, K5, K7 and K8 {_ext.lane_rows.copies}")
     report_banks(fsk_chains, fsk_audio, fsk_rate, fsk_mps,
                  {name: len(a[1]) / fsk_rate[name]
                   for name, a in fsk_audio.items()})
@@ -956,6 +1113,10 @@ def main() -> int:
                           ("K7", psk_launches["K7"] + fsk_launches["K7"]),
                           ("K8", fsk_launches["K8"])):
         kernels[key]["launches"] = fn_count
+    kernels["K1"]["other_banks"] = {
+        name: {key: k[key] for key in ("shape", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms")}
+        for name, k in k1_banks.items()}
     print(smi)
     print(json.dumps({"kernels": [kernels[k] for k in sorted(kernels)]}))
     print(json.dumps({"ok": True, "device": {

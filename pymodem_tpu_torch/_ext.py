@@ -131,28 +131,45 @@ def check(name: str, err: int) -> None:
 def require(device, dtype, **tensors) -> None:
     """Raise ValueError unless ``device`` is a CUDA device and every named
     tensor is a contiguous ``dtype`` tensor on it (what the kernels take)."""
+    _require(device, dtype, lambda t: t.is_contiguous(), "contiguous",
+             tensors)
+
+
+def require_rows(device, dtype, **tensors) -> None:
+    """``require`` for the (n, T) inputs of the staged slicers K1 and K8,
+    which take rows of unit stride that need not follow one another
+    (``lane_rows``)."""
+    _require(device, dtype, lambda t: t.ndim == 2 and t.stride(-1) == 1,
+             "(n, T) with contiguous rows", tensors)
+
+
+def _require(device, dtype, layout_ok, layout: str, tensors: dict) -> None:
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}: the kernels run on "
                          "CUDA, the plain twins on the CPU")
     for name, t in tensors.items():
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                             f"{device}, got {t.dtype} on {t.device}")
+        if t.device != device or t.dtype != dtype or not layout_ok(t):
+            raise ValueError(f"{name}: need a {layout} {dtype} tensor on "
+                             f"{device}, got {t.dtype} on {t.device}, "
+                             f"strides {t.stride()}")
 
 
 def rows_aligned(t) -> bool:
-    """Whether the staged lane kernels (K4-K7) can copy the rows of the
-    contiguous (n, T) tensor ``t`` as they are, by bulk copies: 16-byte
-    aligned starts, T a multiple of 4."""
-    return t.shape[-1] % 4 == 0 and t.data_ptr() % 16 == 0
+    """Whether the staged lane kernels (K1, K4-K8) can copy the rows of the
+    (n, T) tensor ``t`` (rows of unit stride) as they are, by bulk copies:
+    16-byte aligned starts a multiple of 4 floats apart.  For a contiguous
+    ``t``: T a multiple of 4."""
+    return (t.stride(-1) == 1 and t.stride(0) % 4 == 0
+            and t.stride(0) >= t.shape[-1] and t.data_ptr() % 16 == 0)
 
 
 def lane_rows(t):
-    """The rows of the contiguous (n, T) tensor ``t`` as the staged lane
-    kernels (K4-K7) copy them: ``t`` itself when ``rows_aligned``, else a
-    copy into rows of T rounded up to a multiple of 4 floats, zero-padded.
-    The kernels take the row stride, ``.stride(0)``, and read T samples a
-    row.  ``lane_rows.copies`` counts the copies."""
+    """The rows of the (n, T) tensor ``t`` (rows of unit stride) as the
+    staged lane kernels (K1, K4-K8) copy them: ``t`` itself when
+    ``rows_aligned``, else a copy into rows of T rounded up to a multiple
+    of 4 floats, zero-padded.  The kernels take the row stride,
+    ``.stride(0)``, and read T samples a row.  ``lane_rows.copies`` counts
+    the copies."""
     if rows_aligned(t):
         return t
     n, T = t.shape

@@ -19,17 +19,15 @@
 // The only float dependency from step to step is the clock (add, compare,
 // subtract, multiply); 8 bytes in per sample, 4 out per window.
 //
-// Design (lane_tiles.cuh): a block serves 32 lanes with one lane thread
-// and one copy thread each, and walks time in tiles of 128 samples.  The
-// copy warp brings each tile of I and Q into shared memory two tiles ahead
-// (one bulk copy a lane and rail; three stages), and one tile ahead packs
-// each
-// lane's samples into bit words: per 32 samples the sign bits (x >= 0) of
-// both rails and the zero-crossing flags, with the twin's own predicates
-// ((last < 0 && x >= 0) || (last >= 0 && x < 0), so a NaN sample crosses
-// nothing, and last = 0 before the first sample).  The lane thread then
-// carries only the clock, the state register, the byte, the bit count and
-// the window's code, each updated by selects (no divergent branch), the
+// Design (lane_tiles.cuh, slicer_words.cuh, shared with K1 and K8): a
+// block serves 32 lanes with one lane thread and one copy thread each, and
+// walks time in tiles of 128 samples.  The copy warp brings each tile of I
+// and Q into shared memory two tiles ahead (one bulk copy a lane and rail;
+// three stages), and one tile ahead packs each lane's samples into bit
+// words: per 32 samples the sign bits (x >= 0) of both rails and the
+// zero-crossing flags, with the twin's own predicates.  The lane thread
+// then carries only the clock, the state register, the byte, the bit count
+// and the window's code, each updated by selects (no divergent branch), the
 // demap packed two bits an entry into one register.  Each window's code
 // goes to a shared buffer that the block stores to device memory in
 // coalesced runs when it fills.  Compare/select/shift only, in the JAX op
@@ -39,10 +37,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lane_tiles.cuh"
+#include "slicer_words.cuh"
 
 namespace {
 
+using pymodem::Codes;
+using pymodem::kCodeRow;
 using pymodem::kLanes;
 using pymodem::kStride;
 using pymodem::kTile;
@@ -52,22 +52,6 @@ constexpr int kTileFloats = kLanes * kStride;  // one rail of a stage
 // a lane's words of a tile: (I >= 0, Q >= 0, crossing) per 32 samples,
 // rows padded to an odd count so the lanes' reads hit distinct banks
 constexpr int kWordRow = 3 * (kTile / 32) + 1;
-constexpr int kCodeRow = kTile + 1;  // a lane's window codes
-
-// bit j of the result: element j of the float4 is >= 0 (< 0); NaN is
-// neither
-__device__ __forceinline__ unsigned ge0(float4 a) {
-  return static_cast<unsigned>(a.x >= 0.0f) |
-         static_cast<unsigned>(a.y >= 0.0f) << 1 |
-         static_cast<unsigned>(a.z >= 0.0f) << 2 |
-         static_cast<unsigned>(a.w >= 0.0f) << 3;
-}
-__device__ __forceinline__ unsigned lt0(float4 a) {
-  return static_cast<unsigned>(a.x < 0.0f) |
-         static_cast<unsigned>(a.y < 0.0f) << 1 |
-         static_cast<unsigned>(a.z < 0.0f) << 2 |
-         static_cast<unsigned>(a.w < 0.0f) << 3;
-}
 
 // bit b of the rails' sign words as the state register's new bits
 __device__ __forceinline__ int bits_at(unsigned pi, unsigned pq, int b) {
@@ -77,16 +61,16 @@ __device__ __forceinline__ int bits_at(unsigned pi, unsigned pq, int b) {
 struct Slicer {
   float clock = 0.0f;
   float sps, lock_rate, rollover;
-  int byte = 0, bit_count = 0, state = 0, acc = 0;
-  int state_mask, bps, wm, wshift;
+  int byte = 0, bit_count = 0, state = 0;
+  int state_mask, bps;
   unsigned demap;  // entry s (0-3) in bits 2s, 2s + 1
 
   // One sample at time t: bits = (I >= 0) << 1 | (Q >= 0), cross the zero
-  // crossing; a finished window's code goes to orow[window - ob].  Every
-  // update is a select, so the warp never diverges and the compiler can
-  // overlap one step's byte work with the next step's clock.
+  // crossing.  Every update is a select, so the warp never diverges and
+  // the compiler can overlap one step's byte work with the next step's
+  // clock.
   __device__ __forceinline__ void step(int t, int bits, bool cross,
-                                       int* orow, int ob) {
+                                       Codes& codes, int* orow, int ob) {
     clock = clock + 1.0f;
     const bool decide = clock >= rollover;
     const float rewound = clock - sps;
@@ -99,15 +83,11 @@ struct Slicer {
     bit_count = decide ? bit_count + bps : bit_count;
     // bit_count only reaches 8 on a decision and resets there
     const bool emit = bit_count >= 8;
-    const int pos = t & wm;
-    acc |= emit ? ((pos << 16) | 0x100 | (byte & 0xFF)) : 0;
     bit_count = emit ? 0 : bit_count;
     byte = emit ? (byte & 0xFF) : byte;
     const float locked = clock * lock_rate;
     clock = cross ? locked : clock;
-    const bool done = pos == wm;
-    if (done) orow[(t >> wshift) - ob] = acc;
-    acc = done ? 0 : acc;
+    codes.add(t, emit, byte, orow, ob);
   }
 };
 
@@ -129,7 +109,6 @@ __global__ void __launch_bounds__(2 * kLanes, 1)
   // then the [lane][kCodeRow] window codes
   unsigned* words =
       reinterpret_cast<unsigned*>(smem + 2 * kStages * kTileFloats);
-  int* obuf = reinterpret_cast<int*>(words + 2 * kLanes * kWordRow);
   const int tid = threadIdx.x;
   const bool copier = tid >= kLanes;
   const int r = copier ? tid - kLanes : tid;  // the lane row this thread serves
@@ -150,15 +129,12 @@ __global__ void __launch_bounds__(2 * kLanes, 1)
   s.rollover = s.sps / 2.0f - 0.5f;
   s.state_mask = state_mask;
   s.bps = bps;
-  s.wm = window - 1;
-  s.wshift = __ffs(window) - 1;
   s.demap = demap;
-  const int n_out = (T + s.wm) >> s.wshift;
-  const int per_tile = max(kTile >> s.wshift, 1);  // codes a tile finishes
-  int* orow = obuf + r * kCodeRow;
-  int ob = 0;  // first window held in obuf
-  // the previous sample's predicates, last = 0 before the first
-  unsigned carry_pi = 1, carry_ni = 0, carry_pq = 1, carry_nq = 0;
+  Codes codes = pymodem::codes_for(window);
+  pymodem::CodeBuffer cb = pymodem::code_buffer(
+      reinterpret_cast<int*>(words + 2 * kLanes * kWordRow), window, T);
+  int* orow = cb.row(r);
+  pymodem::Crossings ci, cq;
 
   // tile k goes to stage k % kStages by one bulk copy a lane and rail from
   // the copy warp, completing on the stage's barrier
@@ -175,9 +151,7 @@ __global__ void __launch_bounds__(2 * kLanes, 1)
                          bytes, &bars[st]);
     }
   };
-  // copy thread r: lane r's words of tile k (its samples in place), with
-  // the twin's predicates ((last < 0 && x >= 0) || (last >= 0 && x < 0)
-  // on either rail; past the tile's end: unused)
+  // copy thread r: lane r's words of tile k (a crossing on either rail)
   auto pack = [&](int k) {
     const int st = k % kStages;
     pymodem::mbar_wait(&bars[st], (k / kStages) & 1);
@@ -186,26 +160,11 @@ __global__ void __launch_bounds__(2 * kLanes, 1)
     unsigned* w = words + ((k & 1) * kLanes + r) * kWordRow;
     const int n = min(kTile, T - k * kTile);
     for (int c0 = 0; c0 < n; c0 += 32) {
-      unsigned pi = 0, ni = 0, pq = 0, nq = 0;
-#pragma unroll
-      for (int v = 0; v < 8; ++v) {
-        const float4 a = *reinterpret_cast<const float4*>(xi + c0 + 4 * v);
-        const float4 b = *reinterpret_cast<const float4*>(xq + c0 + 4 * v);
-        pi |= ge0(a) << (4 * v);
-        ni |= lt0(a) << (4 * v);
-        pq |= ge0(b) << (4 * v);
-        nq |= lt0(b) << (4 * v);
-      }
-      w[3 * (c0 >> 5)] = pi;
-      w[3 * (c0 >> 5) + 1] = pq;
-      w[3 * (c0 >> 5) + 2] = (((ni << 1) | carry_ni) & pi) |
-                             (((pi << 1) | carry_pi) & ni) |
-                             (((nq << 1) | carry_nq) & pq) |
-                             (((pq << 1) | carry_pq) & nq);
-      carry_pi = pi >> 31;
-      carry_ni = ni >> 31;
-      carry_pq = pq >> 31;
-      carry_nq = nq >> 31;
+      const pymodem::Signs si = pymodem::signs32<false>(xi + c0);
+      const pymodem::Signs sq = pymodem::signs32<false>(xq + c0);
+      w[3 * (c0 >> 5)] = si.ge;
+      w[3 * (c0 >> 5) + 1] = sq.ge;
+      w[3 * (c0 >> 5) + 2] = ci.next(si) | cq.next(sq);
     }
   };
 
@@ -230,31 +189,19 @@ __global__ void __launch_bounds__(2 * kLanes, 1)
         if (n - c0 >= 32) {
 #pragma unroll
           for (int b = 0; b < 32; ++b) {
-            s.step(tc + b, bits_at(pi, pq, b), (cross >> b) & 1u, orow, ob);
+            s.step(tc + b, bits_at(pi, pq, b), (cross >> b) & 1u, codes,
+                   orow, cb.ob);
           }
         } else {
           for (int b = 0; b < n - c0; ++b) {
-            s.step(tc + b, bits_at(pi, pq, b), (cross >> b) & 1u, orow, ob);
+            s.step(tc + b, bits_at(pi, pq, b), (cross >> b) & 1u, codes,
+                   orow, cb.ob);
           }
         }
       }
     }
-    // store the finished codes when the buffer could not take another tile
-    const bool last = k == n_tiles - 1;
-    const int done = last ? n_out : (t0 + n) >> s.wshift;
-    if (last || done - ob + per_tile > kTile) {
-      if (last && !copier && active && (T & s.wm) != 0) {
-        orow[n_out - 1 - ob] = s.acc;
-      }
-      __syncthreads();
-      const int cnt = done - ob;
-      for (int row = tid >> 5; row < n_active; row += blockDim.x >> 5) {
-        int* dst = out + static_cast<size_t>(lane0 + row) * n_out + ob;
-        const int* src = obuf + row * kCodeRow;
-        for (int c = tid & 31; c < cnt; c += 32) dst[c] = src[c];
-      }
-      ob = done;
-    }
+    cb.after_tile(k == n_tiles - 1, t0 + n, !copier && active, codes, r,
+                  out, lane0, n_active);
   }
 }
 

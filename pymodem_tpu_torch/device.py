@@ -5,9 +5,11 @@ on the CPU.  The CPU is used only when a caller asks for it by name, as the
 CPU tests and ``PYMODEM_TPU_TORCH_DEVICE=cpu`` do.
 
 TF32 is switched off for matmuls and cuDNN convolutions when this module is
-imported: reduced-precision f32 products flip bit-marginal slicer decisions
-(docs/ROOFLINE.md).  On the card the port's FIRs with more than 8 taps are
-banded matmuls on cuBLAS (``dsp/fir.py``).
+imported, by the legacy ``allow_tf32`` flags and, where torch has them, the
+per-backend ``fp32_precision`` settings ("ieee"): reduced-precision f32
+products flip bit-marginal slicer decisions (docs/ROOFLINE.md).  On the
+card the port's FIRs with more than 8 taps are banded matmuls on cuBLAS
+(``dsp/fir.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+for _backend in (torch.backends.cuda.matmul, torch.backends.cudnn):
+    if hasattr(_backend, "fp32_precision"):
+        _backend.fp32_precision = "ieee"
 
 ENV_VAR = "PYMODEM_TPU_TORCH_DEVICE"
 

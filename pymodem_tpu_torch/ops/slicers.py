@@ -242,7 +242,10 @@ def _check_window(window: int) -> None:
 
 def binary_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor,
                        window: int = 1) -> torch.Tensor:
-    """Kernel K1 (``csrc/binary_slicer.cu``) over (L, T) lanes.
+    """Kernel K1 (``csrc/binary_slicer.cu``) over (L, T) lanes.  ``x``'s
+    rows need unit stride, not to follow one another: rows 16-byte aligned
+    a multiple of 4 floats apart go to the kernel as they are, others
+    through padded copies (``_ext.lane_rows``).
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``binary_slice``."""
@@ -254,14 +257,17 @@ def binary_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor,
         return binary_slice(x, lane_params, window)
     from .. import _ext
 
-    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params)
+    _ext.require(x.device, torch.float32, lane_params=lane_params)
+    _ext.require_rows(x.device, torch.float32, x=x)
     L, T = x.shape
+    rows = _ext.lane_rows(x)
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
                       device=x.device)
     _ext.launch("binary_slice_lanes", x.device,
-                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3,
-                x.data_ptr(), lane_params.data_ptr(), out.data_ptr(), L, T,
-                window)
+                (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 2
+                + (ctypes.c_int,) * 3,
+                rows.data_ptr(), rows.stride(0), lane_params.data_ptr(),
+                out.data_ptr(), L, T, window)
     binary_slice_lanes.launches += 1
     return out
 
@@ -325,7 +331,8 @@ def four_level_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor, demap,
                            window: int = 1) -> torch.Tensor:
     """Kernel K8 (``csrc/four_level_slicer.cu``) over (L, T) lanes.  The
     4-entry ``demap`` is bank-uniform (part of the bank grouping key) and
-    goes to the kernel as an argument.
+    goes to the kernel as an argument.  ``x``'s rows need unit stride, as
+    for ``binary_slice_lanes``.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``four_level_slice``."""
@@ -341,14 +348,17 @@ def four_level_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor, demap,
         return four_level_slice(x, lane_params, demap, window)
     from .. import _ext
 
-    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params)
+    _ext.require(x.device, torch.float32, lane_params=lane_params)
+    _ext.require_rows(x.device, torch.float32, x=x)
     L, T = x.shape
+    rows = _ext.lane_rows(x)
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
                       device=x.device)
     _ext.launch("four_level_slice_lanes", x.device,
-                (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 7,
-                x.data_ptr(), lane_params.data_ptr(), out.data_ptr(),
-                *demap, L, T, window)
+                (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 2
+                + (ctypes.c_int,) * 7,
+                rows.data_ptr(), rows.stride(0), lane_params.data_ptr(),
+                out.data_ptr(), *demap, L, T, window)
     four_level_slice_lanes.launches += 1
     return out
 

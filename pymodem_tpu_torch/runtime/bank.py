@@ -614,7 +614,9 @@ def slice_lanes(bank: Bank, basebands, window: int) -> torch.Tensor:
     K1 (binary) or K8 (four-level) over the C*B lanes of a real baseband,
     K7 over the lane pairs of an (i, q) one.  The demap (and the quadrature
     slicer's state mask and bits per decision) are bank-uniform, part of
-    the grouping key."""
+    the grouping key.  K1 and K8 take the lanes as rows of the basebands
+    as they lie (a FIR's matmul output keeps rows a tile multiple apart),
+    so a bank whose T is not a multiple of 4 copies no rows."""
     pair = isinstance(basebands, tuple)
     C, B, L2 = (basebands[0] if pair else basebands).shape
     rows = slicer_lane_params(bank, B)
@@ -623,9 +625,10 @@ def slice_lanes(bank: Bank, basebands, window: int) -> torch.Tensor:
         return t.reshape(C * B, L2).contiguous()
 
     if bank.slicer_kind == "binary":
-        enc = binary_slice_lanes(lanes(basebands), rows, window=window)
+        enc = binary_slice_lanes(basebands.reshape(C * B, L2), rows,
+                                 window=window)
     elif bank.slicer_kind == "4level":
-        enc = four_level_slice_lanes(lanes(basebands), rows,
+        enc = four_level_slice_lanes(basebands.reshape(C * B, L2), rows,
                                      bank.specs[0].slicer.demap,
                                      window=window)
     else:

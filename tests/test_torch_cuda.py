@@ -35,14 +35,54 @@ def _lanes(seed, n_lanes, n_samples, device):
             torch.from_numpy(np.stack([sps, lock])).to(device))
 
 
-@pytest.mark.parametrize("window", [1, 8, 64])
-def test_binary_slicer_kernel_matches_twin(cuda, window):
-    x, lp = _lanes(0, 300, 3000, cuda)
+# samples a lane: a multiple of 4, and 3 tiles of 128 and 5 (padded rows)
+_T_EDGES = [4000, 3 * 128 + 5]
+# L: one block in part, not a multiple of 32, a single lane; the 31 lanes'
+# rows start 4 bytes past a 16-byte boundary (padded copies), the 64 lanes'
+# are a view of wider rows (a FIR's output), taken as they lie
+_SLICER_LANES = [(300, "as_they_are"), (31, "offset"), (1, "as_they_are"),
+                 (64, "strided")]
+_SLICER_LANE_IDS = ["300_lanes", "31_offset_lanes", "1_lane",
+                    "64_strided_lanes"]
+
+
+def _staged(x, rows, T):
+    """``x`` as the card tests hand it to a staged slicer (K1, K8): as it
+    is, with rows off a 16-byte boundary, or as a view of rows 4 to 7
+    floats longer; and whether the kernel takes its rows as they lie (else
+    through a padded copy)."""
+    from pymodem_tpu_torch import _ext
+
+    if rows == "offset":
+        x = _offset_rows(x)
+    elif rows == "strided":
+        wide = x.new_zeros((x.shape[0], -(-T // 4) * 4 + 4))
+        wide[:, :T] = x
+        x = wide[:, :T]
+    aligned = rows == "strided" or (rows == "as_they_are" and T % 4 == 0)
+    assert _ext.rows_aligned(x) == aligned
+    return x, aligned
+
+
+@pytest.mark.parametrize("T", _T_EDGES)
+@pytest.mark.parametrize("lanes,rows", _SLICER_LANES, ids=_SLICER_LANE_IDS)
+@pytest.mark.parametrize("window", [1, 8, 32, 64, 256])
+def test_binary_slicer_kernel_matches_twin(cuda, window, lanes, rows, T):
+    """Windows shorter and longer than the 128-sample tile; T a multiple
+    of 4, or 3 tiles of 128 and 5 (padded rows, a ragged last tile and
+    window); L not a multiple of 32; rows as they are or padded."""
+    from pymodem_tpu_torch import _ext
+
+    x, lp = _lanes(0, lanes, T, cuda)
+    x, aligned = _staged(x, rows, T)
     before = tsl.binary_slice_lanes.launches
+    copies = _ext.lane_rows.copies
     got = tsl.binary_slice_lanes(x, lp, window)
     want = tsl.binary_slice(x, lp, window)
     torch.cuda.synchronize()
     assert tsl.binary_slice_lanes.launches == before + 1
+    assert _ext.lane_rows.copies == copies + (not aligned)
+    assert got.shape == (lanes, -(-T // window))
     assert torch.equal(got, want)
     assert bool(((got & 0x100) != 0).any())
 
@@ -185,10 +225,6 @@ def test_bpsk_costas_kernel_matches_twin(cuda):
 _MPSK_ROWS = [2 * np.pi / 44100, 1500.0, 256 / (2 * np.pi), 0.0175, 0.965,
               14400 / 65536 * 0.3, 14400 / 65536, 0.3 / 2000, 31.25, -31.25,
               32.0, 64.0]
-# samples a lane: a multiple of 4, and 3 tiles of 128 and 5 (padded rows)
-_T_EDGES = [4000, 3 * 128 + 5]
-
-
 def _mpsk_inputs(L, T, n_gains, shared, device, seed=5):
     """K6 inputs for L lanes (not a multiple of 32) of ``n_gains`` detector
     tables: (re, im) rows, lane rows, tables, table index, row_of_lane.
@@ -304,30 +340,98 @@ def test_quadrature_slicer_kernel_nan_and_signed_zero(cuda):
 
 
 def _four_level(seed, n_lanes, n_samples, device):
-    """(L, T) f32 noisy 4-level symbols (+-1, +-3) at 10 +- 0.4 samples
-    per symbol, each lane with its own gain, and their (2, L) rows."""
+    """(L, T) f32 4FSK lanes of ``synth.modulate.four_level_modulate`` at
+    48 kHz and 4800 Bd: a preamble of 20 +-3 symbols, whose signs make the
+    sync patterns, then random dibits; each lane from its own start, with
+    its own gain and noise.  Rows (sps, lock_rate) near its 10 samples a
+    symbol."""
+    from pymodem_tpu_torch.synth.modulate import four_level_modulate
+
     g = np.random.default_rng(seed)
-    sps = g.choice([9.6, 10.0, 10.4], n_lanes).astype(np.float32)
+    x = np.empty((n_lanes, n_samples), np.float32)
+    for lane in range(n_lanes):
+        start = int(g.integers(0, 10))
+        dibits = g.integers(0, 4, n_samples // 10 + 2).tolist()
+        wave = four_level_modulate(dibits, 48000.0, 4800.0,
+                                   preamble_symbols=20)
+        x[lane] = (wave[start:start + n_samples] * 1e-4
+                   * g.uniform(0.2, 2.0)
+                   + 0.05 * g.standard_normal(n_samples))
+    sps = g.choice([9.9, 10.0, 10.1], n_lanes).astype(np.float32)
     lock = g.choice([0.985, 0.9], n_lanes).astype(np.float32)
-    idx = np.arange(n_samples)[None, :] / sps[:, None]
-    sym = g.choice([-3.0, -1.0, 1.0, 3.0],
-                   (n_lanes, int(idx.max()) + 2))
-    x = np.take_along_axis(sym, idx.astype(np.int64), 1)
-    x = (x * g.uniform(0.2, 2.0, (n_lanes, 1))
-         + 0.3 * g.standard_normal(x.shape)).astype(np.float32)
     return (torch.from_numpy(x).to(device),
             torch.from_numpy(np.stack([sps, lock])).to(device))
 
 
-@pytest.mark.parametrize("window", [1, 32])
-def test_four_level_slicer_kernel_matches_twin(cuda, window):
-    x, lp = _four_level(8, 300, 4000, cuda)
-    demap = (2, 0, 3, 1)
+_FL_DEMAP = (2, 0, 3, 1)  # the four-level slicer's (slicer.py:297-308)
+
+
+def _four_level_twin(x, lp, window):
+    """K8's twin on the CPU, where the tests hold it against the JAX scan:
+    on the card torch divides by a Python scalar as a multiply by its
+    reciprocal, so the twin's |x| * 2 / 3 there is not the scan's (nor the
+    kernel's) on about a third of the samples."""
+    return tsl.four_level_slice(x.cpu(), lp.cpu(), _FL_DEMAP, window).to(
+        x.device)
+
+
+def _threshold_dibits(enc):
+    """(L,) whether a lane emitted a byte holding dibit 0 or 3: under
+    ``_FL_DEMAP`` the decisions 1 and 2 that only a threshold above 0 gives,
+    and the threshold leaves 0 only on a sync pattern."""
+    byte = (enc & 0xFF).long()
+    dibits = torch.stack([(byte >> s) & 3 for s in (0, 2, 4, 6)], -1)
+    mid = ((dibits == 0) | (dibits == 3)).any(-1)
+    return ((enc & 0x100) != 0).logical_and(mid).any(-1)
+
+
+@pytest.mark.parametrize("T", _T_EDGES)
+@pytest.mark.parametrize("lanes,rows", _SLICER_LANES, ids=_SLICER_LANE_IDS)
+@pytest.mark.parametrize("window", [1, 8, 16, 32, 256])
+def test_four_level_slicer_kernel_matches_twin(cuda, window, lanes, rows, T):
+    """Modulated 4FSK whose preamble hits the sync patterns (asserted: at
+    least 90% of the lanes decode symbols that only a threshold set on a
+    sync hit gives);
+    windows shorter and longer than the tile; T a multiple of 4, or 3 tiles
+    of 128 and 5; L not a multiple of 32; rows as they are or padded."""
+    from pymodem_tpu_torch import _ext
+
+    x, lp = _four_level(8, lanes, T, cuda)
+    x, aligned = _staged(x, rows, T)
     before = tsl.four_level_slice_lanes.launches
-    got = tsl.four_level_slice_lanes(x, lp, demap, window)
-    want = tsl.four_level_slice(x, lp, demap, window)
+    copies = _ext.lane_rows.copies
+    got = tsl.four_level_slice_lanes(x, lp, _FL_DEMAP, window)
+    want = _four_level_twin(x, lp, window)
     torch.cuda.synchronize()
     assert tsl.four_level_slice_lanes.launches == before + 1
+    assert _ext.lane_rows.copies == copies + (not aligned)
+    assert got.shape == (lanes, -(-T // window))
+    assert torch.equal(got, want)
+    assert float(_threshold_dibits(got).float().mean()) >= 0.9
+
+
+@pytest.mark.parametrize("window", [1, 32])
+@pytest.mark.parametrize("kernel", ["binary", "four_level"])
+def test_slicer_kernels_special_values(cuda, kernel, window):
+    """K1 and K8 on an all-zero row, a row of -0.0, NaN, -0.0 and 0.0
+    sprinkled over rows 2-5, and rows scaled from 1e-40 (subnormal) to
+    1e30: NaN crosses nothing and is not > 0, -0.0 is >= 0; kernel and
+    twin agree."""
+    L, T = 100, 1000
+    if kernel == "binary":
+        x, lp = _lanes(19, L, T, cuda)
+    else:
+        x, lp = _four_level(20, L, T, cuda)
+    scale = torch.logspace(-40, 30, L, dtype=torch.float64)
+    x = _special(x, 21) * scale.to(torch.float32).to(cuda)[:, None]
+    assert bool((x.abs() < 1.2e-38).logical_and(x != 0).any())  # subnormals
+    if kernel == "binary":
+        got = tsl.binary_slice_lanes(x, lp, window)
+        want = tsl.binary_slice(x, lp, window)
+    else:
+        got = tsl.four_level_slice_lanes(x, lp, _FL_DEMAP, window)
+        want = _four_level_twin(x, lp, window)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert bool(((got & 0x100) != 0).any())
 

@@ -237,6 +237,35 @@ def test_fsk_demod_matches_jax_per_chain():
     np.testing.assert_array_equal(got[0], -got[1])
 
 
+@pytest.mark.parametrize("name,rate", [("fsk_sweep", 96000.0),
+                                       ("fsk4_sweep", 48000.0)])
+def test_fsk_basebands_reach_the_slicers_as_they_lie(name, rate):
+    """The bank hands K1 and K8 the FSK basebands' rows as the FIR's matmul
+    leaves them, a multiple of its 128-sample tile apart, so the staged
+    kernels copy no rows where T is not a multiple of 4; the emissions
+    equal the twin's on a contiguous copy."""
+    from pymodem_tpu_torch import _ext
+
+    (bank,) = tbank.group_chains(_banks(rate, build_chain_spec)[name], "cpu")
+    taps = bank.params["modem"]["input_lpf"].shape[-1]
+    rng = np.random.default_rng(4)
+    blocks = rng.standard_normal((2, 3002 + taps - 1)).astype(np.float32)
+    bb = tbank.bank_basebands(bank, torch.from_numpy(blocks))
+    C, B, L2 = bb.shape
+    lanes = bb.reshape(C * B, L2)
+    assert L2 % 4 != 0 and not lanes.is_contiguous()
+    assert _ext.rows_aligned(lanes)
+    window = tbank.slicer_window(bank)
+    lp = tbank.slicer_lane_params(bank, B)
+    if bank.slicer_kind == "4level":
+        want = tsl.four_level_slice(lanes.contiguous(), lp,
+                                    bank.specs[0].slicer.demap, window)
+    else:
+        want = tsl.binary_slice(lanes.contiguous(), lp, window)
+    got = tbank.slice_lanes(bank, bb, window)
+    assert torch.equal(got.reshape(C * B, -1), want)
+
+
 def _packets(by_name):
     return {
         name: [(list(map(int, p.data)), np_crc16(np.asarray(p.data[:-2])),

@@ -117,6 +117,12 @@ def test_tf32_off():
 
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    # the per-backend settings of newer torch versions
+    for backend in (torch.backends.cuda.matmul, torch.backends.cudnn):
+        if hasattr(backend, "fp32_precision"):
+            assert backend.fp32_precision == "ieee"
+    if hasattr(torch.backends.cudnn, "conv"):
+        assert torch.backends.cudnn.conv.fp32_precision == "ieee"
 
 
 def test_kernel_wrappers_take_the_twin_only_on_cpu():

@@ -113,3 +113,18 @@ def test_safe_compact_window_matches():
                 assert tsl.safe_compact_window(sps, lock, bps) == \
                     jsl.safe_compact_window(sps, lock, bps)
 
+
+def test_lane_rows_takes_strided_rows_as_they_lie():
+    """K1 and K8 take rows of unit stride that need not follow one another:
+    a view of rows a multiple of 4 floats apart goes to the kernels as it
+    lies, another through one padded copy of the same values."""
+    from pymodem_tpu_torch import _ext
+
+    view = torch.arange(3 * 132, dtype=torch.float32).reshape(3, 132)[:, :130]
+    copies = _ext.lane_rows.copies
+    assert _ext.rows_aligned(view) and _ext.lane_rows(view) is view
+    odd = torch.arange(3 * 131, dtype=torch.float32).reshape(3, 131)[:, :130]
+    rows = _ext.lane_rows(odd)
+    assert not _ext.rows_aligned(odd)
+    assert _ext.lane_rows.copies == copies + 1
+    assert rows.stride(0) == 132 and torch.equal(rows[:, :130], odd)
