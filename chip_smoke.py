@@ -30,7 +30,11 @@ Phases, each printing one line with its seconds:
    whose rows it copies as they are and one it copies padded (each route
    checked), windows 1 and the bank's: bitwise; K1 timed at full shape
    with ns a step, the bound and its time before the redesign;
-4. K2 against its twin on the 8-chain PLL bank's own lanes: bitwise;
+4. K2 against its twin on the 8-chain PLL bank's own shared rows and
+   ``row_of_lane`` at the full lane count, on a slice whose rows it copies
+   as they are and one it copies padded (each route checked): bitwise;
+   timed at full shape with ns a step, the bound (the shared rows read
+   once) and its time before the redesign;
 5. the AFSK path end to end, the kernels' launch counters set to 0 just
    before and read just after: the 64-chain space-gain sweep, the PLL
    inverted pair and the 8-chain PLL carrier sweep, each decoding every
@@ -38,15 +42,15 @@ Phases, each printing one line with its seconds:
    warm rerun of each for wall time and chain-Msamples/s, and a split of
    one run into device stages and host codec;
 6. the CLI as a subprocess on a WAV and an AFSK JSONL config;
-7. K3, K4 (over the B shared lanes of the QPSK sweep and the C*B lanes of
-   the MPSK pair), K6 and K7 (2 bits per decision on the QPSK sweep, 1 on
-   the pair) against their twins on the PSK banks' own inputs (all lanes,
-   a time slice; for the staged K4, K6 and K7 two slices that are not a
-   multiple of their tiles, one whose rows they copy as they are and one
-   they copy padded, each route checked): bitwise; each kernel timed at
-   its full main-path shape, K4, K6 and K7 with ns a step, the bound and
-   their times before the redesign, K4 with its padded-row copy; K1
-   checked and timed as in 3 on the BPSK sweep's basebands;
+7. K3 (on the BPSK sweep's shared rows, as K2 in 4), K4 (over the B
+   shared lanes of the QPSK sweep and the C*B lanes of the MPSK pair), K6
+   and K7 (2 bits per decision on the QPSK sweep, 1 on the pair) against
+   their twins on the PSK banks' own inputs (all lanes, two slices that
+   are not a multiple of the kernels' tiles, one whose rows they copy as
+   they are and one they copy padded, each route checked): bitwise; each
+   kernel timed at its full main-path shape with ns a step, the bound and
+   its time before the redesign, K4 with its padded-row copy; K1 checked
+   and timed as in 3 on the BPSK sweep's basebands;
 8. the PSK path end to end, counters set to 0 just before and read just
    after (launches and padded-row copies per bank and per path):
    ``bpsk1200_sweep8`` (8 ``bpsk`` chains, carriers 1500 + 0.25 i Hz),
@@ -58,6 +62,7 @@ Phases, each printing one line with its seconds:
 10. K8 (windows 1 and the bank's) and K5 against their twins on the
     banks' own inputs (all lanes, the two slices of K4; K5 on the bank's
     R shared rows and on identity rows, with 17 rows (AGC fused) and 12):
+    bitwise; K8's twin on the card against the same twin on the CPU:
     bitwise; each kernel timed at its full main-path shape with ns a step,
     the bound, its padded-row copy and its time before the redesign; K1
     checked and timed as in 3 on the FSK-9600 sweep's basebands;
@@ -103,24 +108,31 @@ FSK4_RATE = 48000  # the 4FSK bank (bench.py:230)
 SECONDS = 600
 MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
-# the staged lane kernels' (K1, K4-K8) slices, not multiples of their
+# the staged lane kernels' (K1-K8) slices, not multiples of their
 # 128-sample tiles: rows the kernels copy as they are (T % 4 == 0), and
 # rows they copy padded
 ALIGNED_CUT = SLICE + 4
 PADDED_CUT = SLICE + 5
 # their launch geometry (csrc/lane_tiles.cuh)
 LANE_TILES = "32 lanes a block, 128-sample tiles"
-# K1 and K4-K8 before their redesign: ms at full shape on the main paths
-# (one thread per lane, 128-thread blocks, uncoalesced rows; PERF.md, H100
-# 80GB HBM3 at 700 W): K1 on the AFSK sweep, K4 on the QPSK sweep's 118
-# shared lanes and the MPSK pair's 186, K5 on the Costas sweep, K6 and K7
-# on the QPSK sweep, K8 on the 4FSK sweep
+# K1-K8 before their redesign: ms at full shape on the main paths (one
+# thread per lane, 128-thread blocks, uncoalesced rows; PERF.md, H100
+# 80GB HBM3 at 700 W): K1 on the AFSK sweep, K2 on the PLL sweep, K3 on
+# the BPSK sweep, K4 on the QPSK sweep's 118 shared lanes and the MPSK
+# pair's 186, K5 on the Costas sweep, K6 and K7 on the QPSK sweep, K8 on
+# the 4FSK sweep
 K1_BEFORE_MS = {"sweep64": 23.994}
+K2_BEFORE_MS = 41.365
+K3_BEFORE_MS = 109.641
 K4_BEFORE_MS = {"qpsk2400_sweep8": 93.461, "mpsk_bpsk1200_pair": 72.236}
 K5_BEFORE_MS = 147.222
 K6_BEFORE_MS = 130.771
 K7_BEFORE_MS = 68.236
 K8_BEFORE_MS = 109.962
+# peak device memory of the pre-shared K2 and K3 banks while their loop
+# inputs were C copies of the B shared rows (PERF.md, PR 6 run, GiB)
+PEAK_BEFORE_GIB = {"pll_pair": 0.38, "pll_sweep8": 1.26,
+                   "bpsk1200_sweep8": 7.47}
 SEED = 20261016
 # the H100 SXM's published peaks at its full 700 W:
 # HBM bytes/s and float32 operations/s outside the tensor cores
@@ -383,7 +395,7 @@ def _same(what: str, got, want) -> float:
 
 
 def _same_route(what: str, *rows, aligned: bool) -> None:
-    """Raise unless the staged lane kernels (K1, K4-K8) take ``rows`` as they
+    """Raise unless the staged lane kernels (K1-K8) take ``rows`` as they
     are (``aligned``) or through padded copies (not ``aligned``)."""
     from pymodem_tpu_torch import _ext
 
@@ -626,28 +638,57 @@ def main() -> int:
     del x_full, frames
     _phase(3, "K1 binary slicer == twin", t0)
 
-    # 4. K2 against its twin on the PLL sweep bank's lanes
+    def coherent_at(key, name, bank_name, x, rows, row_of_lane, tables,
+                    kernel, twin, before, ops):
+        """K2 or K3 (``kernel``) on bank ``bank_name``'s input rows ``x``
+        and its own ``row_of_lane``: against ``twin`` at the full lane count
+        on the two cuts (each route checked), timed at full shape; its
+        kernels-line entry, whose bound reads the R input rows once."""
+        err = 0.0
+        for n, aligned in ((ALIGNED_CUT, True), (PADDED_CUT, False)):
+            xs = x[:, :n].contiguous()
+            _same_route(f"{key} on {n} samples", xs, aligned=aligned)
+            err = max(err, _same(f"{key} on {bank_name}, {n} samples",
+                                 kernel(xs, rows, *tables, row_of_lane),
+                                 twin(xs, rows, *tables, row_of_lane)))
+        plain = _time_ms(lambda: twin(xs, rows, *tables, row_of_lane), 1)
+        ms = _time_ms(lambda: kernel(x, rows, *tables, row_of_lane), 3)
+        L = rows.shape[1]
+        R, T = x.shape
+        aligned = _ext.rows_aligned(x)
+        copy_ms = _copy_ms(x)
+        k = _kernel(
+            name, "coherent_loop.cu", "pymodem_tpu/dsp/pallas_loops.py:83",
+            err, ms, plain,
+            4 * (R * T + L * T + 15 * L + 256 * len(tables) + L),
+            ops * L * T, (L, T), (L, PADDED_CUT), smi)
+        print(f"{key} lanes {L} on {R} shared rows of {bank_name}, T {T}: "
+              f"bitwise equal on {L}x{ALIGNED_CUT} (rows as they are) and "
+              f"{L}x{PADDED_CUT} (padded rows); twin {plain:.1f} ms at "
+              f"{L}x{PADDED_CUT}; kernel {ms:.3f} ms at full {L}x{T}, "
+              f"{ms * 1e6 / T:.1f} ns a step, {LANE_TILES}, the AGC's "
+              f"divide on one gain warp, rows "
+              f"{'as they are' if aligned else 'padded'} (padded-row copy "
+              f"{copy_ms:.3f} ms, in the kernel's time); bound "
+              f"{k['bound_ms']:.3f} ms; before the redesign: {before} ms "
+              f"[{smi}]")
+        return k
+
+    # 4. K2 (redesigned: staged tiles, the AGC off the loop's chain; its
+    # earlier time beside it) against its twin on the PLL sweep bank's
+    # shared rows
     t0 = time.time()
     bank = tbank.group_chains(banks["pll_sweep8"], dev)[0]
     plan = tbank.bank_plan(bank, len(audio),
                            max_packet_seconds=MAX_PACKET_SECONDS)
     frames = tbank.frame_blocks(audio_t, plan).to(torch.float32)
-    x_full, rows = tbank.coherent_loop_inputs(bank.params, frames)
-    table = bank.params["sine_table"]
-    x_slice = x_full[:, :SLICE].contiguous()
-    err = _same("K2", afsk_pll_lanes(x_slice, rows, table),
-                afsk_pll(x_slice, rows, table))
-    k2_plain = _time_ms(lambda: afsk_pll(x_slice, rows, table), 1)
-    k2_ms = _time_ms(lambda: afsk_pll_lanes(x_full, rows, table), 5)
-    L, T = x_full.shape
-    kernels["K2"] = _kernel(
-        "afsk_pll_loop", "afsk_pll_loop.cu",
-        "pymodem_tpu/dsp/pallas_loops.py:83", err, k2_ms, k2_plain,
-        4 * (2 * L * T + 15 * L + 256), 40 * L * T, (L, T), (L, SLICE), smi)
-    print(f"K2 lanes {L} T {T}: bitwise equal on {L}x{SLICE}; twin "
-          f"{k2_plain:.1f} ms at {L}x{SLICE}; kernel {k2_ms:.3f} ms at full "
-          f"{L}x{T} [{smi}]")
-    del x_full, x_slice, frames
+    x_full, rows, row_of_lane = tbank.coherent_loop_inputs(bank.params,
+                                                           frames)
+    kernels["K2"] = coherent_at(
+        "K2", "afsk_pll_loop", "pll_sweep8", x_full, rows, row_of_lane,
+        (bank.params["sine_table"],), afsk_pll_lanes, afsk_pll,
+        K2_BEFORE_MS, 40)
+    del x_full, frames
     _phase(4, "K2 AFSK PLL loop == twin", t0)
 
     # 5. the AFSK path end to end
@@ -696,11 +737,15 @@ def main() -> int:
             samples = len(chains) * plan_.n_blocks * plan_.block_input_len
             launched = {k: fn.launches - before[k]
                         for k, fn in kernels_of[name].items()}
+            peak_before = PEAK_BEFORE_GIB.get(name)
             print(f"bank {name}: {len(audios[name][0])} frames decoded, 0 "
                   f"rejected; launches {launched}, padded-row copies "
                   f"{copies}; peak device memory {peak / 2**30:.2f} GiB, "
                   f"{peak / samples:.1f} bytes per chain-sample (budgeted "
-                  f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]}) [{smi}]")
+                  f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]})"
+                  + (f", {peak_before} GiB when K2 and K3 read C copies of "
+                     f"the shared rows (PR 6)" if peak_before else "")
+                  + f" [{smi}]")
 
     def report_banks(bank_chains, audios, rate_of, mps_of, seconds_of):
         """Warm rerun of each bank (rate, chains decoding), then a split
@@ -775,26 +820,15 @@ def main() -> int:
                                 max_packet_seconds=psk_mps[name])
         return bank_, tbank.frame_blocks(wave, plan_).to(torch.float32)
 
-    def cut(*ts):
-        return tuple(t[:, :SLICE].contiguous() for t in ts)
-
+    # K3 (redesigned as K2 in 4; its earlier time beside it) on the BPSK
+    # sweep's shared rows
     bank, frames = psk_frames("bpsk1200_sweep8")
-    x, rows = tbank.coherent_loop_inputs(bank.params, frames)
-    tabs = (bank.params["sine_table"], bank.params["cos_table"])
-    (xs,) = cut(x)
-    err = _same("K3", bpsk_costas_lanes(xs, rows, *tabs),
-                bpsk_costas(xs, rows, *tabs))
-    plain = _time_ms(lambda: bpsk_costas(xs, rows, *tabs), 1)
-    ms = _time_ms(lambda: bpsk_costas_lanes(x, rows, *tabs), 3)
-    L, T = x.shape
-    kernels["K3"] = _kernel(
-        "bpsk_costas_loop", "bpsk_costas_loop.cu",
-        "pymodem_tpu/dsp/pallas_loops.py:83", err, ms, plain,
-        4 * (2 * L * T + 15 * L + 512), 45 * L * T, (L, T), (L, SLICE), smi)
-    print(f"K3 lanes {L} T {T}: bitwise equal on {L}x{SLICE}; twin "
-          f"{plain:.1f} ms at {L}x{SLICE}; kernel {ms:.3f} ms at full "
-          f"{L}x{T} [{smi}]")
-    del x, xs
+    x, rows, row_of_lane = tbank.coherent_loop_inputs(bank.params, frames)
+    kernels["K3"] = coherent_at(
+        "K3", "bpsk_costas_loop", "bpsk1200_sweep8", x, rows, row_of_lane,
+        (bank.params["sine_table"], bank.params["cos_table"]),
+        bpsk_costas_lanes, bpsk_costas, K3_BEFORE_MS, 45)
+    del x
     bb = tbank.bank_basebands(bank, frames)
     C, B, L2 = bb.shape
     k1_banks = {"bpsk1200_sweep8": k1_at(
@@ -1000,14 +1034,17 @@ def main() -> int:
     lp = tbank.slicer_lane_params(bank, B)
     window = tbank.slicer_window(bank)
     demap = bank.specs[0].slicer.demap
-    # the twin on the CPU, where the tests hold it against the JAX scan: on
-    # the card torch divides by a Python scalar as a multiply by its
-    # reciprocal, so the twin's |x| * 2 / 3 there is not the scan's
+    # the twin on the CPU, where the tests hold it against the JAX scan;
+    # the twin on the card must agree with it too
     lp_cpu = lp.cpu()
     err, xs = check_staged(
         "K8", lambda t, w: four_level_slice_lanes(t, lp, demap, w),
         lambda t, w: four_level_slice(t.cpu(), lp_cpu, demap, w).to(dev), x,
         (1, window))
+    for w in (1, window):
+        _same(f"K8's twin on the card window {w}",
+              four_level_slice(xs, lp, demap, w),
+              four_level_slice(xs.cpu(), lp_cpu, demap, w).to(dev))
     plain = _time_ms(lambda: four_level_slice(xs, lp, demap, window), 1)
     ms = _time_ms(lambda: four_level_slice_lanes(x, lp, demap, window), 3)
     copy_ms = _copy_ms(x)
@@ -1020,7 +1057,8 @@ def main() -> int:
         (L, PADDED_CUT), smi)
     print(f"K8 lanes {L} T {T} window {window}: bitwise equal on "
           f"{L}x{ALIGNED_CUT} (rows as they are) and {L}x{PADDED_CUT} "
-          f"(padded rows), windows 1 and {window}; twin {plain:.1f} ms at "
+          f"(padded rows), windows 1 and {window}, and its twin on the card "
+          f"equal to the CPU's; twin {plain:.1f} ms at "
           f"{L}x{PADDED_CUT}; kernel {ms:.3f} ms at full {L}x{T}, "
           f"{ms * 1e6 / T:.1f} ns a step, {LANE_TILES}, ring values on four "
           f"value warps, rows {'as they lie' if aligned else 'padded'} "
@@ -1035,7 +1073,7 @@ def main() -> int:
     # copied out), in the 17-row (AGC fused) and the 12-row form; timed at
     # full shape on the shared rows
     bank, frames = fsk_frames("qpsk_costas2400_sweep8")
-    x, rows, row_of_lane = tbank.qpsk_loop_inputs(bank.params, frames)
+    x, rows, row_of_lane = tbank.coherent_loop_inputs(bank.params, frames)
     del frames
     tabs = (bank.params["sine_table"], bank.params["cos_table"])
     err = 0.0

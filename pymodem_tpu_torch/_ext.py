@@ -136,9 +136,9 @@ def require(device, dtype, **tensors) -> None:
 
 
 def require_rows(device, dtype, **tensors) -> None:
-    """``require`` for the (n, T) inputs of the staged slicers K1 and K8,
-    which take rows of unit stride that need not follow one another
-    (``lane_rows``)."""
+    """``require`` for the (n, T) inputs of the staged kernels K1, K2, K3
+    and K8, which take rows of unit stride that need not follow one
+    another (``lane_rows``)."""
     _require(device, dtype, lambda t: t.ndim == 2 and t.stride(-1) == 1,
              "(n, T) with contiguous rows", tensors)
 
@@ -155,7 +155,7 @@ def _require(device, dtype, layout_ok, layout: str, tensors: dict) -> None:
 
 
 def rows_aligned(t) -> bool:
-    """Whether the staged lane kernels (K1, K4-K8) can copy the rows of the
+    """Whether the staged lane kernels (K1-K8) can copy the rows of the
     (n, T) tensor ``t`` (rows of unit stride) as they are, by bulk copies:
     16-byte aligned starts a multiple of 4 floats apart.  For a contiguous
     ``t``: T a multiple of 4."""
@@ -165,7 +165,7 @@ def rows_aligned(t) -> bool:
 
 def lane_rows(t):
     """The rows of the (n, T) tensor ``t`` (rows of unit stride) as the
-    staged lane kernels (K1, K4-K8) copy them: ``t`` itself when
+    staged lane kernels (K1-K8) copy them: ``t`` itself when
     ``rows_aligned``, else a copy into rows of T rounded up to a multiple
     of 4 floats, zero-padded.  The kernels take the row stride,
     ``.stride(0)``, and read T samples a row.  ``lane_rows.copies`` counts

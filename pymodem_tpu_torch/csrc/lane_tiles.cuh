@@ -1,5 +1,5 @@
-// Staged lane tiles for the lane kernels K1 and K4-K8 (the slicers K1,
-// K7 and K8 add slicer_words.cuh): a block serves kLanes lanes and walks
+// Staged lane tiles for the lane kernels K1-K8 (the slicers K1, K7 and
+// K8 add slicer_words.cuh): a block serves kLanes lanes and walks
 // time in tiles of kTile samples, bringing each lane's next tile of its
 // input rows into shared memory while the lanes work on the current one,
 // and writing (L, T) outputs back from a shared tile.

@@ -20,6 +20,18 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+// min(max(v, lo), hi) by PTX max.NaN and min.NaN, one instruction each
+// where min_nan and max_nan take a compare and a select: the same number
+// for lo < hi, and the NaN where an operand is NaN (the canonical one, as
+// the card's float operations make every NaN that reaches the loops'
+// clamp)
+__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(v), "f"(lo));
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(m), "f"(hi));
+  return m;
+}
+
 // The AGC follower's per-lane rows (dsp/agc.py AGC_PARAMS) and carries.
 struct Agc {
   float attack, decay, sustain_time, sustain_inc, target;
@@ -75,23 +87,15 @@ struct Loop {
         limit(rows[8 * stride]),
         integral(rows[9 * stride]) {}
 
-  // NCO: wrap by +-2pi twice each way; the truncated table index
-  __device__ __forceinline__ int nco() {
-    const float two_pi = __int_as_float(0x40c90fdb);  // float32(2*pi)
-    float ph = phase + phase_scale * (set_freq + control);
-    if (ph >= two_pi) ph = ph - two_pi;
-    if (ph >= two_pi) ph = ph - two_pi;
-    if (ph < 0.0f) ph = ph + two_pi;
-    if (ph < 0.0f) ph = ph + two_pi;
-    phase = ph;
-    return __float2int_rz(ph * index_scale) & (kTableSize - 1);
-  }
-
-  // nco() with its four conditional wraps (+-2pi twice each way, in that
-  // order) taken as selects among candidates computed side by side: a
-  // phase at or above 2pi never ends below 0, so the taken path does the
-  // same arithmetic and the phase is the same, in fewer dependent steps
-  // (the staged loops K5 and K6)
+  // The NCO step: phase + phase_scale * (set_freq + control), wrapped by
+  // +-2pi twice each way in that order (dsp/loops.py _wrap_phase), then
+  // the truncated table index.  The four conditional wraps are selects
+  // among candidates computed side by side: a phase at or above 2pi never
+  // ends below 0, so the taken path does the same arithmetic and the phase
+  // is the same, in fewer dependent steps.  The index goes through a
+  // 64-bit conversion, as the twins' .long() on the card (exact below
+  // 2^63, saturating above, NaN to 0): a 32-bit one saturates at 2^31 and
+  // differs on a phase that has run away past 2^31 / index_scale
   __device__ __forceinline__ int nco_select() {
     const float two_pi = __int_as_float(0x40c90fdb);  // float32(2*pi)
     const float p = phase + phase_scale * (set_freq + control);
@@ -103,7 +107,8 @@ struct Loop {
     const float up = u1 < 0.0f ? u2 : u1;
     const float ph = p >= two_pi ? down : (p < 0.0f ? up : p);
     phase = ph;
-    return __float2int_rz(ph * index_scale) & (kTableSize - 1);
+    return static_cast<int>(__float2ll_rz(ph * index_scale)) &
+           (kTableSize - 1);
   }
 
   // loop IIR on the error e, then PI with a saturated integral; returns
@@ -112,7 +117,7 @@ struct Loop {
     const float y = (b0 * e + b0 * iir_x) + a1 * iir_y;
     iir_x = e;
     iir_y = y;
-    integral = min_nan(max_nan(integral + gain * (pi_i * y), -limit), limit);
+    integral = clamp_nan(integral + gain * (pi_i * y), -limit, limit);
     return gp * y;
   }
 };

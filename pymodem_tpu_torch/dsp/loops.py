@@ -6,7 +6,9 @@ them on the TPU: ``pymodem_tpu.dsp.pallas_loops._loop_kernel`` kinds
 ``afsk_pll`` and ``bpsk`` (AGC fused, ``loop_lanes_pallas``) and
 ``_iq_loop_kernel`` kinds ``qpsk`` (AGC fused or not) and ``mpsk``
 (``iq_loop_lanes_pallas``).  Lanes are independent (chain, block) streams
-handed over as ``(L, T)`` rows; per-lane constants come as rows:
+read from ``(R, T)`` input rows, lane l from row ``row_of_lane[l]`` (a
+pre-shared bank's C chains share its B band-passed rows; without the map
+R == L and lane l reads row l); per-lane constants come as rows:
 ``PLL_PARAMS`` then ``AGC_PARAMS`` (15) for K2 and K3, ``PLL_PARAMS``,
 ``BRANCH_PARAMS`` and optionally ``AGC_PARAMS`` (17 or 12) for K5,
 ``PLL_PARAMS`` then ``PD_PARAMS`` (12) for K6.
@@ -172,9 +174,13 @@ def _pi(y, integral, gp, gain, pi_i, limit):
     return prop, integral
 
 
-def _coherent_loop(x, lane_params, sine_table, cos_table, kind):
+def _coherent_loop(x, lane_params, sine_table, cos_table, kind,
+                   row_of_lane):
     """Twin of K2 (``kind="afsk_pll"``) and K3 (``"bpsk"``): the fused
-    AGC and carrier loop over (L, T) lanes with 15 rows."""
+    AGC and carrier loop over L lanes with 15 rows, lane l on input row
+    ``row_of_lane[l]`` of x (None: row l)."""
+    if row_of_lane is not None:
+        x = x[row_of_lane.long()]
     dtype, dev = x.dtype, x.device
     (phase_scale, set_freq, index_scale, b0, a1, gp, gain, pi_i, limit,
      integral0, att, dec, sus_t, sus_inc, target) = lane_params.to(dtype)
@@ -206,21 +212,25 @@ def _coherent_loop(x, lane_params, sine_table, cos_table, kind):
 
 
 def afsk_pll(x: torch.Tensor, lane_params: torch.Tensor,
-             sine_table: torch.Tensor) -> torch.Tensor:
+             sine_table: torch.Tensor,
+             row_of_lane: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch twin of kernel K2: vectorised over lanes, a loop over
-    time.  x: (L, T); lane_params: (15, L); sine_table: (256,), all of one
-    float dtype (f32, or f64 for parity runs).  Returns the (L, T) PI
-    proportional term."""
-    return _coherent_loop(x, lane_params, sine_table, None, "afsk_pll")
+    time.  x: (R, T) input rows; lane_params: (15, L); sine_table: (256,),
+    all of one float dtype (f32, or f64 for parity runs); row_of_lane (L,)
+    the input row of each lane (None: lane l reads row l, R == L).
+    Returns the (L, T) PI proportional term."""
+    return _coherent_loop(x, lane_params, sine_table, None, "afsk_pll",
+                          row_of_lane)
 
 
 def bpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
-                sine_table: torch.Tensor,
-                cos_table: torch.Tensor) -> torch.Tensor:
+                sine_table: torch.Tensor, cos_table: torch.Tensor,
+                row_of_lane: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch twin of kernel K3, the BPSK Costas loop with the AGC
-    fused: x (L, T), lane_params (15, L), the two (256,) tables.  Returns
-    the (L, T) I-mixer stream."""
-    return _coherent_loop(x, lane_params, sine_table, cos_table, "bpsk")
+    fused: x (R, T) input rows, lane_params (15, L), the two (256,) tables,
+    row_of_lane as ``afsk_pll``.  Returns the (L, T) I-mixer stream."""
+    return _coherent_loop(x, lane_params, sine_table, cos_table, "bpsk",
+                          row_of_lane)
 
 
 def qpsk_costas(x: torch.Tensor, lane_params: torch.Tensor,
@@ -323,60 +333,112 @@ def mpsk_loop(re: torch.Tensor, im: torch.Tensor, lane_params: torch.Tensor,
     return torch.stack(outs_re, dim=1), torch.stack(outs_im, dim=1)
 
 
-def _check_rows(name, x, lane_params, n_rows, *tables):
-    if x.ndim != 2 or lane_params.shape != (n_rows, x.shape[0]):
+def _check_lanes(name, x, lane_params, n_rows, row_of_lane, *tables):
+    """Raise ValueError unless lane_params is (n, L) with n in ``n_rows``,
+    x holds (R, T) input rows for the L lanes (R == L without
+    ``row_of_lane``, else ``row_of_lane`` (L,) int32 in [0, R)) and every
+    table is (256,).  Returns L."""
+    n = lane_params.shape[0] if lane_params.ndim == 2 else -1
+    if n not in n_rows:
+        raise ValueError(f"{name}: {n} lane rows, need "
+                         f"{' or '.join(map(str, n_rows))}")
+    L = lane_params.shape[1]
+    if x.ndim != 2 or (row_of_lane is None and x.shape[0] != L):
         raise ValueError(f"{name}: bad shapes x {tuple(x.shape)} "
                          f"lane_params {tuple(lane_params.shape)}")
     for t in tables:
         if t.shape != (WAVETABLE_SIZE,):
             raise ValueError(f"{name}: NCO tables must be "
                              f"({WAVETABLE_SIZE},), got {tuple(t.shape)}")
+    if row_of_lane is not None:
+        if row_of_lane.dtype != torch.int32 or row_of_lane.shape != (L,):
+            raise ValueError(f"{name}: row_of_lane must be ({L},) int32, "
+                             f"got {tuple(row_of_lane.shape)} "
+                             f"{row_of_lane.dtype}")
+        if L and not (0 <= int(row_of_lane.min())
+                      and int(row_of_lane.max()) < x.shape[0]):
+            raise ValueError(f"{name}: row_of_lane outside the "
+                             f"{x.shape[0]} input rows")
+    return L
 
 
-def _coherent_lanes(entry, x, lane_params, tables):
-    """Launch K2 or K3 (``entry``) over (L, T) lanes; returns (L, T)."""
+def _staged_rows(x, L, row_of_lane):
+    """What the staged loop kernels (K2, K3, K5, K6) take for input rows:
+    ``x`` as bulk copies can move it (``_ext.lane_rows``) and each lane's
+    row, the identity when ``row_of_lane`` is None."""
     from .. import _ext
 
-    _ext.require(x.device, torch.float32, x=x, lane_params=lane_params,
-                 **{f"table{i}": t for i, t in enumerate(tables)})
-    L, T = x.shape
-    out = torch.empty_like(x)
+    if row_of_lane is None:
+        row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
+    _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
+    return _ext.lane_rows(x), row_of_lane
+
+
+_COHERENT_ROWS = (len(PLL_PARAMS) + len(AGC_PARAMS),)
+
+
+def _coherent_lanes(entry, x, lane_params, sine_table, cos_table,
+                    row_of_lane):
+    """Launch K2 or K3 (``entry``, ``csrc/coherent_loop.cu``) over L lanes
+    on (R, T) rows; returns (L, T), a view of rows padded to a multiple of
+    4 floats."""
+    from .. import _ext
+
+    tables = {"sine_table": sine_table}
+    if cos_table is not None:
+        tables["cos_table"] = cos_table
+    _ext.require_rows(x.device, torch.float32, x=x)
+    _ext.require(x.device, torch.float32, lane_params=lane_params, **tables)
+    L = lane_params.shape[1]
+    R, T = x.shape
+    x, row_of_lane = _staged_rows(x, L, row_of_lane)
+    out = torch.empty((L, -(-T // 4) * 4), dtype=x.dtype, device=x.device)
     _ext.launch(entry, x.device,
-                (ctypes.c_void_p,) * (3 + len(tables)) + (ctypes.c_int,) * 2,
-                x.data_ptr(), lane_params.data_ptr(),
-                *(t.data_ptr() for t in tables), out.data_ptr(), L, T)
-    return out
+                (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int) + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3,
+                x.data_ptr(), x.stride(0), row_of_lane.data_ptr(), R,
+                lane_params.data_ptr(), sine_table.data_ptr(),
+                None if cos_table is None else cos_table.data_ptr(),
+                out.data_ptr(), out.stride(0), L, T)
+    return out[:, :T]
 
 
 def afsk_pll_lanes(x: torch.Tensor, lane_params: torch.Tensor,
-                   sine_table: torch.Tensor) -> torch.Tensor:
-    """Kernel K2 (``csrc/afsk_pll_loop.cu``) over (L, T) lanes.
+                   sine_table: torch.Tensor,
+                   row_of_lane: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel K2 (``csrc/coherent_loop.cu``) over L lanes reading (R, T)
+    input rows (``row_of_lane`` (L,) int32 in [0, R), None for R == L and
+    lane l on row l); returns the (L, T) PI proportional term.  Rows that
+    are not 16-byte aligned a multiple of 4 floats apart go to the kernel
+    through a padded copy (``_ext.lane_rows``), and the output is a view of
+    padded rows when T is not a multiple of 4.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``afsk_pll``."""
-    n_rows = len(PLL_PARAMS) + len(AGC_PARAMS)
-    _check_rows("afsk_pll_lanes", x, lane_params, n_rows, sine_table)
+    _check_lanes("afsk_pll_lanes", x, lane_params, _COHERENT_ROWS,
+                 row_of_lane, sine_table)
     if x.device.type == "cpu":
-        return afsk_pll(x, lane_params, sine_table)
-    out = _coherent_lanes("afsk_pll_lanes", x, lane_params, (sine_table,))
+        return afsk_pll(x, lane_params, sine_table, row_of_lane)
+    out = _coherent_lanes("afsk_pll_lanes", x, lane_params, sine_table, None,
+                          row_of_lane)
     afsk_pll_lanes.launches += 1
     return out
 
 
 def bpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
-                      sine_table: torch.Tensor,
-                      cos_table: torch.Tensor) -> torch.Tensor:
-    """Kernel K3 (``csrc/bpsk_costas_loop.cu``) over (L, T) lanes.
+                      sine_table: torch.Tensor, cos_table: torch.Tensor,
+                      row_of_lane: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel K3 (``csrc/coherent_loop.cu``) over L lanes reading (R, T)
+    input rows, as ``afsk_pll_lanes``; returns the (L, T) I-mixer stream.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``bpsk_costas``."""
-    n_rows = len(PLL_PARAMS) + len(AGC_PARAMS)
-    _check_rows("bpsk_costas_lanes", x, lane_params, n_rows, sine_table,
-                cos_table)
+    _check_lanes("bpsk_costas_lanes", x, lane_params, _COHERENT_ROWS,
+                 row_of_lane, sine_table, cos_table)
     if x.device.type == "cpu":
-        return bpsk_costas(x, lane_params, sine_table, cos_table)
-    out = _coherent_lanes("bpsk_costas_lanes", x, lane_params,
-                          (sine_table, cos_table))
+        return bpsk_costas(x, lane_params, sine_table, cos_table, row_of_lane)
+    out = _coherent_lanes("bpsk_costas_lanes", x, lane_params, sine_table,
+                          cos_table, row_of_lane)
     bpsk_costas_lanes.launches += 1
     return out
 
@@ -395,40 +457,18 @@ def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``qpsk_costas``."""
     n_loop = len(PLL_PARAMS) + len(BRANCH_PARAMS)
-    n_rows = lane_params.shape[0] if lane_params.ndim == 2 else -1
-    if n_rows not in (n_loop, n_loop + len(AGC_PARAMS)):
-        raise ValueError(f"qpsk_costas_lanes: {n_rows} lane rows, need "
-                         f"{n_loop} or {n_loop + len(AGC_PARAMS)}")
-    L = lane_params.shape[1]
-    if x.ndim != 2 or (row_of_lane is None and x.shape[0] != L):
-        raise ValueError(f"qpsk_costas_lanes: bad shapes x "
-                         f"{tuple(x.shape)} lane_params "
-                         f"{tuple(lane_params.shape)}")
-    for t in (sine_table, cos_table):
-        if t.shape != (WAVETABLE_SIZE,):
-            raise ValueError(f"qpsk_costas_lanes: NCO tables must be "
-                             f"({WAVETABLE_SIZE},), got {tuple(t.shape)}")
-    if row_of_lane is not None:
-        if row_of_lane.dtype != torch.int32 or row_of_lane.shape != (L,):
-            raise ValueError(f"qpsk_costas_lanes: row_of_lane must be ({L},)"
-                             f" int32, got {tuple(row_of_lane.shape)} "
-                             f"{row_of_lane.dtype}")
-        if L and not (0 <= int(row_of_lane.min())
-                      and int(row_of_lane.max()) < x.shape[0]):
-            raise ValueError(f"qpsk_costas_lanes: row_of_lane outside the "
-                             f"{x.shape[0]} input rows")
+    L = _check_lanes("qpsk_costas_lanes", x, lane_params,
+                     (n_loop, n_loop + len(AGC_PARAMS)), row_of_lane,
+                     sine_table, cos_table)
     if x.device.type == "cpu":
         return qpsk_costas(x, lane_params, sine_table, cos_table,
                            row_of_lane)
     from .. import _ext
 
-    if row_of_lane is None:
-        row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
     _ext.require(x.device, torch.float32, x=x, lane_params=lane_params,
                  sine_table=sine_table, cos_table=cos_table)
-    _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
     R, T = x.shape
-    x = _ext.lane_rows(x)
+    x, row_of_lane = _staged_rows(x, L, row_of_lane)
     out_i = torch.empty((L, -(-T // 4) * 4), dtype=x.dtype, device=x.device)
     out_q = torch.empty_like(out_i)
     _ext.launch("qpsk_costas_lanes", x.device,
@@ -438,7 +478,7 @@ def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
                 x.data_ptr(), x.stride(0), row_of_lane.data_ptr(), R,
                 lane_params.data_ptr(), sine_table.data_ptr(),
                 cos_table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(),
-                out_i.stride(0), L, T, int(n_rows > n_loop))
+                out_i.stride(0), L, T, int(lane_params.shape[0] > n_loop))
     qpsk_costas_lanes.launches += 1
     return out_i[:, :T], out_q[:, :T]
 
@@ -473,41 +513,32 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
     only a CPU tensor takes the plain twin ``mpsk_loop``.  ``pd_tables``
     (U, g*g) may hold any number of tables; each lane's granularity must be
     the tables' g."""
-    L = pd_index.shape[0] if pd_index.ndim == 1 else -1
-    n_rows = len(PLL_PARAMS) + len(PD_PARAMS)
-    if (re.ndim != 2 or im.shape != re.shape or pd_tables.ndim != 2
-            or lane_params.shape != (n_rows, L)
-            or (row_of_lane is None and re.shape[0] != L)
-            or (row_of_lane is not None and row_of_lane.shape != (L,))):
+    L = _check_lanes("mpsk_loop_lanes", re, lane_params,
+                     (len(PLL_PARAMS) + len(PD_PARAMS),), row_of_lane,
+                     sine_table, cos_table)
+    if im.shape != re.shape or pd_tables.ndim != 2 or pd_index.shape != (L,):
         raise ValueError(f"mpsk_loop_lanes: bad shapes re {tuple(re.shape)}"
-                         f" im {tuple(im.shape)} lane_params "
-                         f"{tuple(lane_params.shape)} pd_tables "
+                         f" im {tuple(im.shape)} pd_tables "
                          f"{tuple(pd_tables.shape)} pd_index "
-                         f"{tuple(pd_index.shape)} row_of_lane "
-                         f"{None if row_of_lane is None else tuple(row_of_lane.shape)}")
-    for t in (sine_table, cos_table):
-        if t.shape != (WAVETABLE_SIZE,):
-            raise ValueError(f"mpsk_loop_lanes: NCO tables must be "
-                             f"({WAVETABLE_SIZE},), got {tuple(t.shape)}")
+                         f"{tuple(pd_index.shape)} for {L} lanes")
     if re.device.type == "cpu":
         return mpsk_loop(re, im, lane_params, sine_table, cos_table,
                          pd_tables, pd_index, row_of_lane)
     from .. import _ext
 
-    if row_of_lane is None:
-        row_of_lane = torch.arange(L, dtype=torch.int32, device=re.device)
     _ext.require(re.device, torch.float32, re=re, im=im,
                  lane_params=lane_params, sine_table=sine_table,
                  cos_table=cos_table)
     _ext.require(re.device, torch.int32, pd_tables=pd_tables,
-                 pd_index=pd_index, row_of_lane=row_of_lane)
+                 pd_index=pd_index)
     n_tab, gg = pd_tables.shape
     g = int(round(gg ** 0.5))
     if g * g != gg or n_tab == 0:
         raise ValueError(f"mpsk_loop_lanes: pd_tables "
                          f"{tuple(pd_tables.shape)} must be (U, g*g)")
     R, T = re.shape
-    re, im = _ext.lane_rows(re), _ext.lane_rows(im)
+    re, row_of_lane = _staged_rows(re, L, row_of_lane)
+    im = _ext.lane_rows(im)
     out_re = torch.empty((L, -(-T // 4) * 4), dtype=re.dtype,
                          device=re.device)
     out_im = torch.empty_like(out_re)

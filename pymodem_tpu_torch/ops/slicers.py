@@ -191,7 +191,10 @@ def four_level_slice(x: torch.Tensor, lane_params: torch.Tensor, demap,
     rollover = sps / 2.0 - 0.5
     table = torch.as_tensor(tuple(demap), dtype=torch.int32, device=dev)
     xt = x.t()
-    new_vals = (xt.abs() * 2.0 / 3.0).unbind(0)
+    # a 0-d tensor on x's device: torch on CUDA turns a division by a CPU
+    # scalar into a multiply by its reciprocal, which rounds otherwise
+    three = torch.tensor(3.0, dtype=x.dtype, device=dev)
+    new_vals = (xt.abs() * 2.0 / three).unbind(0)
     positive = (xt > 0).unbind(0)
     crossings = _crossings(xt).unbind(0)
     xs = xt.unbind(0)

@@ -383,16 +383,16 @@ def afsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
 
 def _input_bpf(params: dict, blocks: torch.Tensor):
     """A coherent bank's input band-pass: ((C, B, L1) per-chain streams,
-    the (B, L1) stream they all share or None, (C,) AGC normals).  The
-    ``normal`` is each chain's signed max over every block (agc.py:67); a
-    ``pre_shared`` carrier sweep runs the FIR once and broadcasts."""
+    (C,) AGC normals).  The ``normal`` is each chain's signed max over
+    every block (agc.py:67); a ``pre_shared`` carrier sweep runs the FIR
+    once and broadcasts it, a view."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
     if "pre_shared" in params:
         x1 = fir_valid_nd(blocks, m["input_bpf"][0])
-        return x1[None].expand(C, *x1.shape), x1, x1.max().expand(C)
+        return x1[None].expand(C, *x1.shape), x1.max().expand(C)
     x = fir_valid_multi(blocks, m["input_bpf"])
-    return x, None, x.amax(dim=(1, 2))
+    return x, x.amax(dim=(1, 2))
 
 
 def _coherent_lane_params(params: dict, normals: torch.Tensor, C: int,
@@ -409,31 +409,29 @@ def _coherent_lane_params(params: dict, normals: torch.Tensor, C: int,
     ]).contiguous()
 
 
-def coherent_loop_inputs(params: dict, blocks: torch.Tensor):
-    """(B, Lin) blocks -> the inputs of kernels K2 and K3 for all C*B
-    lanes: ((C*B, L1) band-passed lanes, their lane rows)."""
-    x, _, normals = _input_bpf(params, blocks)
-    C, B, L1 = x.shape
-    return (x.reshape(C * B, L1).contiguous(),
-            _coherent_lane_params(params, normals, C, B))
-
-
-def qpsk_loop_inputs(params: dict, blocks: torch.Tensor):
-    """(B, Lin) blocks -> the inputs of kernel K5 for all C*B lanes: the
-    band-passed input rows, (17, C*B) lane rows and each lane's input row
-    (C*B,) int32.  A ``pre_shared`` sweep hands over its B shared rows
-    once (lane c*B + b reads row b), not C copies of them; any other bank
-    its C*B rows."""
-    x, x1, normals = _input_bpf(params, blocks)
-    C, B, L1 = x.shape
-    if x1 is not None:
-        rows = x1.contiguous()
-        row_of_lane = torch.arange(B, dtype=torch.int32,
-                                   device=x1.device).repeat(C)
+def _shared_rows(x: torch.Tensor, shared: bool):
+    """(C, B, T) lane streams -> the input rows a loop kernel reads and each
+    lane's row (C*B,) int32: a ``pre_shared`` bank's B shared rows once
+    (lane c*B + b reads row b), not C copies of them; any other bank's C*B
+    rows.  Contiguous: the staged kernels copy whole 16-byte-aligned rows
+    in bulk."""
+    C, B, T = x.shape
+    if shared:
+        rows, row_of_lane = x[0], torch.arange(B, dtype=torch.int32,
+                                               device=x.device).repeat(C)
     else:
-        rows = x.reshape(C * B, L1).contiguous()
-        row_of_lane = torch.arange(C * B, dtype=torch.int32,
-                                   device=x.device)
+        rows, row_of_lane = x.reshape(C * B, T), torch.arange(
+            C * B, dtype=torch.int32, device=x.device)
+    return rows.contiguous(), row_of_lane
+
+
+def coherent_loop_inputs(params: dict, blocks: torch.Tensor):
+    """(B, Lin) blocks -> the inputs of kernels K2, K3 and K5 for all C*B
+    lanes: the band-passed input rows, the (15 or 17, C*B) lane rows and
+    each lane's input row (C*B,) int32 (``_shared_rows``)."""
+    x, normals = _input_bpf(params, blocks)
+    C, B, _ = x.shape
+    rows, row_of_lane = _shared_rows(x, "pre_shared" in params)
     return rows, _coherent_lane_params(params, normals, C, B), row_of_lane
 
 
@@ -443,8 +441,9 @@ def afsk_pll_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
     lanes, then the per-chain output LPF."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params = coherent_loop_inputs(params, blocks)
-    demod = afsk_pll_lanes(x, lane_params, params["sine_table"])
+    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks)
+    demod = afsk_pll_lanes(x, lane_params, params["sine_table"],
+                           row_of_lane)
     return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]),
                                m["output_lpf"])
 
@@ -455,9 +454,9 @@ def bpsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
     C*B lanes, then the per-chain RRC."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params = coherent_loop_inputs(params, blocks)
+    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks)
     demod = bpsk_costas_lanes(x, lane_params, params["sine_table"],
-                              params["cos_table"])
+                              params["cos_table"], row_of_lane)
     return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]), m["rrc"])
 
 
@@ -470,7 +469,7 @@ def qpsk_bank_demod(params: dict, blocks: torch.Tensor):
     band-passed rows."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params, row_of_lane = qpsk_loop_inputs(params, blocks)
+    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks)
     i_d, q_d = qpsk_costas_lanes(x, lane_params, params["sine_table"],
                                  params["cos_table"], row_of_lane)
     L1 = x.shape[-1]
@@ -497,12 +496,12 @@ def mpsk_agc_inputs(params: dict, blocks: torch.Tensor):
     sweep hands over its B shared lanes with chain 0's AGC rows; any other
     bank all C*B lanes."""
     m = params["modem"]
-    x, x1, normals = _input_bpf(params, blocks)
-    if x1 is not None:
-        agc0 = {k: v[:1] for k, v in m["agc"].items()}
-        rows = agc_lane_params(agc0, normals[:1], 1, x1.shape[0])
-        return x1.contiguous(), rows.contiguous()
+    x, normals = _input_bpf(params, blocks)
     C, B, L1 = x.shape
+    if "pre_shared" in params:
+        agc0 = {k: v[:1] for k, v in m["agc"].items()}
+        rows = agc_lane_params(agc0, normals[:1], 1, B)
+        return x[0].contiguous(), rows.contiguous()
     rows = agc_lane_params(m["agc"], normals, C, B)
     return x.reshape(C * B, L1).contiguous(), rows.contiguous()
 
@@ -539,17 +538,10 @@ def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
     once (lane c*B + b reads row b), not C copies of them; any other bank
     its C*B rows."""
     real, imag = mpsk_analytic(params, blocks)
-    C, B, L2 = real.shape
-    if "pre_shared" in params:
-        real, imag = real[0], imag[0]
-        row_of_lane = torch.arange(B, dtype=torch.int32,
-                                   device=real.device).repeat(C)
-    else:
-        real, imag = real.reshape(C * B, L2), imag.reshape(C * B, L2)
-        row_of_lane = torch.arange(C * B, dtype=torch.int32,
-                                   device=real.device)
-    # contiguous rows: K6 copies whole 16-byte-aligned rows in bulk
-    real, imag = real.contiguous(), imag.contiguous()
+    C, B, _ = real.shape
+    shared = "pre_shared" in params
+    real, row_of_lane = _shared_rows(real, shared)
+    imag, _ = _shared_rows(imag, shared)
 
     def rep(leaf):
         return leaf.to(torch.float32).reshape(C).repeat_interleave(B)
@@ -849,8 +841,10 @@ def dispatch_bank(bank: Bank, plan: BlockPlan, audio: torch.Tensor,
 
 
 def sync_tolerance(bank: Bank) -> int:
-    """The bank's IL2P sync tolerance: the largest of its chains'."""
-    return max((c.codec.sync_tolerance for c in bank.specs), default=0)
+    """The bank's IL2P sync tolerance: the largest of its IL2P chains' (an
+    AX.25 chain has none)."""
+    return max((getattr(c.codec, "sync_tolerance", 0) for c in bank.specs
+                if c.codec.kind == "il2p"), default=0)
 
 
 def run_banked(chains: list[ChainSpec], audio: np.ndarray,
@@ -895,10 +889,12 @@ def host_codec_collect(bank: Bank, plan: BlockPlan, sync_tol: int, arrays):
                                                        sync_tol)
     results: dict[str, list] = {}
     for ci, chain in enumerate(bank.specs):
+        # only an IL2P chain's blocks need a sync candidate
+        skippable = chain.codec.kind == "il2p"
         packets = []
         for b in range(plan.n_blocks):
             n = int(count[ci, b])
-            if n == 0 or not has_cand[ci, b]:
+            if n == 0 or (skippable and not has_cand[ci, b]):
                 continue
             # addresses are 1-based within the block's demod range, which
             # starts at absolute index b*block_len - overlap

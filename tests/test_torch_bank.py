@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -18,7 +19,13 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from pymodem_tpu.config import ReportSpec, RunPlan, build_chain_spec
+from pymodem_tpu.config import (
+    AX25CodecSpec,
+    IL2PCodecSpec,
+    ReportSpec,
+    RunPlan,
+    build_chain_spec,
+)
 from pymodem_tpu.ops.crc import np_crc16
 from pymodem_tpu.runtime import bank as jbank
 from pymodem_tpu.synth import modulate as mod
@@ -165,6 +172,22 @@ def test_run_plan_banked_report_matches_jax(audio):
     assert got.reports == want.reports
     assert f"Unique, valid packets:  {len(sent)}\n" in got.reports[0]
     assert got.aggregate.count_bad() == 0
+
+
+def test_sync_tolerance_counts_il2p_chains_only():
+    """A bank's IL2P sync tolerance is the largest of its IL2P chains'; an
+    AX.25 chain has none and is left out: the JAX package's rule
+    (``_submit_banked``), on stand-in banks of both kinds of chain."""
+    il2p2 = replace(PAIR[0], codec=replace(PAIR[0].codec, sync_tolerance=2))
+    ax25 = replace(PAIR[1], codec=AX25CodecSpec(ident="ax25"))
+    cases = ([il2p2, ax25], [ax25, il2p2], [ax25], [PAIR[0], ax25],
+             [il2p2, PAIR[0]])
+    got = [tbank.sync_tolerance(SimpleNamespace(specs=specs))
+           for specs in cases]
+    want = [max((getattr(c.codec, "sync_tolerance", 0) for c in specs
+                 if isinstance(c.codec, IL2PCodecSpec)), default=0)
+            for specs in cases]
+    assert got == want == [2, 2, 0, 0, 2]
 
 
 def test_unported_chains_raise(audio):

@@ -87,29 +87,6 @@ def test_binary_slicer_kernel_matches_twin(cuda, window, lanes, rows, T):
     assert bool(((got & 0x100) != 0).any())
 
 
-def test_afsk_pll_kernel_matches_twin(cuda):
-    g = np.random.default_rng(1)
-    L, T = 200, 3000
-    t = np.arange(T) / 8000.0
-    x = 2.0 * np.sin(2 * np.pi * (1700.0 + g.uniform(-8, 8, (L, 1))) * t)
-    x = torch.from_numpy((x + 0.3 * g.standard_normal((L, T)))
-                         .astype(np.float32)).to(cuda)
-    rows = torch.tensor([2 * np.pi / 8000, 1700.0, 256 / (2 * np.pi), 0.0557,
-                         0.8886, 540.0, 900.0, 1e-4, 50.0, 0.0, 0.1, 0.01,
-                         1.0, 1.25e-4, 1.0], dtype=torch.float32)
-    lp = rows[:, None].repeat(1, L)
-    lp[1] += torch.linspace(-5, 5, L)
-    lp = lp.to(cuda).contiguous()
-    table = torch.from_numpy(tloops.nco_sine_table()).to(cuda)
-    before = tloops.afsk_pll_lanes.launches
-    got = tloops.afsk_pll_lanes(x, lp, table)
-    want = tloops.afsk_pll(x, lp, table)
-    torch.cuda.synchronize()
-    assert tloops.afsk_pll_lanes.launches == before + 1
-    assert torch.isfinite(got).all()
-    assert torch.equal(got, want)
-
-
 def _tables(device):
     return (torch.from_numpy(tloops.nco_sine_table()).to(device),
             torch.from_numpy(tloops.nco_cos_table()).to(device))
@@ -208,16 +185,103 @@ def test_agc_kernel_matches_twin(cuda, rows, T):
         assert torch.isfinite(got).all()
 
 
-def test_bpsk_costas_kernel_matches_twin(cuda):
-    x = _carrier(4, 200, 4000, cuda)
-    lp = _rows(_PLL_ROWS + _AGC_ROWS, 200, cuda, vary=1)
-    sine, cosine = _tables(cuda)
-    before = tloops.bpsk_costas_lanes.launches
-    got = tloops.bpsk_costas_lanes(x, lp, sine, cosine)
-    want = tloops.bpsk_costas(x, lp, sine, cosine)
+# K2 and K3: lanes on their own rows, as for K1 and K8, or 8 chains of 37
+# lanes on 37 shared rows (``row_of_lane``, a pre-shared bank)
+_LOOP_LANES = _SLICER_LANES + [(296, "shared")]
+_LOOP_LANE_IDS = _SLICER_LANE_IDS + ["8x37_shared_lanes"]
+# the AFSK-PLL "300" loop at 8 kHz (PLL_PARAMS order), then AGC rows
+_AFSK_PLL_ROWS = [2 * np.pi / 8000, 1700.0, 256 / (2 * np.pi), 0.0557,
+                  0.8886, 540.0, 900.0, 1e-4, 50.0, 0.0, 0.1, 0.01, 1.0,
+                  1.25e-4, 1.0]
+
+
+def _afsk(seed, L, T, device):
+    """(L, T) f32 noisy tones near 1700 Hz at 8 kHz, the PLL's input."""
+    g = np.random.default_rng(seed)
+    t = np.arange(T) / 8000.0
+    x = 2.0 * np.sin(2 * np.pi * (1700.0 + g.uniform(-8, 8, (L, 1))) * t)
+    return torch.from_numpy((x + 0.3 * g.standard_normal((L, T)))
+                            .astype(np.float32)).to(device)
+
+
+def _loop_inputs(kind, lanes, T, device, seed=1):
+    """K2 (``afsk_pll``) or K3 (``bpsk``) inputs for ``lanes`` lanes: rows
+    of the input and the 15 lane rows, the carrier varied across lanes."""
+    if kind == "afsk_pll":
+        return _afsk(seed, lanes, T, device), _rows(_AFSK_PLL_ROWS, lanes,
+                                                    device, vary=1)
+    return (_carrier(seed, lanes, T, device),
+            _rows(_PLL_ROWS + _AGC_ROWS, lanes, device, vary=1))
+
+
+def _loop_pair(kind, x, lp, row_of_lane=None):
+    """The kernel's and the twin's outputs, and the wrapper's launches."""
+    sine, cosine = _tables(x.device)
+    if kind == "afsk_pll":
+        fn = tloops.afsk_pll_lanes
+        before = fn.launches
+        got = fn(x, lp, sine, row_of_lane)
+        want = tloops.afsk_pll(x, lp, sine, row_of_lane)
+    else:
+        fn = tloops.bpsk_costas_lanes
+        before = fn.launches
+        got = fn(x, lp, sine, cosine, row_of_lane)
+        want = tloops.bpsk_costas(x, lp, sine, cosine, row_of_lane)
     torch.cuda.synchronize()
-    assert tloops.bpsk_costas_lanes.launches == before + 1
+    return got, want, fn.launches - before
+
+
+def _check_loop_kernel(kind, lanes, rows, T, device):
+    """K2 or K3 against its twin, bitwise: T a multiple of 4, or 3 tiles of
+    128 and 5; L not a multiple of 32; rows as they are, padded, strided
+    or shared."""
+    from pymodem_tpu_torch import _ext
+
+    row_of_lane = None
+    if rows == "shared":
+        x, lp = _loop_inputs(kind, 37, T, device)
+        lp = _loop_inputs(kind, lanes, T, device)[1]
+        row_of_lane = torch.arange(37, dtype=torch.int32,
+                                   device=device).repeat(lanes // 37)
+        aligned = T % 4 == 0
+    else:
+        x, lp = _loop_inputs(kind, lanes, T, device)
+        x, aligned = _staged(x, rows, T)
+    copies = _ext.lane_rows.copies
+    got, want, launched = _loop_pair(kind, x, lp, row_of_lane)
+    assert launched == 1
+    assert _ext.lane_rows.copies == copies + (not aligned)
+    assert got.shape == (lanes, T)
     assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("T", _T_EDGES)
+@pytest.mark.parametrize("lanes,rows", _LOOP_LANES, ids=_LOOP_LANE_IDS)
+def test_afsk_pll_kernel_matches_twin(cuda, lanes, rows, T):
+    _check_loop_kernel("afsk_pll", lanes, rows, T, cuda)
+
+
+@pytest.mark.parametrize("T", _T_EDGES)
+@pytest.mark.parametrize("lanes,rows", _LOOP_LANES, ids=_LOOP_LANE_IDS)
+def test_bpsk_costas_kernel_matches_twin(cuda, lanes, rows, T):
+    _check_loop_kernel("bpsk", lanes, rows, T, cuda)
+
+
+@pytest.mark.parametrize("kind", ["afsk_pll", "bpsk"])
+def test_coherent_loop_kernels_special_values(cuda, kind):
+    """K2 and K3 on an all-zero row (the envelope stays 0, x passes and the
+    outputs are 0), a row of -0.0, NaN, -0.0 and 0.0 sprinkled over rows
+    2-5, and rows scaled from 1e-40 (subnormal) to 1e30, whose loops run
+    away: kernel and twin agree bit for bit, NaN payloads included."""
+    L, T = 100, 3 * 128 + 5
+    x, lp = _loop_inputs(kind, L, T, cuda, seed=22)
+    scale = torch.logspace(-40, 30, L, dtype=torch.float64)
+    x = _special(x, 23) * scale.to(torch.float32).to(cuda)[:, None]
+    assert bool((x.abs() < 1.2e-38).logical_and(x != 0).any())  # subnormals
+    got, want, _ = _loop_pair(kind, x, lp)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[0] == 0).all())
+    assert bool(got.isnan().any())
 
 
 # the MPSK qpsk_2400 loop at 44.1 kHz (PLL_PARAMS order), pd_gain,
@@ -367,10 +431,9 @@ _FL_DEMAP = (2, 0, 3, 1)  # the four-level slicer's (slicer.py:297-308)
 
 
 def _four_level_twin(x, lp, window):
-    """K8's twin on the CPU, where the tests hold it against the JAX scan:
-    on the card torch divides by a Python scalar as a multiply by its
-    reciprocal, so the twin's |x| * 2 / 3 there is not the scan's (nor the
-    kernel's) on about a third of the samples."""
+    """K8's twin on the CPU, where the tests hold it against the JAX scan
+    (``test_four_level_twin_on_the_card_matches_cpu`` holds the twin on
+    the card equal to it)."""
     return tsl.four_level_slice(x.cpu(), lp.cpu(), _FL_DEMAP, window).to(
         x.device)
 
@@ -408,6 +471,24 @@ def test_four_level_slicer_kernel_matches_twin(cuda, window, lanes, rows, T):
     assert got.shape == (lanes, -(-T // window))
     assert torch.equal(got, want)
     assert float(_threshold_dibits(got).float().mean()) >= 0.9
+
+
+@pytest.mark.parametrize("window", [1, 16])
+def test_four_level_twin_on_the_card_matches_cpu(cuda, window):
+    """The twin on the card forms ``|x| * 2 / 3`` as the CPU twin does (a
+    division by a 0-d tensor on its device; torch on CUDA turns a division
+    by a CPU scalar into a multiply by the reciprocal, which rounds about
+    a third of the samples otherwise): equal outputs, bitwise, on 4FSK
+    lanes that hit the sync patterns, and equal ring values."""
+    x, lp = _four_level(24, 200, 3000, cuda)
+    got = tsl.four_level_slice(x, lp, _FL_DEMAP, window)
+    want = _four_level_twin(x, lp, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(_threshold_dibits(got).float().mean()) >= 0.9
+    three = torch.tensor(3.0, device=cuda)
+    assert torch.equal((x.abs() * 2.0 / three).cpu(),
+                       x.cpu().abs() * 2.0 / 3.0)
 
 
 @pytest.mark.parametrize("window", [1, 32])

@@ -28,7 +28,14 @@ fused at each step; it shows the cause exactly:
 f64 (no visible FMA effect): 1e-12 relative.  The AGC follower alone has no
 multiply-add and matches bitwise.  On the card K2 equals the twin bitwise
 (tests/test_torch_cuda.py, chip_smoke.py).
+
+Lanes may read shared input rows (``row_of_lane``, a pre-shared bank's B
+band-passed rows for its C chains): the twin on shared rows equals the
+same model on the rows copied out lane by lane, and the bank's basebands
+equal those of its C*B-row form.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -46,8 +53,10 @@ from pymodem_tpu.dsp.pallas_loops import (
     loop_lanes_pallas,
 )
 from pymodem_tpu_torch import modems as tmodems
+from pymodem_tpu_torch.config import build_chain_spec
 from pymodem_tpu_torch.dsp import agc as tagc
 from pymodem_tpu_torch.dsp import loops as tloops
+from pymodem_tpu_torch.runtime import bank as tbank
 
 C, B, T = 2, 3, 700
 AGC_FIELDS = ("scaled_attack", "scaled_decay", "sustain_time",
@@ -59,8 +68,10 @@ def _specs():
             for i in range(C)]
 
 
-def _case(rng, dtype):
-    """Inputs, loop and AGC constants of C chains x B blocks at ``dtype``."""
+def _case(rng, dtype, n_samples=T):
+    """Inputs, loop and AGC constants of C chains x B blocks of
+    ``n_samples`` at ``dtype``."""
+    T = n_samples
     specs = _specs()
     # a band-passed AFSK-like signal: mark/space tones 10 Hz apart around
     # the carriers, random symbols at 300 baud, plus noise -- the loop
@@ -208,6 +219,74 @@ def test_twin_matches_pallas_kernel(rng):
     np.testing.assert_array_equal(
         got, _reference(xl, rows.numpy(), table.numpy()))
     _assert_fused(want, xl, rows.numpy(), table.numpy(), PALLAS_FUSED)
+
+
+def test_twin_on_shared_rows_matches_pallas_kernel(rng):
+    """C chains on B shared rows (``row_of_lane``, lane c*B + b on row b),
+    T not a multiple of 4 or of 128: the twin equals the reference on the
+    rows copied out lane by lane, bitwise, and the Pallas kernel in
+    interpret mode fed those rows equals the reference with its fusions."""
+    n = 3 * 128 + 5
+    x, loop, agc, normals = _case(rng, np.float32, n)
+    rows = _port_rows(loop, agc, normals, np.float32)
+    shared = x[0]  # (B, n): every chain reads chain 0's rows
+    row_of_lane = np.tile(np.arange(B, dtype=np.int32), C)
+    expanded = np.ascontiguousarray(shared[row_of_lane])
+    table = _xla_sine_table()
+    got = tloops.afsk_pll_lanes(torch.from_numpy(shared), rows, table,
+                                torch.from_numpy(row_of_lane)).numpy()
+    assert got.shape == (C * B, n)
+    np.testing.assert_array_equal(
+        got, _reference(expanded, rows.numpy(), table.numpy()))
+    want = np.asarray(loop_lanes_pallas(
+        jnp.asarray(expanded), jnp.asarray(rows.numpy()), "afsk_pll",
+        wavetable_size=256, tc=256))
+    _assert_fused(want, expanded, rows.numpy(), table.numpy(), PALLAS_FUSED)
+
+
+def _pll_sweep_bank():
+    """A pre-shared 3-chain AFSK-PLL carrier sweep (chip_smoke's
+    ``pll_sweep8`` cut to 3 chains) and 3 random blocks for it."""
+    line = {
+        "object_name": "pll", "object_type": "demod_chain",
+        "modem": {"type": "afsk_pll", "config": "300", "options": {}},
+        "slicer": {"type": "binary", "config": "300", "options": {}},
+        "stream": {"type": "lfsr", "options": {"poly": "0x3",
+                                               "invert": "no"}},
+        "codec": {"type": "il2p", "options": {"crc": "yes"}},
+    }
+    base = build_chain_spec(8000.0, line)
+    chains = [replace(base, name=f"pll{i}",
+                      modem=replace(base.modem, carrier_freq=1696.0 + i))
+              for i in range(C)]
+    (bank,) = tbank.group_chains(chains, "cpu")
+    blocks = np.random.default_rng(7).standard_normal((B, 900)) * 1e3
+    return bank, torch.from_numpy(blocks.astype(np.float32))
+
+
+def test_pre_shared_bank_hands_k2_its_shared_rows():
+    """``coherent_loop_inputs`` on a pre-shared bank: its B band-passed rows
+    once, lane c*B + b on row b, and the 15 rows of all C*B lanes."""
+    bank, blocks = _pll_sweep_bank()
+    assert "pre_shared" in bank.params
+    x, rows, row_of_lane = tbank.coherent_loop_inputs(bank.params, blocks)
+    assert x.shape[0] == B and x.is_contiguous()
+    assert row_of_lane.dtype == torch.int32
+    assert row_of_lane.tolist() == list(range(B)) * C
+    assert rows.shape == (15, C * B)
+
+
+def test_pre_shared_bank_basebands_equal_copied_rows(monkeypatch):
+    """The bank's K2 basebands on its B shared rows equal, bitwise, those of
+    the C*B-row form (every lane on its own copy of its row)."""
+    bank, blocks = _pll_sweep_bank()
+    got = tbank.bank_basebands(bank, blocks)
+    shared_rows = tbank._shared_rows
+    monkeypatch.setattr(tbank, "_shared_rows",
+                        lambda x, shared: shared_rows(x, False))
+    want = tbank.bank_basebands(bank, blocks)
+    assert got.shape == want.shape and got.shape[:2] == (C, B)
+    assert torch.equal(got, want)
 
 
 def test_twin_matches_agc_then_pll_scan(rng):

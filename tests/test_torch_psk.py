@@ -151,7 +151,8 @@ def test_agc_twin_matches_pallas_and_scan_bitwise(rng):
 # ---------------------------------------------------------------------------
 
 
-def _bpsk_case(rng):
+def _bpsk_case(rng, n_samples=T):
+    T = n_samples
     specs = [BPSKModemSpec(sample_rate=RATE, carrier_freq=1500.0 + 3 * i)
              for i in range(C)]
     # +-1 symbols at 300 baud on the chains' carriers, plus noise: the loop
@@ -232,6 +233,68 @@ def test_bpsk_twin_matches_pallas_kernel(rng):
     _assert_fused((want,), lambda f: (_bpsk_reference(xl, rows, sine,
                                                       cosine, f),),
                   BPSK_FUSED)
+
+
+def test_bpsk_twin_on_shared_rows_matches_pallas_kernel(rng):
+    """C chains on B shared rows (``row_of_lane``, lane c*B + b on row b),
+    T not a multiple of 4 or of 128: the twin equals the reference on the
+    rows copied out lane by lane, bitwise, and the Pallas kernel in
+    interpret mode fed those rows equals the reference with its fusions."""
+    n = 3 * 128 + 5
+    x, _, _, _, rows = _bpsk_case(rng, n)
+    shared = x[0]  # (B, n): every chain reads chain 0's rows
+    row_of_lane = np.tile(np.arange(B, dtype=np.int32), C)
+    expanded = np.ascontiguousarray(shared[row_of_lane])
+    sine, cosine = _xla_tables()
+    got = tloops.bpsk_costas_lanes(
+        torch.from_numpy(shared), torch.from_numpy(rows),
+        torch.from_numpy(sine), torch.from_numpy(cosine),
+        torch.from_numpy(row_of_lane)).numpy()
+    assert got.shape == (C * B, n)
+    np.testing.assert_array_equal(
+        got, _bpsk_reference(expanded, rows, sine, cosine))
+    want = np.asarray(loop_lanes_pallas(
+        jnp.asarray(expanded), jnp.asarray(rows), "bpsk", wavetable_size=256,
+        tc=256))
+    _assert_fused((want,), lambda f: (_bpsk_reference(expanded, rows, sine,
+                                                      cosine, f),),
+                  BPSK_FUSED)
+
+
+def _bpsk_sweep_bank():
+    """A pre-shared 3-chain BPSK-1200 carrier sweep at 8 kHz (chip_smoke's
+    ``bpsk1200_sweep8`` cut to 3 chains) and 3 random blocks for it."""
+    base = build_chain_spec(RATE, LINES["bpsk"])
+    chains = [_variant(base, f"b{i}", carrier_freq=1500 + 0.25 * i)
+              for i in range(3)]
+    (bank,) = tbank.group_chains(chains, "cpu")
+    blocks = np.random.default_rng(8).standard_normal((B, 900)) * 1e3
+    return bank, torch.from_numpy(blocks.astype(np.float32))
+
+
+def test_pre_shared_bank_hands_k3_its_shared_rows():
+    """``coherent_loop_inputs`` on a pre-shared BPSK bank: its B band-passed
+    rows once, lane c*B + b on row b, and the 15 rows of all C*B lanes."""
+    bank, blocks = _bpsk_sweep_bank()
+    assert bank.kind == "bpsk" and "pre_shared" in bank.params
+    x, rows, row_of_lane = tbank.coherent_loop_inputs(bank.params, blocks)
+    assert x.shape[0] == B and x.is_contiguous()
+    assert row_of_lane.dtype == torch.int32
+    assert row_of_lane.tolist() == list(range(B)) * 3
+    assert rows.shape == (15, 3 * B)
+
+
+def test_pre_shared_bpsk_basebands_equal_copied_rows(monkeypatch):
+    """The bank's K3 basebands on its B shared rows equal, bitwise, those of
+    the C*B-row form (every lane on its own copy of its row)."""
+    bank, blocks = _bpsk_sweep_bank()
+    got = tbank.bank_basebands(bank, blocks)
+    shared_rows = tbank._shared_rows
+    monkeypatch.setattr(tbank, "_shared_rows",
+                        lambda x, shared: shared_rows(x, False))
+    want = tbank.bank_basebands(bank, blocks)
+    assert got.shape == want.shape and got.shape[:2] == (3, B)
+    assert torch.equal(got, want)
 
 
 def test_bpsk_twin_matches_agc_then_costas_scan(rng):

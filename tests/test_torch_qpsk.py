@@ -360,7 +360,7 @@ def test_group_chains_matches_convert(name):
     # K5's inputs: the pre-shared sweep's B rows (lane c*B + b on row b),
     # the pair's C*B; lane rows the loop's, the branch IIR's, the AGC's
     frames = torch.zeros(2, 4000)
-    x, rows, row_of_lane = tbank.qpsk_loop_inputs(tb.params, frames)
+    x, rows, row_of_lane = tbank.coherent_loop_inputs(tb.params, frames)
     n_chains = len(chains)
     assert rows.shape == (17, 2 * n_chains)
     assert torch.equal(rows[10], tb.params["branch_b0"].repeat_interleave(2))
