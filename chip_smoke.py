@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths on the host-codec route through
-``run_plan_banked`` and through its CLI, and holds every hand-written
-kernel (K1-K8) against its plain PyTorch twin:
+Drives the port's three main paths on the default route, the device IL2P
+codec, through ``run_plan_banked`` and through its CLI, holds the device
+codec's packets against the host codec's on the same arrays, and holds
+every hand-written kernel (K1-K8) against its plain PyTorch twin:
 
 * the AFSK path: the banked AFSK-300 IL2P+CRC decode of 600 s of 8 kHz
   int16 audio (kernels K1 binary slicer, K2 AFSK PLL + AGC);
@@ -38,9 +39,13 @@ Phases, each printing one line with its seconds:
 5. the AFSK path end to end, the kernels' launch counters set to 0 just
    before and read just after: the 64-chain space-gain sweep, the PLL
    inverted pair and the 8-chain PLL carrier sweep, each decoding every
-   synthesised frame, payload for payload, with no rejected packet; then a
-   warm rerun of each for wall time and chain-Msamples/s, and a split of
-   one run into device stages and host codec;
+   synthesised frame, payload for payload, with no rejected packet, and
+   its peak device memory beside the host-codec route's; then a warm rerun
+   of each for wall time and chain-Msamples/s, failing if it sends any
+   block to the host fallback; and a split of one run into device stages,
+   device codec with its readback, host packet build and the host codec on
+   the same ``dispatch_bank`` arrays, whose packets must equal the device
+   codec's;
 6. the CLI as a subprocess on a WAV and an AFSK JSONL config;
 7. K3 (on the BPSK sweep's shared rows, as K2 in 4), K4 (over the B
    shared lanes of the QPSK sweep and the C*B lanes of the MPSK pair), K6
@@ -51,13 +56,13 @@ Phases, each printing one line with its seconds:
    kernel timed at its full main-path shape with ns a step, the bound and
    its time before the redesign, K4 with its padded-row copy; K1 checked
    and timed as in 3 on the BPSK sweep's basebands;
-8. the PSK path end to end, counters set to 0 just before and read just
-   after (launches and padded-row copies per bank and per path):
+8. the PSK path end to end as in 5, counters set to 0 just before and read
+   just after (launches and padded-row copies per bank and per path):
    ``bpsk1200_sweep8`` (8 ``bpsk`` chains, carriers 1500 + 0.25 i Hz),
    ``qpsk2400_sweep8`` (8 ``mpsk`` qpsk_2400 chains, the same carriers,
    pre-shared) and ``mpsk_bpsk1200_pair`` (2 ``mpsk`` bpsk_1200 chains, AGC
    attack 500 and 400, not shared), each decoding every frame with none
-   rejected; warm reruns, splits and peak device memory;
+   rejected;
 9. the CLI as a subprocess on a WAV and a QPSK-2400 JSONL config;
 10. K8 (windows 1 and the bank's) and K5 against their twins on the
     banks' own inputs (all lanes, the two slices of K4; K5 on the bank's
@@ -66,16 +71,19 @@ Phases, each printing one line with its seconds:
     bitwise; each kernel timed at its full main-path shape with ns a step,
     the bound, its padded-row copy and its time before the redesign; K1
     checked and timed as in 3 on the FSK-9600 sweep's basebands;
-11. the FSK and Costas-QPSK path end to end, counters set to 0 just before
-    and read just after (launches and padded-row copies as in 8):
+11. the FSK and Costas-QPSK path end to end as in 5 and 8:
     ``fsk9600_sweep8`` (8 ``fsk`` "9600" chains at 96 kHz, input cutoffs
     6000 + 5 i Hz, binary slicer, G3RUH scrambler),
     ``fsk4_9600_sweep8`` (8 ``fsk`` "4800" chains at 48 kHz, cutoffs
     3000 + 5 i Hz, four-level slicer at 4800 Bd) and
     ``qpsk_costas2400_sweep8`` (8 ``qpsk`` "2400" chains at 44.1 kHz,
     carriers 1800 + 0.25 i Hz, pre-shared), every chain decoding every
-    frame, none rejected; warm reruns, splits and peak device memory;
-12. the CLI as a subprocess on a WAV and a 4FSK JSONL config.
+    frame, none rejected; and a ``torch.profiler`` trace of
+    ``fsk9600_sweep8``'s device codec (top operations, kernel launches);
+12. the CLI as a subprocess on a WAV and a 4FSK JSONL config;
+13. the device codec forced up its escalation ladder on the card (2
+    packet slots a block, 64 candidate slots) on dense AFSK-1200 traffic:
+    every frame, packets equal to a roomy run's.
 
 Every bank must launch each kernel of its family at least once in its
 main-path run, or the script fails.
@@ -129,10 +137,16 @@ K5_BEFORE_MS = 147.222
 K6_BEFORE_MS = 130.771
 K7_BEFORE_MS = 68.236
 K8_BEFORE_MS = 109.962
-# peak device memory of the pre-shared K2 and K3 banks while their loop
-# inputs were C copies of the B shared rows (PERF.md, PR 6 run, GiB)
-PEAK_BEFORE_GIB = {"pll_pair": 0.38, "pll_sweep8": 1.26,
-                   "bpsk1200_sweep8": 7.47}
+# peak device memory of each bank on the host-codec route, before the
+# device codec (PERF.md, GiB)
+PEAK_HOST_ROUTE_GIB = {
+    "sweep64": 3.03, "pll_pair": 0.35, "pll_sweep8": 1.09,
+    "bpsk1200_sweep8": 6.55, "qpsk2400_sweep8": 8.85,
+    "mpsk_bpsk1200_pair": 2.86, "fsk9600_sweep8": 5.13,
+    "fsk4_9600_sweep8": 4.74, "qpsk_costas2400_sweep8": 7.77}
+# the forced-escalation phase's first budgets (tests/test_bank_runtime.py's
+# forced case): 2 packet slots a block and 64 candidate slots, fixed
+FORCED_BUDGETS = dict(max_packets_per_block=2, total_candidates=64)
 SEED = 20261016
 # the H100 SXM's published peaks at its full 700 W:
 # HBM bytes/s and float32 operations/s outside the tensor cores
@@ -322,6 +336,36 @@ def _family_audio(chain, rate):
     return list(sent) * reps, np.tile(seg, reps), len(seg), mps
 
 
+def _dense_afsk1200():
+    """(chain, payloads, audio): 12 IL2P frames of 24 bytes 200 idle bits
+    apart at 1200 Bd, 8 kHz, ~6 frames in each 3.5 s block window -- the
+    dense traffic of tests/test_bank_runtime.py's forced-escalation case."""
+    import numpy as np
+
+    from pymodem_tpu_torch.config import (
+        AFSKModemSpec,
+        BinarySlicerSpec,
+        ChainSpec,
+        IL2PCodecSpec,
+        LFSRStreamSpec,
+    )
+    from pymodem_tpu_torch.synth import fixtures as fx
+    from pymodem_tpu_torch.synth import modulate as mod
+
+    rng = np.random.default_rng(SEED)
+    sent = fx.payloads(rng, count=12, size=24)
+    line = fx.il2p_line_bits(sent, polynomial=0x3, invert=False,
+                             gap_bits=200)
+    chain = ChainSpec(
+        name="dense", modem=AFSKModemSpec(sample_rate=float(RATE)),
+        slicer=BinarySlicerSpec(sample_rate=float(RATE), symbol_rate=1200.0,
+                                lock_rate=0.75),
+        stream=LFSRStreamSpec(polynomial=0x3, invert=False),
+        codec=IL2PCodecSpec(ident="dense"))
+    audio = mod.afsk_modulate(line, float(RATE), 1200.0, 1200.0, 2200.0)
+    return chain, [bytes(p) for p in sent], np.asarray(audio, np.float32)
+
+
 def _time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
     import torch
@@ -494,6 +538,79 @@ def _check_basebands(bank, cpu_bank, frames, basebands) -> None:
     raise AssertionError("device basebands disagree with the CPU")
 
 
+def _packet_rows(by_name) -> dict:
+    return {name: [(int(p.streamaddress), bytes(p.data),
+                    int(p.bytes_corrected)) for p in pkts]
+            for name, pkts in by_name.items()}
+
+
+def _same_packets(name, got, want) -> None:
+    """Raise unless two routes' {chain: packets} are equal (address,
+    bytes, corrections); print the first differences of each chain."""
+    got, want = _packet_rows(got), _packet_rows(want)
+    if got == want:
+        return
+    for chain in sorted(set(got) | set(want)):
+        a, b = set(got.get(chain, [])), set(want.get(chain, []))
+        if a != b:
+            print(f"  {name} {chain}: device route only "
+                  f"{sorted(a - b)[:3]}, host route only {sorted(b - a)[:3]}")
+    raise AssertionError(f"bank {name}: the device codec's packets differ "
+                         f"from the host codec's on the same arrays")
+
+
+def _profile_summary(events) -> tuple:
+    """(kernel launches, kernels run, kernel ms, top operations) of a
+    torch.profiler ``key_averages()``: kernel time summed over the device
+    rows only (an operator row repeats its kernels' time), the operators
+    ranked by the device time of the kernels each launched itself."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events
+           if e.device_type != DeviceType.CUDA and dev_us(e) > 0]
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunch"))
+    top = [(dev_us(e) / 1e3, e.count, e.key)
+           for e in sorted(ops, key=dev_us, reverse=True)[:10]]
+    return (launches, sum(e.count for e in kernels),
+            sum(dev_us(e) for e in kernels) / 1e3, top)
+
+
+def _profile_codec(name, bank, plan, groups, arrays) -> None:
+    """One torch.profiler trace of the bank's device codec (budgets
+    cached): kernel launches, kernel time, and the operators whose kernels
+    took the most device time.  The trace is a measurement aid: if the
+    profiler cannot trace the card, it says so and the run goes on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pymodem_tpu_torch.runtime import bank as tbank
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            tbank._device_codec_submit_mixed(bank, plan, groups, *arrays, 8,
+                                             None)()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches, n_kernels, kernel_ms, top = _profile_summary(
+            prof.key_averages())
+    except Exception as exc:  # noqa: BLE001 - the trace is optional
+        print(f"bank {name} codec profile: not traced ({exc!r})")
+        return
+    print(f"bank {name} codec profile (torch.profiler): {launches} kernel "
+          f"launches, {n_kernels} kernels, {kernel_ms:.3f} ms of kernel "
+          f"time in a {wall:.3f} s call (traced); operators by their "
+          f"kernels' device time:")
+    for ms, count, key in top:
+        print(f"  {ms:9.3f} ms {count:6d} x {key[:80]}")
+
+
 def _cli(cfg_lines, wav, rate, audio, expected: int) -> str:
     """Run the CLI as a subprocess on ``audio`` and a JSONL config made of
     ``cfg_lines`` plus a report; raises unless it exits 0 and reports
@@ -531,7 +648,7 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from pymodem_tpu_torch import _ext
+    from pymodem_tpu_torch import _ext, profiling
     from pymodem_tpu_torch.config import ReportSpec, RunPlan
     from pymodem_tpu_torch.device import resolve
     from pymodem_tpu_torch.dsp.agc import agc_follower, agc_lanes
@@ -737,48 +854,90 @@ def main() -> int:
             samples = len(chains) * plan_.n_blocks * plan_.block_input_len
             launched = {k: fn.launches - before[k]
                         for k, fn in kernels_of[name].items()}
-            peak_before = PEAK_BEFORE_GIB.get(name)
             print(f"bank {name}: {len(audios[name][0])} frames decoded, 0 "
                   f"rejected; launches {launched}, padded-row copies "
                   f"{copies}; peak device memory {peak / 2**30:.2f} GiB, "
                   f"{peak / samples:.1f} bytes per chain-sample (budgeted "
-                  f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]})"
-                  + (f", {peak_before} GiB when K2 and K3 read C copies of "
-                     f"the shared rows (PR 6)" if peak_before else "")
-                  + f" [{smi}]")
+                  f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]}); host-codec "
+                  f"route: {PEAK_HOST_ROUTE_GIB[name]} GiB [{smi}]")
 
-    def report_banks(bank_chains, audios, rate_of, mps_of, seconds_of):
-        """Warm rerun of each bank (rate, chains decoding), then a split
-        of one run into device stages and host codec."""
+    def report_banks(bank_chains, audios, rate_of, mps_of, seconds_of,
+                     profile_codec=()):
+        """Warm rerun of each bank (rate, chains decoding; no block may go
+        to the host fallback), then a split of one run into device stages,
+        device codec with its readback (and its stages), host packet
+        build, the aggregate (validate, correlate, reports) and, for
+        comparison, the host codec on the same arrays, whose packets must
+        equal the device codec's.  Banks in ``profile_codec`` also get a
+        torch.profiler trace of their device codec."""
         for name, chains in bank_chains.items():
             plan_ = RunPlan(chains=tuple(chains), reports=reports)
+            profiling.reset()
+            profiling.enable(True)
             t1 = time.time()
             result = run(plan_, audios[name][1], rate_of[name], mps_of[name])
             wall = time.time() - t1
+            profiling.enable(False)
+            counts = profiling.counts()
             _check_bank(name, result, audios[name][0])
+            if counts.get("packet_fallback_blocks", 0):
+                raise AssertionError(
+                    f"bank {name}: the warm run sent "
+                    f"{counts['packet_fallback_blocks']} blocks to the host "
+                    f"fallback ({counts})")
             msps = len(chains) * len(audios[name][1]) / wall / 1e6
-            # chains that decoded packets: the host codec's work scales
-            # with them
+            # chains that decoded packets: the packet build scales with them
             decoding = len(result.aggregate.decoder_histogram)
             print(f"bank {name}: {len(chains)} chains x "
                   f"{seconds_of[name]:.1f} s, {decoding} of them decoding "
                   f"packets, warm wall {wall:.3f} s, {msps:.1f} "
-                  f"chain-Msamples/s [{smi}]")
+                  f"chain-Msamples/s, device codec route, escalations "
+                  f"{counts.get('device_codec_escalate', 0)}, fallback blocks "
+                  f"0 [{smi}]")
         for name, chains in bank_chains.items():
             bank_ = tbank.group_chains(chains, dev)[0]
             wave = torch.from_numpy(audios[name][1]).to(dev)
             plan_ = tbank.bank_plan(bank_, len(wave),
                                     max_packet_seconds=mps_of[name])
             tol = tbank.sync_tolerance(bank_)
+            groups = tbank._codec_subgroups(bank_)
             t1 = time.time()
             arrays = tbank.dispatch_bank(bank_, plan_, wave, tol)
             torch.cuda.synchronize()
             t2 = time.time()
-            tbank.host_codec_collect(bank_, plan_, tol, arrays)
+            profiling.reset()
+            profiling.enable(True)
+            dev_pkts = tbank._device_codec_submit_mixed(
+                bank_, plan_, groups, *arrays, 8, None)()
             t3 = time.time()
+            profiling.enable(False)
+            stages, counts = profiling.stages(), profiling.counts()
+            tbank._finish_plan(RunPlan(chains=tuple(chains),
+                                       reports=reports), dev_pkts,
+                               rate_of[name])
+            t4 = time.time()
+            host_pkts = tbank.host_codec_collect(bank_, plan_, tol, arrays)
+            t5 = time.time()
+            build = stages.get("packet_objects", 0.0)
+            codec_stages = ", ".join(
+                f"{k.replace('device_codec_', '')} {v:.3f}"
+                for k, v in stages.items()
+                if k.startswith(("device_codec", "codec_", "candidate")))
             print(f"bank {name} split: {plan_.n_blocks} blocks x "
                   f"{plan_.block_input_len} samples, device stages "
-                  f"{t2 - t1:.3f} s, host codec {t3 - t2:.3f} s")
+                  f"{t2 - t1:.3f} s, device codec with readback "
+                  f"{t3 - t2 - build:.3f} s ({codec_stages}), host packet "
+                  f"build {build:.3f} s, aggregate {t4 - t3:.3f} s, host "
+                  f"codec (for comparison) {t5 - t4:.3f} s; escalations "
+                  f"{counts.get('device_codec_escalate', 0)}, fallback "
+                  f"blocks {counts.get('packet_fallback_blocks', 0)} [{smi}]")
+            _same_packets(name, dev_pkts, host_pkts)
+            if counts.get("packet_fallback_blocks", 0):
+                raise AssertionError(f"bank {name}: a warm run sent blocks "
+                                     f"to the host fallback ({counts})")
+            if name in profile_codec:
+                _profile_codec(name, bank_, plan_, groups, arrays)
+            del arrays
 
     afsk_audio = {name: (expected, audio) for name in banks}
     afsk_mps = {name: MAX_PACKET_SECONDS for name in banks}
@@ -1129,7 +1288,8 @@ def main() -> int:
           f"copies for K1, K5, K7 and K8 {_ext.lane_rows.copies}")
     report_banks(fsk_chains, fsk_audio, fsk_rate, fsk_mps,
                  {name: len(a[1]) / fsk_rate[name]
-                  for name, a in fsk_audio.items()})
+                  for name, a in fsk_audio.items()},
+                 profile_codec=("fsk9600_sweep8",))
     _phase(11, "FSK and Costas-QPSK path end to end", t0)
 
     # 12. the CLI on a 4FSK config
@@ -1140,6 +1300,28 @@ def main() -> int:
                 faudio[: n_seg * seg_len], 3 * n_seg)
     print(f"CLI: {line}, exit 0")
     _phase(12, "CLI subprocess (4FSK 9600)", t0)
+
+    # 13. forced escalation of the device codec on the card
+    t0 = time.time()
+    chain, sent, dense = _dense_afsk1200()
+    geom = dict(block_seconds=2.0, overlap_seconds=1.5, device=dev)
+    roomy = tbank.run_banked([chain], dense, max_packets_per_block=16,
+                             **geom)
+    profiling.reset()
+    profiling.enable(True)
+    forced = tbank.run_banked([chain], dense, **FORCED_BUDGETS, **geom)
+    profiling.enable(False)
+    counts = profiling.counts()
+    _same_packets("dense AFSK-1200 (forced escalation)", forced, roomy)
+    got = [bytes(p.data[16:-2]) for p in forced[chain.name]]
+    if counts.get("device_codec_escalate", 0) < 1 or got != sent:
+        raise AssertionError(f"forced escalation: {counts}; {len(got)} of "
+                             f"{len(sent)} frames")
+    print(f"forced escalation on {len(sent)} dense AFSK-1200 frames, "
+          f"{FORCED_BUDGETS}: every frame, packets equal to the roomy run's"
+          f"; escalations {counts['device_codec_escalate']}, fallback "
+          f"blocks {counts.get('packet_fallback_blocks', 0)}")
+    _phase(13, "forced escalation == roomy run", t0)
 
     for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]
                            + fsk_launches["K1"]),

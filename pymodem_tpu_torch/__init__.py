@@ -6,11 +6,12 @@ PyTorch; every Pallas kernel of the JAX package (K1-K8) is a hand-written
 CUDA kernel for Hopper (``csrc/``), built at first use, with a plain
 PyTorch twin beside its wrapper.  The package imports no JAX.
 
-Slice carried so far: the banked IL2P+CRC decode on the host-codec route
-(``runtime/bank.run_banked(codec="host")``, ``run_plan_banked``, the CLI)
-for every modem family (``afsk``, ``afsk_pll``, ``bpsk``, ``qpsk``,
-``mpsk``, ``fsk``) with the binary, quadrature and four-level slicers.
-Not yet ported: the device IL2P codec, AX.25, float64 parity mode, the
+Slice carried so far: the banked IL2P+CRC decode (``runtime/bank.run_banked``,
+``run_plan_banked``, the CLI) for every modem family (``afsk``,
+``afsk_pll``, ``bpsk``, ``qpsk``, ``mpsk``, ``fsk``) with the binary,
+quadrature and four-level slicers, on the device IL2P codec route (the
+default, ``codecs/il2p_device.py``) or the host state machines
+(``codec="host"``).  Not yet ported: AX.25, float64 parity mode, the
 sequential executor, streaming and serving, multi-GPU.
 """
 

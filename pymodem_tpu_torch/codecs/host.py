@@ -6,7 +6,7 @@ mirrors of the reference FSMs run on the host in the port's banked
 host-codec route, fed by the device-computed byte streams and sync
 candidate maps.  Codec input is tiny (the slicer emits ~1 byte per 8
 symbols), so host execution costs microseconds per block.  The AX.25
-deframer is not carried yet (ROADMAP Queue 1 item 12).
+deframer is not carried yet (ROADMAP Queue 1, AX.25).
 
 IL2P codec semantics (reference il2p.py:109-519): see Il2pDecoder below.
 """

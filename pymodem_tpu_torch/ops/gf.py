@@ -1,6 +1,7 @@
-"""GF(2^m) arithmetic via log/antilog tables: the host half.
+"""GF(2^m) arithmetic via log/antilog tables, on the host and the device.
 
-Re-homed numpy copy of ``pymodem_tpu.ops.gf``'s host functions.  The
+Port of ``pymodem_tpu.ops.gf``: numpy copies of its host functions, and
+its device tables and table multiply on torch tensors.  The
 reference builds its field tables with a downward-stepping Galois LFSR
 (gf_functions.py:47-66), which is exactly the standard antilog table for the
 field generated by x over the primitive polynomial.  Two reference quirks
@@ -16,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -62,3 +64,17 @@ def np_poly_mul(gf: GFTables, p: np.ndarray, q: np.ndarray) -> np.ndarray:
     for i, pi in enumerate(p):
         out[i : i + len(q)] ^= np_gf_mul(gf, pi, q)
     return out
+
+
+def torch_tables(gf: GFTables, device=None):
+    """The (antilog, log, inverse) tables as int64 tensors on ``device``
+    (the counterpart of the JAX package's ``jnp_tables``; int64, torch's
+    index type, holds the same values)."""
+    return tuple(torch.from_numpy(t.astype(np.int64)).to(device)
+                 for t in (gf.antilog, gf.log, gf.inverse))
+
+
+def gf_mul(antilog, log, a, b, order: int = 256):
+    """Elementwise GF multiply on integer tensors (table lookups)."""
+    prod = antilog[(log[a] + log[b]) % (order - 1)]
+    return torch.where((a == 0) | (b == 0), 0, prod)

@@ -43,6 +43,38 @@ def _byte_shift_right(d: torch.Tensor, j: int) -> torch.Tensor:
     return hi | lo
 
 
+def _seed_bytes(seed: int, n_bytes: int) -> np.ndarray:
+    """MSB-first packing of the seed's shift-out bits (bit i of the seed
+    leaves the register at stream time i)."""
+    n_bits = min(n_bytes * 8, seed.bit_length())
+    bits = np.zeros(n_bytes * 8, dtype=np.uint8)
+    for i in range(n_bits):
+        bits[i] = (seed >> i) & 1
+    return np.packbits(bits)
+
+
+def descramble_bytes(data: torch.Tensor, polynomial: int,
+                     invert: bool = False, seed: int = 0) -> torch.Tensor:
+    """Descramble a uint8 byte stream along its last axis (free-running
+    across the whole stream), as LFSR.stream_unscramble_8bit
+    (lfsr.py:22-52): MSB-first bit order, shift register initialised to
+    ``seed`` (0x1F0 for IL2P block unscrambling, il2p.py:161), optional
+    output invert."""
+    d = data.to(torch.uint8)
+    out = torch.zeros_like(d)
+    for j in poly_tap_positions(polynomial):
+        out = out ^ _byte_shift_right(d, j)
+    if seed:
+        n = d.shape[-1]
+        pad = np.zeros(n, dtype=np.uint8)
+        sb = _seed_bytes(seed, n)
+        pad[: sb.shape[0]] = sb
+        out = out ^ torch.from_numpy(pad).to(d.device)
+    if invert:
+        out = out ^ 0xFF
+    return out
+
+
 def descramble_bytes_multi(data: torch.Tensor, polys: tuple[int, ...],
                            inverts: tuple[bool, ...]) -> torch.Tensor:
     """Per-chain descramble over a stacked (C, ..., K) byte stream.

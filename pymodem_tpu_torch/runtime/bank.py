@@ -1,9 +1,9 @@
-"""Banked, block-parallel chain execution on one GPU: the host-codec route.
+"""Banked, block-parallel chain execution on one GPU.
 
 Port of the parts of ``pymodem_tpu.runtime.bank`` that the IL2P decode of
 every modem family (``afsk``, ``afsk_pll``, ``bpsk``, ``qpsk``, ``mpsk``,
-``fsk``) runs on ``run_banked(codec="host")``, with the binary, quadrature
-and four-level slicers:
+``fsk``) runs on ``run_banked``, with the binary, quadrature and
+four-level slicers:
 
 * **Chain bank axis**: chains with the same static structure (modem family
   and parameter shapes, slicer, rates) stack into one bank, whose
@@ -21,19 +21,31 @@ modem demod (FIRs on the ``dsp/fir.py`` engines, the whole of the ``fsk``
 demod; the carrier loops as kernels K2 ``afsk_pll``, K3 ``bpsk``, K5
 ``qpsk`` and K6 ``mpsk``, the MPSK AGC as K4), the slicer (K1 binary, K7
 quadrature, K8 four-level), compaction,
-``descramble_bytes_multi`` and ``il2p_sync_candidates``.  The byte streams
-and sync maps then come back to the host, where the reference-exact IL2P
-state machines decode each block (``codecs/host.py``), and
-``PacketAggregate`` correlates and reports.
+``descramble_bytes_multi`` and ``il2p_sync_candidates``.  Then one of two
+codec routes:
+
+* ``codec="device"`` (the default, as in the JAX package): the IL2P codec
+  runs on the same device (``codecs/il2p_device.py``, one call per codec
+  sub-group of chains), compacts its packets into one buffer and reads it
+  back once; budgets that overflow escalate on the device, and only blocks
+  still saturated after that go to the host state machines.
+* ``codec="host"``: the byte streams and sync maps come back to the host,
+  where the reference-exact IL2P state machines decode each block
+  (``codecs/host.py``).
+
+``PacketAggregate`` then correlates and reports.
 
 Deliberate differences from the JAX package: float32 only; no sequential
-executor, so a failing bank raises instead of being retried on the CPU;
-the device IL2P codec is not ported yet (ROADMAP Queue 1 item 8); block
-geometry drops the TPU lane-tile snapping of ``plan_bank_run``.
+executor, so a failing bank raises instead of being retried on the CPU
+(ROADMAP Queue 1, "the sequential executor"); no AX.25 codec on either
+route (Queue 1, "AX.25"); block geometry drops the TPU lane-tile snapping
+of ``plan_bank_run``, and the device codec route drops its TPU tiling and
+per-group pipelining.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -66,7 +78,7 @@ from ..ops.slicers import (
     quadrature_slice_lanes,
     safe_compact_window,
 )
-from ..ops.sync import il2p_sync_candidates, pack_bits
+from ..ops.sync import _POPCOUNT8, il2p_sync_candidates, pack_bits
 
 # ---------------------------------------------------------------------------
 # Block plan
@@ -169,7 +181,7 @@ def check_chain_supported(chain: ChainSpec) -> None:
     if chain.codec.kind != "il2p":
         raise NotImplementedError(
             f"chain {chain.name!r}: codec {chain.codec.kind!r} is not ported "
-            "yet (ROADMAP Queue 1 item 12)")
+            "yet (ROADMAP Queue 1, AX.25)")
 
 
 def _modem_geometry(kind: str, p) -> tuple[int, int, int]:
@@ -849,19 +861,26 @@ def sync_tolerance(bank: Bank) -> int:
 
 def run_banked(chains: list[ChainSpec], audio: np.ndarray,
                block_seconds: float | str = "auto",
-               overlap_seconds: float | str = "auto", codec: str = "host",
+               overlap_seconds: float | str = "auto", codec: str = "device",
+               max_packets_per_block: int = 8,
+               total_candidates: int | None = None,
                max_packet_seconds: float | None = None,
                device: str | torch.device = "cuda") -> dict[str, list]:
     """Decode a chain list over one recording; returns {chain_name:
     [Packet]}, each packet attributed to exactly one block.
 
     ``audio`` is int16 (the WAV wire type, framed before the float32 cast)
-    or float.  Only ``codec="host"`` is ported: the device stages run on
-    ``device`` and the IL2P state machines on the host."""
-    if codec != "host":
-        raise NotImplementedError(
-            f"codec={codec!r}: the device IL2P codec is not ported yet "
-            "(ROADMAP Queue 1 item 8); use codec='host'")
+    or float.  The device stages run on ``device``.  ``codec="device"``
+    (the default, as in the JAX package) decodes IL2P on the same device
+    (``il2p_decode_blocks``), reads back one packed buffer per codec
+    sub-group and runs the host state machines only for blocks whose
+    budgets still overflow after escalation; ``max_packets_per_block`` and
+    ``total_candidates`` are its first packet-slot and candidate budgets
+    (None: sized from the sync map).  ``codec="host"`` reads the byte
+    streams back and runs the reference-exact state machines on every
+    block with a sync candidate."""
+    if codec not in ("device", "host"):
+        raise ValueError(f"codec={codec!r}: expected 'device' or 'host'")
     dev = resolve(device)
     wire = np.asarray(audio)
     if wire.dtype not in (np.int16, np.float32):
@@ -873,16 +892,25 @@ def run_banked(chains: list[ChainSpec], audio: np.ndarray,
                          max_packet_seconds)
         tol = sync_tolerance(bank)
         arrays = dispatch_bank(bank, plan, audio_t, tol)
-        results.update(host_codec_collect(bank, plan, tol, arrays))
+        groups = _codec_subgroups(bank) if codec == "device" else None
+        if groups is not None:
+            collect = _device_codec_submit_mixed(
+                bank, plan, groups, *arrays, max_packets_per_block,
+                total_candidates)
+            results.update(collect())
+        else:
+            results.update(host_codec_collect(bank, plan, tol, arrays))
     return results
 
 
 def host_codec_collect(bank: Bank, plan: BlockPlan, sync_tol: int, arrays):
     """Read a bank's byte streams back and run the reference-exact IL2P
     state machines per block, keeping packets inside each block's range."""
+    from .. import profiling
     from ..codecs.host import il2p_seeded_sync_any
 
-    data, addr, count, sync = (t.cpu().numpy() for t in arrays)
+    with profiling.timed("transfer"):
+        data, addr, count, sync = (t.cpu().numpy() for t in arrays)
     # a block without any sync candidate (and no possible seeded-history
     # sync in its first 32 bits) emits nothing
     has_cand = sync.any(axis=2) | il2p_seeded_sync_any(data[:, :, :4],
@@ -899,9 +927,10 @@ def host_codec_collect(bank: Bank, plan: BlockPlan, sync_tol: int, arrays):
             # addresses are 1-based within the block's demod range, which
             # starts at absolute index b*block_len - overlap
             offset = b * plan.block_len - plan.overlap
-            pkts = host_decode_block(
-                chain, data[ci, b, :n].astype(np.int64),
-                addr[ci, b, :n].astype(np.int64) + offset, sync[ci, b])
+            with profiling.timed("host_codec"):
+                pkts = host_decode_block(
+                    chain, data[ci, b, :n].astype(np.int64),
+                    addr[ci, b, :n].astype(np.int64) + offset, sync[ci, b])
             lo, hi = plan.keep_range(b)
             packets.extend(p for p in pkts if lo < p.streamaddress <= hi)
         results[chain.name] = _dedup_block_boundary(packets, chain)
@@ -953,14 +982,568 @@ def _dedup_block_boundary(packets, chain):
     return deduped
 
 
+# ---------------------------------------------------------------------------
+# Device IL2P codec route
+# ---------------------------------------------------------------------------
+
+
+def bank_codec_step(codec_kind: str, data, addr, count, sync, plan: BlockPlan,
+                    max_packets: int = 8, collect_crc: bool = True,
+                    disable_rs: bool = False, min_distance: int = 0,
+                    total_candidates: int | None = None,
+                    total_rs_blocks: int | None = None,
+                    scan_cap: int = 64, rs_fail_frac: int | None = 2,
+                    max_payload: int = 1023) -> dict:
+    """The device codec over dispatch_bank outputs: (C, B, cap) byte streams
+    -> fixed-capacity packet buffers (C, B, max_packets, ...).
+
+    Absolute stream addresses are formed on the device (block b's demod
+    range starts at b*block_len - overlap), and each block's keep window
+    (plan.keep_range) applies on the device, so halo duplicates never reach
+    the packed readback; the host filter stays as an idempotent guard.
+    IL2P only: the AX.25 device codec is not ported."""
+    from ..codecs.il2p_device import il2p_decode_blocks
+
+    if codec_kind != "il2p":
+        raise NotImplementedError(
+            f"device codec {codec_kind!r} is not ported (ROADMAP Queue 1, "
+            "AX.25)")
+    n_blocks = data.shape[1]
+    offsets = (torch.arange(n_blocks, dtype=torch.int32, device=data.device)
+               * plan.block_len - plan.overlap)
+    addr_abs = addr + offsets[None, :, None]
+    out = il2p_decode_blocks(
+        data.to(torch.uint8), sync, count, addr_abs,
+        max_packets=max_packets, collect_crc=collect_crc,
+        disable_rs=disable_rs, min_distance=min_distance,
+        total_candidates=total_candidates, total_rs_blocks=total_rs_blocks,
+        scan_cap=scan_cap, rs_fail_frac=rs_fail_frac,
+        max_payload=max_payload,
+    )
+    lo = (torch.arange(n_blocks, device=data.device)
+          * plan.block_len)[None, :, None]
+    hi = (lo + plan.block_len).clamp(max=plan.n_demod)
+    out["ok"] = out["ok"] & (out["address"] > lo) & (out["address"] <= hi)
+    return out
+
+
+def _codec_static_key(codec):
+    """Static (kind, options) of one chain's device codec, or None when the
+    port has no device implementation for the codec type (AX.25)."""
+    if codec.kind == "il2p":
+        return ("il2p", codec.collect_trailing_crc, codec.disable_rs,
+                codec.min_distance, codec.sync_tolerance)
+    return None
+
+
+def _codec_subgroups(bank: Bank):
+    """[(codec_key, chain_index_list)] in config order, or None when some
+    chain's codec has no device implementation.  A bank mixing codec
+    options runs one device codec per sub-group of chains."""
+    order: list[tuple] = []
+    groups: dict[tuple, list[int]] = {}
+    for i, c in enumerate(bank.specs):
+        key = _codec_static_key(c.codec)
+        if key is None:
+            return None
+        if key not in groups:
+            groups[key] = []
+            order.append(key)
+        groups[key].append(i)
+    return [(k, groups[k]) for k in order]
+
+
+def _bank_chain_subset(bank: Bank, idxs: list[int]) -> Bank:
+    """A chain-index view of the bank for the codec and packet stage (which
+    reads only specs and the per-chain stream settings, never params)."""
+    from dataclasses import replace as _replace
+
+    return _replace(
+        bank,
+        specs=[bank.specs[i] for i in idxs],
+        params=None,
+        stream_polys=tuple(bank.stream_polys[i] for i in idxs),
+        stream_inverts=tuple(bank.stream_inverts[i] for i in idxs),
+    )
+
+
+def _popcount_stats(sync: torch.Tensor) -> torch.Tensor:
+    """(total candidates, max candidates in any one block) of a packed
+    (..., cap) sync bitmap."""
+    per_block = _POPCOUNT8.to(sync.device)[sync.long()].sum(-1)
+    return torch.stack([per_block.sum(), per_block.max()])
+
+
+def auto_candidate_budget_device(sync) -> tuple[int, int, int]:
+    """(candidate-slot budget, acceptance-scan cap, busiest block's
+    candidate count) for a device-resident bitmap: reads back two scalars
+    in one transfer.  The scan cap is the power-of-two bucket covering the
+    busiest block; blocks past 64 fall back via ``dropped``."""
+    total, max_pb = (int(v) for v in _popcount_stats(sync).cpu().tolist())
+    cap = 8
+    while cap < min(max_pb, 64):
+        cap *= 2
+    return _budget_bucket(total), cap, max_pb
+
+
+def _auto_max_packets(max_pb: int, default_mp: int, n_rows: int,
+                      lmax: int, mem_limit: float = 1e9) -> int:
+    """First per-block packet-slot budget from the busiest block's
+    candidate count (emitted packets never exceed candidates), a power of
+    two, bounded so the (rows, mp, lmax) packet buffer stays under
+    ``mem_limit`` bytes."""
+    mp = default_mp
+    while mp < min(max_pb, MP_CAP):
+        mp *= 2
+    mem_mp = max(int(mem_limit / max(n_rows * lmax, 1)), default_mp)
+    return max(min(mp, MP_CAP, mem_mp), default_mp)
+
+
+def _budget_bucket(n: int, lo: int = 64) -> int:
+    """Bucket >= 1.25*n from {2^k, 1.5*2^k}: distinct budgets stay few and
+    the worst overshoot is 1.5x."""
+    need = max(lo, int(n * 1.25) + 16)
+    p = 1 << (need - 1).bit_length()
+    return p - p // 4 if need <= p - p // 4 else p
+
+
+def _codec_out_sizes(ok, length) -> torch.Tensor:
+    """(n_valid_packets, total_valid_bytes, max_packet_len)."""
+    okf = ok.reshape(-1)
+    lenf = torch.where(okf, length.reshape(-1).to(torch.int64), 0)
+    return torch.stack([okf.sum(dtype=torch.int64), lenf.sum(), lenf.max()])
+
+
+# row order of compact_codec_out's stacked metadata
+COMPACT_META_KEYS = ("address", "length", "chain", "block", "base",
+                     "corrected")
+
+
+def _le_bytes(x) -> torch.Tensor:
+    """Integer tensor -> flat little-endian uint8 bytes of its int32
+    values (the host reassembles them with ndarray.view('<i4'))."""
+    x = x.to(torch.int32)
+    b = torch.stack([(x >> (8 * k)) & 0xFF for k in range(4)], dim=-1)
+    return b.to(torch.uint8).reshape(-1)
+
+
+def compact_codec_out(ok, address, length, corrected, packet, dropped,
+                      meta_budget: int, len_budget: int) -> torch.Tensor:
+    """Dense-pack the codec's fixed (C, B, P, Lmax) packet buffers on the
+    device into ONE flat uint8 buffer: the exact output sizes (so a caller
+    on cached budgets can check them from the same readback), the int32
+    metadata in COMPACT_META_KEYS row order, the per-block ``dropped``
+    counts, then ``meta_budget`` rows of ``len_budget`` length-masked
+    packet bytes.  Valid packets rank-compact into the metadata slots;
+    those past ``meta_budget`` are dropped (the sizes say so)."""
+    C, B, Pk = ok.shape
+    dev = ok.device
+    okf = ok.reshape(-1)
+    rank = torch.cumsum(okf.to(torch.int64), 0) - 1
+    # invalid rows, and valid ones past the budget, land in a dummy slot
+    pos = torch.where(okf & (rank < meta_budget), rank, meta_budget)
+
+    def cmeta(x):
+        buf = torch.zeros((meta_budget + 1,), dtype=torch.int64, device=dev)
+        buf[pos] = x.reshape(-1).to(torch.int64)
+        return buf[:meta_budget]
+
+    lenf = torch.where(okf, length.reshape(-1).to(torch.int64), 0)
+    ci = torch.arange(C, device=dev)[:, None, None].expand(C, B, Pk)
+    bi = torch.arange(B, device=dev)[None, :, None].expand(C, B, Pk)
+    base = torch.cumsum(lenf, 0) - lenf
+    meta_rows = [cmeta(address), cmeta(length), cmeta(ci), cmeta(bi),
+                 cmeta(base), cmeta(corrected)]
+    row_src = cmeta(torch.arange(C * B * Pk, device=dev))
+    flat_pk = packet.reshape(C * B * Pk, -1)[:, :len_budget]
+    rows = flat_pk[row_src]  # (meta_budget, len_budget) uint8
+    j = torch.arange(rows.shape[-1], device=dev)[None, :]
+    rows = torch.where(j < meta_rows[1][:, None], rows, 0).to(torch.uint8)
+    return torch.cat([_le_bytes(_codec_out_sizes(ok, length)),
+                      _le_bytes(torch.stack(meta_rows)), _le_bytes(dropped),
+                      rows.reshape(-1)])
+
+
+# Steady-state codec budgets per (codec options, block geometry, bank
+# shape): a repeat call with the same workload shape skips both exact
+# sizing readbacks and runs codec and compaction with a SINGLE readback at
+# the end.  Safe because every undershoot is detected: candidate and scan
+# saturation surface per block in ``dropped`` (escalation, then the host
+# FSM past MP_CAP), and compaction overflow in the packed sizes (redo with
+# exact budgets).  The lock guards get, merge and pop: run_banked may run
+# on several threads.
+_CODEC_BUDGET_CACHE: dict = {}
+_CODEC_BUDGET_LOCK = threading.Lock()
+
+# terminal per-block packet-slot budget of the escalation ladder; blocks
+# still saturated at MP_CAP decode on the host FSM (packets_from_compact)
+MP_CAP = 64
+
+
+def _merge_budget_entry(prev, new):
+    """Upper-bound merge of two budget-cache entries sharing one key: the
+    elementwise maximum, and the safer side of the RS split knob (None
+    wins), so dispatches of different traffic under one key converge
+    instead of overwriting each other."""
+    if prev is None:
+        return new
+    mp = max(prev[0], new[0])
+    cand = (
+        None if prev[1] is None or new[1] is None
+        else max(prev[1], new[1])
+    )
+    scan = max(prev[2], new[2])
+    meta = max(prev[3], new[3])
+    lenb = max(prev[4], new[4])
+    frac = (
+        None if prev[5] is None or new[5] is None
+        else min(prev[5], new[5])
+    )
+    pay = max(prev[6], new[6])
+    return (mp, cand, scan, meta, lenb, frac, pay)
+
+
+def _il2p_payload_budget(bank: Bank, plan: BlockPlan) -> int:
+    """Per-candidate payload-byte budget for the device IL2P codec, from
+    the longest packet the plan protects: the block overlap covers loop
+    acquisition plus the longest packet, so a packet whose wire time
+    exceeds the overlap is outside the runtime's protection anyway.
+    Bucketed {2^k, 1.5*2^k}; a header announcing more marks its block
+    dropped (escalation to 1023, then the exact host fallback)."""
+    wire_bytes = 0.0
+    for c in bank.specs:
+        sl = c.slicer
+        sps = sl.sample_rate / sl.symbol_rate
+        wire_bytes = max(wire_bytes,
+                         plan.overlap / sps * _bits_per_symbol(sl) / 8.0)
+    if plan.overlap <= 0:
+        return 1023  # single-block plan: no straddle bound to infer from
+    # invert wire = sync(3) + header(15) + mp + 16*ceil(mp/239) + crc(4)
+    mp = 0
+    for blocks in range(1, 6):
+        cand = int(wire_bytes) - 3 - 15 - 16 * blocks - 4
+        cand = min(cand, blocks * 239)
+        if cand > (blocks - 1) * 239:
+            mp = max(mp, cand)
+    return min(_budget_bucket(max(mp, 64), lo=64), 1023)
+
+
+def _dispatch_codec(codec_key, data, addr, count, sync, plan,
+                    max_packets_per_block, total_candidates, scan_cap,
+                    rs_fail_frac: int | None, max_payload: int) -> dict:
+    return bank_codec_step(
+        "il2p", data, addr, count, sync, plan,
+        max_packets=max_packets_per_block,
+        collect_crc=codec_key[1], disable_rs=codec_key[2],
+        min_distance=codec_key[3],
+        total_candidates=total_candidates,
+        # failed-header candidates contribute no RS rows, so the live-row
+        # population is ~1 payload block per real packet; overflow falls
+        # back per block via ``dropped``
+        total_rs_blocks=total_candidates,
+        scan_cap=scan_cap, rs_fail_frac=rs_fail_frac,
+        max_payload=max_payload,
+    )
+
+
+def _read_compact(packed: torch.Tensor, meta_budget: int, len_budget: int,
+                  dropped_shape: tuple):
+    """Read compact_codec_out's buffer back (one transfer) and split it by
+    the budget sizes into (sizes, comp dict, dropped)."""
+    flat = packed.cpu().numpy()
+    n_ok, total_bytes, max_len = (int(v) for v in flat[:12].view("<i4"))
+    off = 12
+    end = off + len(COMPACT_META_KEYS) * meta_budget * 4
+    comp = dict(zip(COMPACT_META_KEYS, flat[off:end].view("<i4").reshape(
+        len(COMPACT_META_KEYS), -1)))
+    off = end
+    dsize = int(np.prod(dropped_shape))
+    dropped = flat[off : off + dsize * 4].view("<i4").reshape(dropped_shape)
+    rows_np = flat[off + dsize * 4:].reshape(meta_budget, len_budget)
+    # the length-masked rows flattened to the contiguous byte stream the
+    # packet builder slices by ``base`` (slots are rank-ordered, so row
+    # order is stream order)
+    comp["bytes"] = rows_np[
+        np.arange(rows_np.shape[-1])[None, :] < comp["length"][:, None]
+    ]
+    return (n_ok, total_bytes, max_len), comp, dropped
+
+
+def _len_bucket(max_len: int, lmax: int) -> int:
+    """Byte-row width bucket {2^k, 1.5*2^k} of the packed readback, at
+    most the packet buffer's width."""
+    need = max(max_len, 64)
+    p = 1 << (need - 1).bit_length()
+    b = p - p // 4 if need <= p - p // 4 else p
+    return min(b, lmax)
+
+
+def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
+                         max_packets_per_block, total_candidates):
+    """Run the device codec and compaction over bank outputs; return a
+    collect() closure that performs the single packed readback and builds
+    packet objects.
+
+    On a budget-cache hit the codec and compaction launch NOW and collect()
+    reads back once; a compaction overflow there redoes the compaction with
+    exact budgets.  On a miss collect() sizes exactly: one readback of the
+    sync map's candidate statistics, one of the output sizes, then the
+    packed one.  Blocks still saturated (``dropped``) ESCALATE on the
+    device -- packet slots and scan cap double, the RS split turns off, the
+    payload budget goes to 1023 and an auto-sized candidate budget doubles
+    -- up to MP_CAP; the host FSM decodes only the blocks still dropped
+    after that.  The learned budgets land in the cache."""
+    from .. import profiling
+
+    cache_key = (codec_key, plan, tuple(data.shape[:2]),
+                 max_packets_per_block)
+    cached = None
+    if total_candidates is None:
+        with _CODEC_BUDGET_LOCK:
+            cached = _CODEC_BUDGET_CACHE.get(cache_key)
+
+    def dispatch(mp, cand_budget, scan_cap, rs_frac, pay_budget):
+        with profiling.timed("device_codec_step"):
+            return _dispatch_codec(codec_key, data, addr, count, sync, plan,
+                                   mp, cand_budget, scan_cap, rs_frac,
+                                   pay_budget)
+
+    def compact(out, meta_budget, len_budget):
+        return compact_codec_out(
+            out["ok"], out["address"], out["length"], out["corrected"],
+            out["packet"], out["dropped"], meta_budget, len_budget)
+
+    def read(packed, meta_budget, len_budget):
+        with profiling.timed("device_codec_transfer"):
+            return _read_compact(packed, meta_budget, len_budget,
+                                 tuple(data.shape[:2]))
+
+    def run_exact(mp, cand_budget, scan_cap, rs_frac, pay_budget):
+        out = dispatch(mp, cand_budget, scan_cap, rs_frac, pay_budget)
+        with profiling.timed("codec_sizes"):
+            n_ok, _total_bytes, max_len = (
+                int(v) for v in
+                _codec_out_sizes(out["ok"], out["length"]).cpu().tolist())
+        with profiling.timed("device_codec_compact"):
+            len_budget = _len_bucket(max_len, out["packet"].shape[-1])
+            meta_budget = _budget_bucket(n_ok)
+            packed = compact(out, meta_budget, len_budget)
+        _sizes, comp, dropped = read(packed, meta_budget, len_budget)
+        return n_ok, meta_budget, len_budget, comp, dropped
+
+    def resolve_budgets(mp, cand_budget, scan_cap, rs_frac, pay_budget, n_ok,
+                        meta_budget, len_budget, comp, dropped):
+        while dropped.any() and mp < MP_CAP:
+            with profiling.timed("device_codec_escalate"):
+                mp = mp * 2
+                scan_cap = min(scan_cap * 2, 128)
+                # dropped does not say WHICH budget saturated; turn off the
+                # RS split and the payload budget alongside the doublings
+                # so any saturated budget converges to exact
+                rs_frac = None
+                pay_budget = 1023
+                if total_candidates is None:
+                    cand_budget = cand_budget * 2
+                n_ok, meta_budget, len_budget, comp, dropped = run_exact(
+                    mp, cand_budget, scan_cap, rs_frac, pay_budget
+                )
+        with _CODEC_BUDGET_LOCK:
+            if total_candidates is None and not dropped.any():
+                _CODEC_BUDGET_CACHE[cache_key] = _merge_budget_entry(
+                    _CODEC_BUDGET_CACHE.get(cache_key),
+                    (mp, cand_budget, scan_cap, meta_budget, len_budget,
+                     rs_frac, pay_budget),
+                )
+            else:
+                _CODEC_BUDGET_CACHE.pop(cache_key, None)
+        return packets_from_compact(
+            bank, plan, comp, n_ok, dropped, data, addr, count, sync,
+        )
+
+    if cached is not None:
+        # speculative steady-state path: no readback before the packed one
+        (mp0, cand_budget, scan_cap, meta_budget0, len_budget0, rs_frac0,
+         pay0) = cached
+        out = dispatch(mp0, cand_budget, scan_cap, rs_frac0, pay0)
+        with profiling.timed("device_codec_compact"):
+            packed = compact(out, meta_budget0, len_budget0)
+
+        def collect():
+            meta_budget, len_budget = meta_budget0, len_budget0
+            sizes, comp, dropped = read(packed, meta_budget, len_budget)
+            n_ok, _total_bytes, max_len = sizes
+            if n_ok > meta_budget or max_len > len_budget:
+                # compaction budgets overflowed (the workload grew): redo
+                # the compaction with exact budgets
+                with profiling.timed("device_codec_redo"):
+                    meta_budget = _budget_bucket(n_ok)
+                    len_budget = _len_bucket(max_len,
+                                             out["packet"].shape[-1])
+                    _, comp, dropped = read(
+                        compact(out, meta_budget, len_budget), meta_budget,
+                        len_budget)
+            return resolve_budgets(mp0, cand_budget, scan_cap, rs_frac0,
+                                   pay0, n_ok, meta_budget, len_budget, comp,
+                                   dropped)
+
+        return collect
+
+    def collect():
+        scan_cap = 64
+        cand_budget = total_candidates
+        mp = max_packets_per_block
+        pay0 = _il2p_payload_budget(bank, plan)
+        if total_candidates is None:
+            with profiling.timed("candidate_budget"):
+                cand_budget, scan_cap, max_pb = (
+                    auto_candidate_budget_device(sync)
+                )
+            # right-size the packet-slot budget from the busiest block's
+            # candidate count, skipping the escalation ladder on
+            # packet-dense blocks
+            mp = _auto_max_packets(
+                max_pb, max_packets_per_block,
+                data.shape[0] * data.shape[1], 16 + pay0 + 2,
+            )
+        frac0 = 2  # the syndrome-zero split's first fraction
+        n_ok, meta_budget, len_budget, comp, dropped = run_exact(
+            mp, cand_budget, scan_cap, frac0, pay0
+        )
+        return resolve_budgets(mp, cand_budget, scan_cap, frac0, pay0, n_ok,
+                               meta_budget, len_budget, comp, dropped)
+
+    return collect
+
+
+def _device_codec_submit_mixed(bank, plan, groups, data, addr, count, sync,
+                               max_packets_per_block, total_candidates):
+    """_device_codec_submit over the bank's codec SUB-GROUPS (from
+    _codec_subgroups): a bank whose chains mix codec options runs one
+    device codec per sub-group of chain rows; the demod already ran once
+    for the whole bank.  collect() drains them in config order."""
+    if len(groups) == 1:
+        return _device_codec_submit(
+            bank, plan, groups[0][0], data, addr, count, sync,
+            max_packets_per_block, total_candidates,
+        )
+    subs = []
+    for key, idxs in groups:
+        lo, hi = idxs[0], idxs[-1] + 1
+        if idxs == list(range(lo, hi)):
+            sel = slice(lo, hi)
+        else:
+            sel = torch.as_tensor(idxs, device=data.device)
+        subs.append(_device_codec_submit(
+            _bank_chain_subset(bank, idxs), plan, key,
+            data[sel], addr[sel], count[sel], sync[sel],
+            max_packets_per_block, total_candidates,
+        ))
+
+    def collect():
+        out: dict[str, list] = {}
+        for c in subs:
+            out.update(c())
+        return out
+
+    return collect
+
+
+def _fallback_block_packets(per_chain, bank, plan, fallback, data, addr,
+                            count, sync) -> None:
+    """Decode the blocks still saturated after escalation with the exact
+    host FSM (the device result may be incomplete there).  Reads the byte
+    streams back only when such blocks exist."""
+    from .. import profiling
+
+    if not fallback:
+        return
+    profiling.count("packet_fallback_blocks", len(fallback))
+    data, addr, count, sync = (t.cpu().numpy()
+                               for t in (data, addr, count, sync))
+    for ci, b in sorted(fallback):
+        chain = bank.specs[ci]
+        n = int(count[ci, b])
+        if n == 0:
+            continue
+        offset = b * plan.block_len - plan.overlap
+        pkts = host_decode_block(
+            chain,
+            data[ci, b, :n].astype(np.int64),
+            addr[ci, b, :n].astype(np.int64) + offset,
+            sync[ci, b],
+        )
+        lo, hi = plan.keep_range(b)
+        per_chain.setdefault(int(ci), []).extend(
+            p for p in pkts if lo < p.streamaddress <= hi
+        )
+
+
+def packets_from_compact(bank, plan, comp, n_ok, dropped, data, addr, count,
+                         sync):
+    """Per-chain Packet lists from compact_codec_out's readback, with the
+    host FSM for the blocks still dropped."""
+    from .. import profiling
+    from ..packets import Packet
+
+    with profiling.timed("packet_objects"):
+        fallback = set(map(tuple, np.argwhere(dropped > 0).tolist()))
+        # vectorized keep filter (keep_range + fallback membership), then
+        # one bulk bytes->list conversion and a plain loop of constructions
+        chain_a = comp["chain"][:n_ok].astype(np.int64)
+        block_a = comp["block"][:n_ok].astype(np.int64)
+        addr_a = comp["address"][:n_ok].astype(np.int64)
+        lo = block_a * plan.block_len
+        keep = (addr_a > lo) & (
+            addr_a <= np.minimum(lo + plan.block_len, plan.n_demod)
+        )
+        if fallback:
+            key = chain_a * plan.n_blocks + block_a
+            fb_keys = np.array(
+                [ci * plan.n_blocks + b for ci, b in fallback], dtype=np.int64
+            )
+            keep &= ~np.isin(key, fb_keys)
+        idx = np.nonzero(keep)[0]
+        flat_list = comp["bytes"].tolist()
+        corr_l = comp["corrected"][:n_ok][idx].tolist()
+        idents = [spec.codec.ident for spec in bank.specs]
+        per_chain: dict[int, list] = {}
+        with profiling.timed("packet_build"):
+            for ci, address, length, base, corr in zip(
+                chain_a[idx].tolist(), addr_a[idx].tolist(),
+                comp["length"][:n_ok][idx].tolist(),
+                comp["base"][:n_ok][idx].tolist(), corr_l,
+            ):
+                per_chain.setdefault(ci, []).append(
+                    Packet(
+                        data=flat_list[base : base + length],
+                        streamaddress=address,
+                        source_decoder=idents[ci],
+                        bytes_corrected=corr,
+                    )
+                )
+        if fallback:
+            with profiling.timed("packet_fallback"):
+                _fallback_block_packets(
+                    per_chain, bank, plan, fallback, data, addr, count, sync,
+                )
+        for pkts in per_chain.values():
+            pkts.sort(key=lambda p: p.streamaddress)
+        with profiling.timed("packet_dedup"):
+            return {
+                chain.name: _dedup_block_boundary(per_chain.get(ci, []), chain)
+                for ci, chain in enumerate(bank.specs)
+            }
+
+
 def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
                     block_seconds: float | str = "auto",
                     overlap_seconds: float | str = "auto",
-                    codec: str = "host", verbose: bool = False,
+                    codec: str = "device", verbose: bool = False,
                     max_packet_seconds: float | None = None,
                     device: str | torch.device = "cuda") -> RunResult:
     """Full plan -> aggregated report.  Errors propagate: there is no
-    sequential executor to retry a failed bank on (ROADMAP item 14)."""
+    sequential executor to retry a failed bank on (ROADMAP Queue 1, the
+    sequential executor)."""
     if verbose:
         print(f"banked runtime: {len(plan.chains)} chains")
     by_name = run_banked(

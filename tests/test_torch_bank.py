@@ -1,10 +1,10 @@
 """The port's banked AFSK-300 IL2P+CRC slice against pymodem_tpu, end to end.
 
 Same synthetic audio, same explicit block/overlap seconds on both sides (so
-both plans are ``default_block_plan``'s), float32 on both sides, host codec
-on both sides.  The port runs on the CPU here, through its kernels' plain
-twins; packets (payload, CRC, stream address) and report text must be
-identical.
+both plans are ``default_block_plan``'s), float32 on both sides, the same
+codec route on both sides (host, and the device IL2P codec).  The port runs
+on the CPU here, through its kernels' plain twins; packets (payload, CRC,
+stream address) and report text must be identical.
 """
 
 import os
@@ -142,10 +142,24 @@ def test_group_chains_matches_convert(name):
         assert torch.equal(params["sine_table"], torch.from_numpy(xla))
 
 
-@pytest.mark.parametrize(
+E2E_CASES = pytest.mark.parametrize(
     "name,audio_name", [("sweep", "audio"), ("pll_pair", "audio"),
                         ("sweep", "audio_1600_1800")],
     ids=["sweep", "pll_pair", "sweep_1600_1800"])
+_PORT_RUNS: dict = {}
+
+
+def _port_run(name, audio_name, x, codec):
+    """The port's run_banked on the CPU, once per (bank, audio, codec) in
+    this module."""
+    key = (name, audio_name, codec)
+    if key not in _PORT_RUNS:
+        _PORT_RUNS[key] = tbank.run_banked(BANKS[name], x, codec=codec,
+                                           device="cpu", **GEOM)
+    return _PORT_RUNS[key]
+
+
+@E2E_CASES
 def test_run_banked_matches_jax(name, audio_name, request):
     """Packets equal the JAX package's; the space-gain sweep also on
     1600/1800 Hz tones."""
@@ -153,9 +167,25 @@ def test_run_banked_matches_jax(name, audio_name, request):
     chains = BANKS[name]
     want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="host",
                             **GEOM)
-    got = tbank.run_banked(chains, x, codec="host", device="cpu", **GEOM)
+    got = _port_run(name, audio_name, x, "host")
     got_p, want_p = _packets(got), _packets(want)
     assert got_p == want_p, _packet_diff(got_p, want_p)
+    decoded = [bytes(p.data[16:-2]) for pkts in got.values() for p in pkts]
+    assert sorted(decoded) == sorted(sent)
+
+
+@E2E_CASES
+def test_device_codec_matches_jax_and_host(name, audio_name, request):
+    """The device IL2P codec route (the default): packets equal the JAX
+    package's device route and the port's host route on the same audio."""
+    sent, x = request.getfixturevalue(audio_name)
+    want = jbank.run_banked(BANKS[name], x, dtype=jnp.float32,
+                            codec="device", **GEOM)
+    got = _port_run(name, audio_name, x, "device")
+    host = _port_run(name, audio_name, x, "host")
+    got_p, want_p, host_p = _packets(got), _packets(want), _packets(host)
+    assert got_p == want_p, _packet_diff(got_p, want_p)
+    assert got_p == host_p, _packet_diff(got_p, host_p)
     decoded = [bytes(p.data[16:-2]) for pkts in got.values() for p in pkts]
     assert sorted(decoded) == sorted(sent)
 
@@ -172,6 +202,17 @@ def test_run_plan_banked_report_matches_jax(audio):
     assert got.reports == want.reports
     assert f"Unique, valid packets:  {len(sent)}\n" in got.reports[0]
     assert got.aggregate.count_bad() == 0
+
+
+def test_run_plan_banked_device_report_matches_jax(audio):
+    """The report on both packages' default route, the device codec."""
+    sent, x = audio
+    plan = RunPlan(chains=tuple(SWEEP + PAIR),
+                   reports=(ReportSpec("decoded", style="decoded_headers"),))
+    want = jbank.run_plan_banked(plan, x, RATE, dtype=jnp.float32, **GEOM)
+    got = tbank.run_plan_banked(plan, x, RATE, device="cpu", **GEOM)
+    assert got.reports == want.reports
+    assert f"Unique, valid packets:  {len(sent)}\n" in got.reports[0]
 
 
 def test_sync_tolerance_counts_il2p_chains_only():
@@ -191,17 +232,16 @@ def test_sync_tolerance_counts_il2p_chains_only():
 
 
 def test_unported_chains_raise(audio):
-    """Every modem and slicer is ported; the AX.25 codec (on any modem) and
-    the device codec are not."""
+    """Every modem and slicer is ported; the AX.25 codec (on any modem) is
+    not, on either codec route."""
     _, x = audio
     fsk_ax25 = build_chain_spec(float(RATE), {
         **_line("fsk", "afsk", codec="ax25"),
         "modem": {"type": "fsk", "config": "9600", "options": {}}})
     for chain in (fsk_ax25, _chain("ax", "afsk", codec="ax25")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbank.run_banked([chain], x, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbank.run_banked(SWEEP, x, codec="device", device="cpu")
+        for codec in ("device", "host"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tbank.run_banked([chain], x, codec=codec, device="cpu")
 
 
 def _cli(module, *args, env_extra=None):

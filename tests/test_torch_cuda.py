@@ -609,3 +609,122 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                  cosine)
     with pytest.raises(ValueError, match="NCO tables"):
         tloops.qpsk_costas_lanes(x, rows17, sine[:128], cosine)
+
+
+# ---------------------------------------------------------------------------
+# The device IL2P codec: CUDA against the same calls on the CPU (the CPU
+# tests hold the CPU side against the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _rs_rows(seed, num_roots, B, L):
+    """B codewords of random block sizes with 0 to 9 byte errors each."""
+    from pymodem_tpu_torch.ops import rs as trs
+
+    g = np.random.default_rng(seed)
+    code = trs.make_rs(0, num_roots)
+    data = g.integers(0, 256, (B, L)).astype(np.int32)
+    bs = np.zeros(B, np.int32)
+    for i in range(B):
+        n = 15 if num_roots == 2 else int(g.integers(17, 256))
+        cw = trs.rs_encode_np(code, g.integers(0, 256, n - num_roots))
+        pos = g.choice(n, min(int(g.integers(0, 10)), n), replace=False)
+        cw[pos] ^= g.integers(1, 256, len(pos))
+        data[i, :n], bs[i] = cw, n
+    return torch.from_numpy(data), torch.from_numpy(bs)
+
+
+@pytest.mark.parametrize(
+    "num_roots,B,L,min_distance,fail_budget",
+    [(16, 300, 255, 0, None), (2, 300, 15, 1, 64), (16, 2500, 255, 0, 512)],
+    ids=["16roots", "2roots_md1_split", "16roots_2500rows_split"])
+def test_rs_decode_on_the_card_matches_cpu(cuda, num_roots, B, L,
+                                          min_distance, fail_budget):
+    from pymodem_tpu_torch.ops import rs as trs
+
+    data, bs = _rs_rows(7, num_roots, B, L)
+    want = trs.rs_decode(data, bs, num_roots, min_distance=min_distance,
+                         fail_budget=fail_budget)
+    got = trs.rs_decode(data.to(cuda), bs.to(cuda), num_roots,
+                        min_distance=min_distance, fail_budget=fail_budget)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+    if fail_budget is not None:
+        assert want[2].any()  # the budget overflowed
+
+
+def test_crc16_masked_on_the_card_matches_cpu(cuda):
+    from pymodem_tpu_torch.ops.crc import crc16_masked, np_crc16
+
+    g = np.random.default_rng(8)
+    data = torch.from_numpy(g.integers(0, 256, (3000, 535), dtype=np.uint8))
+    length = torch.from_numpy(g.integers(0, 540, 3000))
+    length[:3] = torch.tensor([0, 1, 535])
+    want = crc16_masked(data, length)
+    got = crc16_masked(data.to(cuda), length.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert int(want[2]) == np_crc16(data[2].numpy())
+
+
+def _codec_blocks(seed=9, K=1280):
+    """IL2P byte-stream blocks for il2p_decode_blocks: clean frames,
+    RS-corrected frames, noise, embedded syncs and 2-5 block payloads;
+    (data, sync, counts, addresses) on the CPU."""
+    from pymodem_tpu_torch.ops.sync import il2p_sync_candidates, pack_bits
+    from pymodem_tpu_torch.synth import encode as enc
+    from pymodem_tpu_torch.synth.fixtures import payloads
+
+    g = np.random.default_rng(seed)
+
+    def frames(n, corrupt=0, size=30):
+        parts = []
+        for i in range(n):
+            parts.append(g.integers(0, 256, 40))
+            payload = payloads(g, count=1, size=size + 60 * i)[0]
+            frame = np.array(enc.il2p_frame("KI5ABC", "N0CALL", payload),
+                             dtype=np.int64)
+            if corrupt:
+                pos = g.choice(np.arange(20, len(frame) - 6), corrupt,
+                               replace=False)
+                frame[pos] ^= g.integers(1, 256, corrupt)
+            parts.append(frame)
+        return np.concatenate(parts + [g.integers(0, 256, 40)])
+
+    syncs = np.concatenate([np.concatenate([
+        g.integers(0, 256, 20), [0xF1, 0x5E, 0x48], g.integers(0, 256, 90)])
+        for _ in range(10)])
+    streams = [frames(3), frames(3, corrupt=4), g.integers(0, 256, K), syncs,
+               frames(1, size=300), frames(1, corrupt=3, size=500),
+               frames(1, size=1023)]
+    data = np.zeros((len(streams), K), np.uint8)
+    counts = np.zeros(len(streams), np.int32)
+    for i, s in enumerate(streams):
+        data[i, : len(s)], counts[i] = s, len(s)
+    data = torch.from_numpy(data)
+    sync = pack_bits(il2p_sync_candidates(data))
+    addr = (torch.arange(1, K + 1, dtype=torch.int32)[None, :]
+            + 5000 * torch.arange(len(streams), dtype=torch.int32)[:, None])
+    return data, sync, torch.from_numpy(counts), addr.contiguous()
+
+
+@pytest.mark.parametrize("kw,overflows", [
+    ({}, False), ({"collect_crc": False, "scan_cap": 16}, False),
+    ({"total_candidates": 600, "scan_cap": 16}, False),
+    ({"total_candidates": 8, "scan_cap": 16}, True), ({"scan_cap": 8}, True),
+    ({"max_packets": 2, "scan_cap": 16}, True),
+    ({"max_payload": 128, "scan_cap": 16}, True),
+], ids=["default", "no_crc", "syndrome_split", "candidates_overflow",
+        "scan_overflow", "packets_overflow", "payload_overflow"])
+def test_il2p_decode_blocks_on_the_card_matches_cpu(cuda, kw, overflows):
+    from pymodem_tpu_torch.codecs.il2p_device import il2p_decode_blocks
+
+    arrays = _codec_blocks()
+    want = il2p_decode_blocks(*arrays, **kw)
+    got = il2p_decode_blocks(*(a.to(cuda) for a in arrays), **kw)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].device.type == "cuda"
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert want["ok"].sum() > 0
+    assert bool(want["dropped"].any()) == overflows

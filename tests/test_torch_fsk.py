@@ -283,25 +283,59 @@ E2E_RATES = {"fsk_sweep": 96000.0, "fsk_invert": 96000.0,
              "fsk4_sweep": 48000.0}
 
 
+GEOM = dict(block_seconds=0.3, overlap_seconds=0.4)
+_CASES: dict = {}
+
+
+def _e2e_case(name):
+    """(JAX chains, port chains, payloads sent, int16 audio) of bank
+    ``name``; with the port's run_banked per codec route, each run once in
+    this module."""
+    if name not in _CASES:
+        rate = E2E_RATES[name]
+        port_chains = _banks(rate, build_chain_spec)[name]
+        rng = np.random.default_rng(20261016)
+        sent, x = tfx.synthesize_for_chain(port_chains[0], rate, rng,
+                                           n_frames=3, size=10, gap_bits=600)
+        x = tmod.to_int16(x)
+        if name == "fsk_invert":  # the recording, then its negative
+            x = np.concatenate([x, -x])
+            sent = sent + sent
+        _CASES[name] = (_banks(rate)[name], port_chains, sent, x, {})
+    return _CASES[name]
+
+
+def _port_run(name, codec):
+    _, port_chains, _, x, runs = _e2e_case(name)
+    if codec not in runs:
+        runs[codec] = tbank.run_banked(port_chains, x, codec=codec,
+                                       device="cpu", **GEOM)
+    return runs[codec]
+
+
 @pytest.mark.parametrize("name", sorted(E2E_RATES))
 def test_run_banked_matches_jax(name):
-    rate = E2E_RATES[name]
-    chains = _banks(rate)[name]
-    port_chains = _banks(rate, build_chain_spec)[name]
-    rng = np.random.default_rng(20261016)
-    sent, x = tfx.synthesize_for_chain(port_chains[0], rate, rng,
-                                       n_frames=3, size=10, gap_bits=600)
-    x = tmod.to_int16(x)
-    if name == "fsk_invert":  # the recording, then its negative
-        x = np.concatenate([x, -x])
-        sent = sent + sent
-    geom = dict(block_seconds=0.3, overlap_seconds=0.4)
+    chains, port_chains, sent, x, _ = _e2e_case(name)
     want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="host",
-                            **geom)
-    got = tbank.run_banked(port_chains, x, codec="host", device="cpu",
-                           **geom)
+                            **GEOM)
+    got = _port_run(name, "host")
     assert _packets(got) == _packets(want)
     per_chain = [[bytes(p.data[16:-2]) for p in got[c.name]]
                  for c in port_chains]
     assert per_chain == [sent] * len(port_chains)
     assert all(p.bytes_corrected == 0 for pk in got.values() for p in pk)
+
+
+@pytest.mark.parametrize("name", sorted(E2E_RATES))
+def test_device_codec_matches_jax_and_host(name):
+    """The device IL2P codec route (the default): packets equal the JAX
+    package's device route and the port's host route."""
+    chains, port_chains, sent, x, _ = _e2e_case(name)
+    want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="device",
+                            **GEOM)
+    got = _port_run(name, "device")
+    assert _packets(got) == _packets(want)
+    assert _packets(got) == _packets(_port_run(name, "host"))
+    per_chain = [[bytes(p.data[16:-2]) for p in got[c.name]]
+                 for c in port_chains]
+    assert per_chain == [sent] * len(port_chains)

@@ -387,23 +387,56 @@ def _packets(by_name):
     }
 
 
+GEOM = dict(block_seconds=1.5, overlap_seconds=1.5)
+_CASES: dict = {}
+
+
+def _e2e_case(name):
+    """(JAX chains, port chains, payloads sent, int16 audio) of bank
+    ``name``; with the port's run_banked per codec route, each run once in
+    this module."""
+    if name not in _CASES:
+        port_chains = _banks(RATE, _chain)[name]
+        rng = np.random.default_rng(20261016)
+        sent, x = tfx.synthesize_for_chain(port_chains[0], RATE, rng,
+                                           n_frames=3, size=10, gap_bits=600)
+        _CASES[name] = (_banks(RATE)[name], port_chains, sent,
+                        tmod.to_int16(x), {})
+    return _CASES[name]
+
+
+def _port_run(name, codec):
+    _, port_chains, _, x, runs = _e2e_case(name)
+    if codec not in runs:
+        runs[codec] = tbank.run_banked(port_chains, x, codec=codec,
+                                       device="cpu", **GEOM)
+    return runs[codec]
+
+
 @pytest.mark.parametrize("name", ["sweep", "pair"])
 def test_run_banked_matches_jax(name):
     """Every chain decodes every frame with no RS correction, and the
     packets equal the JAX package's (f32, host codec, same geometry)."""
-    chains = _banks(RATE)[name]
-    port_chains = _banks(RATE, _chain)[name]
-    rng = np.random.default_rng(20261016)
-    sent, x = tfx.synthesize_for_chain(port_chains[0], RATE, rng,
-                                       n_frames=3, size=10, gap_bits=600)
-    x = tmod.to_int16(x)
-    geom = dict(block_seconds=1.5, overlap_seconds=1.5)
+    chains, port_chains, sent, x, _ = _e2e_case(name)
     want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="host",
-                            **geom)
-    got = tbank.run_banked(port_chains, x, codec="host", device="cpu",
-                           **geom)
+                            **GEOM)
+    got = _port_run(name, "host")
     assert _packets(got) == _packets(want)
     for chain in port_chains:
         pkts = got[chain.name]
         assert [bytes(p.data[16:-2]) for p in pkts] == sent
         assert all(p.bytes_corrected == 0 for p in pkts)
+
+
+@pytest.mark.parametrize("name", ["sweep", "pair"])
+def test_device_codec_matches_jax_and_host(name):
+    """The device IL2P codec route (the default): packets equal the JAX
+    package's device route and the port's host route."""
+    chains, port_chains, sent, x, _ = _e2e_case(name)
+    want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="device",
+                            **GEOM)
+    got = _port_run(name, "device")
+    assert _packets(got) == _packets(want)
+    assert _packets(got) == _packets(_port_run(name, "host"))
+    for chain in port_chains:
+        assert [bytes(p.data[16:-2]) for p in got[chain.name]] == sent
