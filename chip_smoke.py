@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths on the default route, the device IL2P
-codec, through ``run_plan_banked`` and through its CLI, holds the device
-codec's packets against the host codec's on the same arrays, and holds
-every hand-written kernel (K1-K8) against its plain PyTorch twin:
+Drives the port's four main paths on the default route, the device codecs,
+through ``run_plan_banked`` and through its CLI, holds the device codecs'
+packets against the host codecs' on the same arrays, and holds every
+hand-written kernel (K1-K9) against its plain PyTorch twin:
 
 * the AFSK path: the banked AFSK-300 IL2P+CRC decode of 600 s of 8 kHz
   int16 audio (kernels K1 binary slicer, K2 AFSK PLL + AGC);
@@ -15,7 +15,10 @@ every hand-written kernel (K1-K8) against its plain PyTorch twin:
   AGC, K4 AGC, K6 MPSK loop, K7 quadrature slicer, and K1 again);
 * the FSK and Costas-QPSK path: banked FSK-9600 (96 kHz), 4FSK-9600
   (48 kHz) and Costas QPSK-2400 (44.1 kHz) IL2P+CRC decodes of 600 s each
-  (kernels K8 four-level slicer, K5 QPSK Costas + AGC, and K1, K7 again).
+  (kernels K8 four-level slicer, K5 QPSK Costas + AGC, and K1, K7 again);
+* the AX.25 path: an 8-chain AFSK-1200 AX.25 space-gain sweep (44.1 kHz)
+  and a mixed AFSK-300 AX.25/IL2P+CRC bank (8 kHz), 600 s each (kernels
+  K9 AX.25 deframer, K1 again).
 
 Phases, each printing one line with its seconds:
 
@@ -40,12 +43,12 @@ Phases, each printing one line with its seconds:
    before and read just after: the 64-chain space-gain sweep, the PLL
    inverted pair and the 8-chain PLL carrier sweep, each decoding every
    synthesised frame, payload for payload, with no rejected packet, and
-   its peak device memory beside the host-codec route's; then a warm rerun
-   of each for wall time and chain-Msamples/s, failing if it sends any
-   block to the host fallback; and a split of one run into device stages,
-   device codec with its readback, host packet build and the host codec on
-   the same ``dispatch_bank`` arrays, whose packets must equal the device
-   codec's;
+   its peak device memory beside the host-codec route's; then WARM_RUNS
+   warm reruns of each for wall times and chain-Msamples/s at the median,
+   failing if one sends any block to the host fallback; and a split of
+   one run into device stages, device codec with its readback, host
+   packet build and the host codec on the same ``dispatch_bank`` arrays,
+   whose packets must equal the device codec's;
 6. the CLI as a subprocess on a WAV and an AFSK JSONL config;
 7. K3 (on the BPSK sweep's shared rows, as K2 in 4), K4 (over the B
    shared lanes of the QPSK sweep and the C*B lanes of the MPSK pair), K6
@@ -83,7 +86,22 @@ Phases, each printing one line with its seconds:
 12. the CLI as a subprocess on a WAV and a 4FSK JSONL config;
 13. the device codec forced up its escalation ladder on the card (2
     packet slots a block, 64 candidate slots) on dense AFSK-1200 traffic:
-    every frame, packets equal to a roomy run's.
+    every frame, packets equal to a roomy run's;
+14. K9 against its twin, every output bitwise, on the AX.25 sweep bank's
+    own byte rows at its full row count and on edge rows (stuffed zeros,
+    aborts, a frame over 1023 bytes, more closing flags than packet slots;
+    8 and 2 slots, length caps 1023 and 200); kernel and twin timed at the
+    bank's full shape;
+15. the AX.25 path end to end as in 5, counters set to 0 just before and
+    read just after: ``ax25_afsk1200_sweep8`` (8 ``afsk`` "1200" chains,
+    space gains 0.9 + 0.025 i, binary slicer 1200 Bd, AX.25, NRZI; 60-byte
+    payloads 2.5 s apart, every chain decoding every frame) and
+    ``mixed_afsk300_ax25_il2p`` (AFSK-300 correlator chains with IL2P+CRC,
+    descrambler invert no and yes, and one AX.25 chain: two codec
+    sub-groups; IL2P and AX.25 frames on 1600/1800 Hz tones), each
+    decoding every frame with none rejected, device-route packets equal to
+    the host route's, no warm run on the host fallback;
+16. the CLI as a subprocess on a WAV and an AFSK-1200 AX.25 config.
 
 Every bank must launch each kernel of its family at least once in its
 main-path run, or the script fails.
@@ -113,6 +131,7 @@ RATE = 8000
 PSK_RATE = 44100
 FSK_RATE = 96000  # the FSK-9600 bank (bench.py:229)
 FSK4_RATE = 48000  # the 4FSK bank (bench.py:230)
+AX25_RATE = 44100  # the AFSK-1200 AX.25 sweep, at a sound card's rate
 SECONDS = 600
 MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
@@ -147,7 +166,18 @@ PEAK_HOST_ROUTE_GIB = {
 # the forced-escalation phase's first budgets (tests/test_bank_runtime.py's
 # forced case): 2 packet slots a block and 64 candidate slots, fixed
 FORCED_BUDGETS = dict(max_packets_per_block=2, total_candidates=64)
+# the AX.25 path's traffic: APRS-sized payloads, frames 2.5 s apart at
+# 1200 Bd and 2.0 s at 300 Bd, the time between them filled with flags (an
+# HDLC link's interframe fill): a run of idle bits instead would close a
+# CRC-bad frame of idle bytes at the next flag whenever the run lands
+# byte-aligned, and where a block's deframer starts mid-run that turns on
+# the block's phase
+AX25_PAYLOAD = 60
+AX25_FILL_FLAGS = {1200: 375, 300: 75}
 SEED = 20261016
+# warm runs of each bank for its wall time: host-side walls vary from call
+# to call by 2x and more (PERF.md section 5)
+WARM_RUNS = 3
 # the H100 SXM's published peaks at its full 700 W:
 # HBM bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -211,6 +241,23 @@ FSK_LINES = {
     "qpsk_costas": _family_line("QPSK 2400 Il2Pc Costas", "qpsk", "2400",
                                 "quadrature", "qpsk_2400", "0x1"),
 }
+
+
+def _ax25_line(name: str, preset: str) -> dict:
+    """An AFSK AX.25 chain line, NRZI as ``ax25_line_bits`` codes the
+    frames (poly 0x3, inverted)."""
+    return {
+        "object_name": name, "object_type": "demod_chain",
+        "modem": {"type": "afsk", "config": preset, "options": {}},
+        "slicer": {"type": "binary", "config": preset, "options": {}},
+        "stream": {"type": "lfsr", "options": {"poly": "0x3",
+                                               "invert": "yes"}},
+        "codec": {"type": "ax25", "options": {}},
+    }
+
+
+AX25_LINES = {"afsk1200": _ax25_line("AFSK 1200 AX25", "1200"),
+              "afsk300": _ax25_line("AFSK 300 AX25", "300")}
 
 
 def _variant(spec, name, **modem):
@@ -284,6 +331,136 @@ def _fsk_banks():
                                          "carrier_freq", 1800.0, 0.25),
                                    PSK_RATE),
     }
+
+
+def _ax25_banks():
+    """The AX.25 path's two chain banks with each bank's sample rate: an
+    APRS receiver's 8-chain AFSK-1200 space-gain sweep around unity
+    (preset "1200", binary slicer 1200 Bd, AX.25) at 44.1 kHz, every chain
+    decoding every frame; and the reference's afsk_300.json pattern at
+    8 kHz, AFSK-300 correlator chains with IL2P+CRC (descrambler invert no
+    and yes) and one AX.25 chain in one bank, two codec sub-groups."""
+    from pymodem_tpu_torch.config import build_chain_spec
+
+    ax = build_chain_spec(float(AX25_RATE), AX25_LINES["afsk1200"])
+
+    def afsk300(line):
+        return build_chain_spec(float(RATE), line)
+
+    return {
+        "ax25_afsk1200_sweep8": (
+            [_variant(ax, f"ax{i}", space_gain=0.9 + 0.025 * i)
+             for i in range(8)], AX25_RATE),
+        "mixed_afsk300_ax25_il2p": (
+            [afsk300(_chain_line("AFSK 300 Il2Pc Correlator", "afsk")),
+             afsk300(_chain_line("AFSK 300 Il2Pc Correlator inverted",
+                                 "afsk", "yes")),
+             afsk300(AX25_LINES["afsk300"])], RATE),
+    }
+
+
+def _ax25_wire_seconds(size: int, bit_rate: float) -> float:
+    """Wire time of one AX.25 UI frame of ``size`` payload bytes: address,
+    control and PID (16 bytes), payload and CRC at the worst-case stuffing
+    of 6/5, plus 9 flags."""
+    return ((16 + size + 2) * 8 * 1.2 + 9 * 8) / bit_rate
+
+
+def _ax25_line_bits(payloads, fill_flags: int) -> list[int]:
+    """NRZI line bits (poly 0x3, inverted, as ``ax25_line_bits`` codes
+    them) of AX.25 UI frames with ``fill_flags`` flags before each and
+    after the last, led by an HDLC abort (eight ones) that ends whatever
+    the deframer collected before them."""
+    from pymodem_tpu_torch.synth import encode as enc
+
+    bits = [1] * 8
+    for payload in payloads:
+        bits += enc.hdlc_encode(enc.ax25_ui_frame("KI5ABC", "N0CALL",
+                                                  payload),
+                                flag_count=fill_flags)
+    bits += [0, 1, 1, 1, 1, 1, 1, 0] * fill_flags
+    return enc.scramble_bits(bits, 0x3, invert=True)
+
+
+def _ax25_audio(chain):
+    """600 s of 44.1 kHz int16 AFSK-1200 (1200/2200 Hz) for the AX.25
+    sweep: a segment of 3 AX.25 frames of 60-byte payloads 2.5 s apart
+    (``_ax25_line_bits``), tiled.  Returns (expected payloads in time
+    order, audio, segment length, max_packet_seconds: twice the frame's
+    wire time)."""
+    import numpy as np
+
+    from pymodem_tpu_torch.synth import fixtures as fx
+    from pymodem_tpu_torch.synth import modulate as mod
+
+    rng = np.random.default_rng(SEED)
+    sent = fx.payloads(rng, count=3, size=AX25_PAYLOAD)
+    m = chain.modem
+    seg = mod.to_int16(mod.afsk_modulate(
+        _ax25_line_bits(sent, AX25_FILL_FLAGS[1200]), float(AX25_RATE),
+        m.symbol_rate, m.mark_freq, m.space_freq))
+    reps = SECONDS * AX25_RATE // len(seg)
+    mps = 2.0 * _ax25_wire_seconds(AX25_PAYLOAD, m.symbol_rate)
+    return list(sent) * reps, np.tile(seg, reps), len(seg), mps
+
+
+def _mixed_audio():
+    """600 s of 8 kHz int16 AFSK-300 at 1600/1800 Hz (tones the "300"
+    preset decodes from any block phase): a segment of 3 IL2P+CRC frames
+    with 600 idle bits around each (``il2p_line_bits``, scrambler poly
+    0x3), then 2 AX.25 frames 2.0 s apart (``_ax25_line_bits``), 30-byte
+    payloads, tiled.  Returns (expected payloads in time order, audio,
+    segment length, max_packet_seconds: twice the longer frame's wire
+    time)."""
+    import numpy as np
+
+    from pymodem_tpu_torch.synth import fixtures as fx
+    from pymodem_tpu_torch.synth import modulate as mod
+
+    rng = np.random.default_rng(SEED)
+    il2p = fx.payloads(rng, count=3, size=30)
+    ax25 = fx.payloads(rng, count=2, size=30)
+    line = (fx.il2p_line_bits(il2p, polynomial=0x3, invert=False,
+                              gap_bits=600)
+            + _ax25_line_bits(ax25, AX25_FILL_FLAGS[300]))
+    seg = mod.to_int16(mod.afsk_modulate(line, float(RATE), 300.0, 1600.0,
+                                         1800.0))
+    reps = SECONDS * RATE // len(seg)
+    mps = 2.0 * max(_ax25_wire_seconds(30, 300.0),
+                    (3 + 15 + 30 + 16 + 4) * 8 / 300.0)
+    return (list(il2p) + list(ax25)) * reps, np.tile(seg, reps), len(seg), mps
+
+
+def _ax25_edge_rows(device):
+    """(rows (N, K) uint8, counts (N,) int32) for K9's edge cases: HDLC
+    frames among noise, runs of ones (stuffed zeros and aborts, more than
+    six ones), a frame over the 1023-byte cap, rows with more closing flags
+    than 8 packet slots, and counts of 0, short and past K."""
+    import numpy as np
+    import torch
+
+    from pymodem_tpu_torch.synth import encode as enc
+
+    g = np.random.default_rng(SEED)
+    bits = []
+    for i in range(12):
+        bits += [1] * int(g.integers(1, 12)) + [0] * int(g.integers(1, 3))
+        size = 1100 if i == 3 else int(g.integers(16, 60))
+        payload = bytes(g.integers(32, 127, size).astype(np.uint8))
+        bits += enc.hdlc_encode(enc.ax25_ui_frame("KI5ABC", "N0CALL",
+                                                  payload), flag_count=2)
+    bits += [0] * ((8 - len(bits) % 8) % 8)
+    stream = np.array(enc.bits_to_bytes_msb(bits), np.uint8)
+    n, K = 257, len(stream) + 61
+    rows = g.integers(0, 256, (n, K)).astype(np.uint8)
+    counts = g.integers(0, K + 60, n).astype(np.int32)
+    for r in range(0, n, 2):
+        shift = int(g.integers(0, K - len(stream)))
+        rows[r, shift:shift + len(stream)] = stream
+        counts[r] = shift + len(stream)
+    counts[1] = 0
+    return (torch.from_numpy(rows).to(device),
+            torch.from_numpy(counts).to(device))
 
 
 def _audio():
@@ -649,6 +826,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from pymodem_tpu_torch import _ext, profiling
+    from pymodem_tpu_torch.codecs.ax25_device import (
+        ax25_deframe,
+        ax25_deframe_rows,
+    )
     from pymodem_tpu_torch.config import ReportSpec, RunPlan
     from pymodem_tpu_torch.device import resolve
     from pymodem_tpu_torch.dsp.agc import agc_follower, agc_lanes
@@ -859,12 +1040,15 @@ def main() -> int:
                   f"{copies}; peak device memory {peak / 2**30:.2f} GiB, "
                   f"{peak / samples:.1f} bytes per chain-sample (budgeted "
                   f"{tbank._BYTES_PER_CHAIN_SAMPLE[bank_.kind]}); host-codec "
-                  f"route: {PEAK_HOST_ROUTE_GIB[name]} GiB [{smi}]")
+                  f"route: {PEAK_HOST_ROUTE_GIB.get(name, 'not measured')} "
+                  f"GiB [{smi}]")
 
     def report_banks(bank_chains, audios, rate_of, mps_of, seconds_of,
                      profile_codec=()):
-        """Warm rerun of each bank (rate, chains decoding; no block may go
-        to the host fallback), then a split of one run into device stages,
+        """WARM_RUNS warm reruns of each bank (walls, the median's rate,
+        chains decoding, the profiled stages over 20 ms of the slowest run;
+        no block may go to the host fallback), then a split of one run
+        into device stages,
         device codec with its readback (and its stages), host packet
         build, the aggregate (validate, correlate, reports) and, for
         comparison, the host codec on the same arrays, whose packets must
@@ -872,26 +1056,37 @@ def main() -> int:
         torch.profiler trace of their device codec."""
         for name, chains in bank_chains.items():
             plan_ = RunPlan(chains=tuple(chains), reports=reports)
-            profiling.reset()
-            profiling.enable(True)
-            t1 = time.time()
-            result = run(plan_, audios[name][1], rate_of[name], mps_of[name])
-            wall = time.time() - t1
-            profiling.enable(False)
-            counts = profiling.counts()
-            _check_bank(name, result, audios[name][0])
-            if counts.get("packet_fallback_blocks", 0):
-                raise AssertionError(
-                    f"bank {name}: the warm run sent "
-                    f"{counts['packet_fallback_blocks']} blocks to the host "
-                    f"fallback ({counts})")
+            walls, slowest = [], ""
+            for _ in range(WARM_RUNS):
+                profiling.reset()
+                profiling.enable(True)
+                t1 = time.time()
+                result = run(plan_, audios[name][1], rate_of[name],
+                             mps_of[name])
+                walls.append(time.time() - t1)
+                profiling.enable(False)
+                counts = profiling.counts()
+                _check_bank(name, result, audios[name][0])
+                if counts.get("packet_fallback_blocks", 0):
+                    raise AssertionError(
+                        f"bank {name}: the warm run sent "
+                        f"{counts['packet_fallback_blocks']} blocks to the "
+                        f"host fallback ({counts})")
+                if walls[-1] == max(walls):
+                    slowest = ", ".join(
+                        f"{k} {v:.3f}" for k, v in profiling.stages().items()
+                        if v > 0.02)
+            wall = sorted(walls)[len(walls) // 2]
             msps = len(chains) * len(audios[name][1]) / wall / 1e6
             # chains that decoded packets: the packet build scales with them
             decoding = len(result.aggregate.decoder_histogram)
             print(f"bank {name}: {len(chains)} chains x "
                   f"{seconds_of[name]:.1f} s, {decoding} of them decoding "
-                  f"packets, warm wall {wall:.3f} s, {msps:.1f} "
-                  f"chain-Msamples/s, device codec route, escalations "
+                  f"packets, warm walls "
+                  f"{', '.join(f'{w:.3f}' for w in walls)} s (median "
+                  f"{wall:.3f}; the slowest's profiled stages over 20 ms: "
+                  f"{slowest or 'none'}), {msps:.1f} chain-Msamples/s at "
+                  f"the median, device codec route, escalations "
                   f"{counts.get('device_codec_escalate', 0)}, fallback blocks "
                   f"0 [{smi}]")
         for name, chains in bank_chains.items():
@@ -1323,15 +1518,96 @@ def main() -> int:
           f"blocks {counts.get('packet_fallback_blocks', 0)}")
     _phase(13, "forced escalation == roomy run", t0)
 
+    # 14. K9 against its twin on the AX.25 sweep's own rows and on edge rows
+    t0 = time.time()
+    ax_banks = _ax25_banks()
+    ax_chains = {name: chains for name, (chains, _) in ax_banks.items()}
+    ax_rate = {name: rate for name, (_, rate) in ax_banks.items()}
+    ax_audio = {
+        "ax25_afsk1200_sweep8": _ax25_audio(
+            ax_chains["ax25_afsk1200_sweep8"][0]),
+        "mixed_afsk300_ax25_il2p": _mixed_audio(),
+    }
+    ax_mps = {name: a[3] for name, a in ax_audio.items()}
+    name = "ax25_afsk1200_sweep8"
+    bank = tbank.group_chains(ax_chains[name], dev)[0]
+    wave = torch.from_numpy(ax_audio[name][1]).to(dev)
+    plan = tbank.bank_plan(bank, len(wave), max_packet_seconds=ax_mps[name])
+    data, _, count, _ = tbank.dispatch_bank(bank, plan, wave,
+                                            tbank.sync_tolerance(bank))
+    rows = data.reshape(-1, data.shape[-1]).to(torch.uint8).contiguous()
+    counts = count.reshape(-1).contiguous()
+    del data, count, wave
+    N, K = rows.shape
+    mp = 8  # the bank's first packet-slot budget (run_banked's default)
+    err = _same(f"K9 on {name}'s {N} rows",
+                ax25_deframe_rows(rows, counts, mp, 18, 1023),
+                ax25_deframe(rows, counts, mp, 18, 1023))
+    edge_rows, edge_counts = _ax25_edge_rows(dev)
+    dropped = 0
+    for slots, cap in ((8, 1023), (2, 1023), (8, 200)):
+        got = ax25_deframe_rows(edge_rows, edge_counts, slots, 18, cap)
+        err = max(err, _same(f"K9 on edge rows, {slots} slots, cap {cap}",
+                             got, ax25_deframe(edge_rows, edge_counts, slots,
+                                               18, cap)))
+        dropped += int((got[6] > slots).sum())
+    if not dropped:
+        raise AssertionError("K9's edge rows held no more closing flags "
+                             "than packet slots")
+    plain = _time_ms(lambda: ax25_deframe(rows, counts, mp, 18, 1023), 1)
+    ms = _time_ms(lambda: ax25_deframe_rows(rows, counts, mp, 18, 1023), 5)
+    n_in = int(counts.clamp(0, K).sum())
+    kernels["K9"] = _kernel(
+        "ax25_deframe", "ax25_deframe.cu",
+        "pymodem_tpu/codecs/ax25_device.py:128", err, ms, plain,
+        n_in + 4 * N + 8 * N * K + 4 * N + 12 * N * mp + 4 * N,
+        20 * 8 * n_in, (N, K), (N, K), smi)
+    kernels["K9"]["replaces_kind"] = "lax.scan (no Pallas kernel)"
+    print(f"K9 rows {N} K {K} ({n_in} bytes in, {8 * n_in / N:.0f} bits a "
+          f"row on average): bitwise equal to its twin on the bank's rows "
+          f"and on {edge_rows.shape[0]} edge rows (stuffing, aborts, a frame"
+          f" over 1023 bytes, {dropped} rows with more closing flags than "
+          f"slots; 8 and 2 slots, caps 1023 and 200); twin {plain:.1f} ms "
+          f"at full {N}x{K}; kernel {ms:.3f} ms, one thread a row, 32 rows "
+          f"a block; bound {kernels['K9']['bound_ms']:.4f} ms [{smi}]")
+    del rows, counts, edge_rows, edge_counts
+    _phase(14, "K9 AX.25 deframer == twin", t0)
+
+    # 15. the AX.25 path end to end
+    t0 = time.time()
+    counted = {"K1": binary_slice_lanes, "K9": ax25_deframe_rows}
+    for fn in counted.values():
+        fn.launches = 0
+    for name, chains in ax_chains.items():
+        run_path({name: chains}, ax_audio, ax_rate, ax_mps,
+                 {name: counted},
+                 every_chain=name == "ax25_afsk1200_sweep8")
+    ax_launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"AX.25 path: launches {ax_launches}")
+    report_banks(ax_chains, ax_audio, ax_rate, ax_mps,
+                 {name: len(a[1]) / ax_rate[name]
+                  for name, a in ax_audio.items()})
+    _phase(15, "AX.25 path end to end", t0)
+
+    # 16. the CLI on an AX.25 config
+    t0 = time.time()
+    sent, xaudio, seg_len, _ = ax_audio["ax25_afsk1200_sweep8"]
+    n_seg = 60 * AX25_RATE // seg_len  # whole segments in the first 60 s
+    line = _cli((AX25_LINES["afsk1200"],), "afsk1200_ax25.wav", AX25_RATE,
+                xaudio[: n_seg * seg_len], 3 * n_seg)
+    print(f"CLI: {line}, exit 0")
+    _phase(16, "CLI subprocess (AFSK 1200 AX.25)", t0)
+
     for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]
-                           + fsk_launches["K1"]),
+                           + fsk_launches["K1"] + ax_launches["K1"]),
                           ("K2", afsk_launches["K2"]),
                           ("K3", psk_launches["K3"]),
                           ("K4", psk_launches["K4"]),
                           ("K5", fsk_launches["K5"]),
                           ("K6", psk_launches["K6"]),
                           ("K7", psk_launches["K7"] + fsk_launches["K7"]),
-                          ("K8", fsk_launches["K8"])):
+                          ("K8", fsk_launches["K8"]),
+                          ("K9", ax_launches["K9"])):
         kernels[key]["launches"] = fn_count
     kernels["K1"]["other_banks"] = {
         name: {key: k[key] for key in ("shape", "max_abs_err", "ms",

@@ -1,12 +1,21 @@
-"""Host (numpy/python) IL2P codec: the reference-exact state machines.
+"""Host (numpy/python) codecs: the reference-exact state machines.
 
-Re-homed copy of the IL2P half of ``pymodem_tpu.codecs.host`` (the JAX
-package's module reaches jax through its RS import).  These bit-exact
-mirrors of the reference FSMs run on the host in the port's banked
-host-codec route, fed by the device-computed byte streams and sync
-candidate maps.  Codec input is tiny (the slicer emits ~1 byte per 8
-symbols), so host execution costs microseconds per block.  The AX.25
-deframer is not carried yet (ROADMAP Queue 1, AX.25).
+Re-homed copy of ``pymodem_tpu.codecs.host`` (the JAX package's module
+reaches jax through its RS import).  These bit-exact mirrors of the
+reference FSMs run on the host in the port's banked host-codec route, fed
+by the device-computed byte streams and sync candidate maps, and decode
+the blocks the device codecs mark ``dropped``.  Codec input is tiny (the
+slicer emits ~1 byte per 8 symbols), so host execution costs microseconds
+per block.
+
+AX.25 deframer semantics (reference ax25.py:25-93):
+* bytes assemble LSB-first via right-shifts; input bits MSB-first per byte
+* run of five 1s -> next 0 is stuffed padding, dropped
+* run of six 1s + 0 -> flag: close the packet if >= 18 bytes collected and
+  the flag lands byte-aligned (bit_index == 7)
+* run of > 6 ones -> abort (byte/bit counters reset, collected bytes REMAIN
+  in the working packet -- a reference quirk kept)
+* a packet's data is everything collected since the previous flag.
 
 IL2P codec semantics (reference il2p.py:109-519): see Il2pDecoder below.
 """
@@ -22,6 +31,67 @@ from ..ops.crc import np_append_crc
 from ..ops.hamming import hamming74_decode
 from ..ops.lfsr import np_descramble_bytes
 from ..packets import Packet
+
+# ---------------------------------------------------------------------------
+# AX.25 / HDLC
+# ---------------------------------------------------------------------------
+
+
+def ax25_decode_host(data: np.ndarray, addresses: np.ndarray, ident,
+                     min_packet_length: int = 18,
+                     max_packet_length: int = 1023) -> list[Packet]:
+    packets: list[Packet] = []
+    collected: list[int] = []
+    working = 0
+    one_run = 0
+    bit_index = 0
+    byte_index = 0
+    for value, address in zip(np.asarray(data), np.asarray(addresses)):
+        value = int(value)
+        for bit_pos in range(7, -1, -1):
+            bit = (value >> bit_pos) & 1
+            if bit:
+                working |= 0x80
+                one_run += 1
+                bit_index += 1
+                if one_run > 6:  # abort: reset counters, keep collected bytes
+                    bit_index = 0
+                    byte_index = 0
+                if bit_index == 8:
+                    bit_index = 0
+                    collected.append(working)
+                    byte_index += 1
+                    if byte_index > max_packet_length:
+                        byte_index = 0
+                        one_run = 0
+                working >>= 1
+            else:
+                if one_run < 5:
+                    bit_index += 1
+                    if bit_index == 8:
+                        bit_index = 0
+                        collected.append(working)
+                        byte_index += 1
+                        if byte_index > max_packet_length:
+                            byte_index = 0
+                    working >>= 1
+                elif one_run == 5:
+                    pass  # stuffed zero
+                elif one_run == 6:  # flag (one_run > 6 only resets the count)
+                    if byte_index >= min_packet_length and bit_index == 7:
+                        packets.append(
+                            Packet(
+                                data=collected,
+                                streamaddress=int(address),
+                                source_decoder=ident,
+                            )
+                        )
+                    collected = []
+                    byte_index = 0
+                    bit_index = 0
+                one_run = 0
+    return packets
+
 
 # ---------------------------------------------------------------------------
 # IL2P

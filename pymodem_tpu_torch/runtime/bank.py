@@ -1,8 +1,8 @@
 """Banked, block-parallel chain execution on one GPU.
 
-Port of the parts of ``pymodem_tpu.runtime.bank`` that the IL2P decode of
-every modem family (``afsk``, ``afsk_pll``, ``bpsk``, ``qpsk``, ``mpsk``,
-``fsk``) runs on ``run_banked``, with the binary, quadrature and
+Port of the parts of ``pymodem_tpu.runtime.bank`` that the AX.25 and IL2P
+decode of every modem family (``afsk``, ``afsk_pll``, ``bpsk``, ``qpsk``,
+``mpsk``, ``fsk``) runs on ``run_banked``, with the binary, quadrature and
 four-level slicers:
 
 * **Chain bank axis**: chains with the same static structure (modem family
@@ -24,23 +24,23 @@ quadrature, K8 four-level), compaction,
 ``descramble_bytes_multi`` and ``il2p_sync_candidates``.  Then one of two
 codec routes:
 
-* ``codec="device"`` (the default, as in the JAX package): the IL2P codec
-  runs on the same device (``codecs/il2p_device.py``, one call per codec
-  sub-group of chains), compacts its packets into one buffer and reads it
+* ``codec="device"`` (the default, as in the JAX package): the codecs run
+  on the same device, one call per codec sub-group of chains (IL2P:
+  ``codecs/il2p_device.py``; AX.25: ``codecs/ax25_device.py``, whose bit
+  FSM is kernel K9), compact their packets into one buffer and read it
   back once; budgets that overflow escalate on the device, and only blocks
   still saturated after that go to the host state machines.
 * ``codec="host"``: the byte streams and sync maps come back to the host,
-  where the reference-exact IL2P state machines decode each block
-  (``codecs/host.py``).
+  where the reference-exact AX.25 and IL2P state machines decode each
+  block (``codecs/host.py``).
 
 ``PacketAggregate`` then correlates and reports.
 
 Deliberate differences from the JAX package: float32 only; no sequential
 executor, so a failing bank raises instead of being retried on the CPU
-(ROADMAP Queue 1, "the sequential executor"); no AX.25 codec on either
-route (Queue 1, "AX.25"); block geometry drops the TPU lane-tile snapping
-of ``plan_bank_run``, and the device codec route drops its TPU tiling and
-per-group pipelining.
+(ROADMAP Queue 1, "the sequential executor"); block geometry drops the TPU
+lane-tile snapping of ``plan_bank_run``, and the device codec route drops
+its TPU tiling and per-group pipelining.
 """
 
 from __future__ import annotations
@@ -175,15 +175,6 @@ class Bank:
     trim_post: int = 0
 
 
-def check_chain_supported(chain: ChainSpec) -> None:
-    """Raise NotImplementedError for chains outside the ported slice: every
-    modem and slicer is ported, the AX.25 codec is not."""
-    if chain.codec.kind != "il2p":
-        raise NotImplementedError(
-            f"chain {chain.name!r}: codec {chain.codec.kind!r} is not ported "
-            "yet (ROADMAP Queue 1, AX.25)")
-
-
 def _modem_geometry(kind: str, p) -> tuple[int, int, int]:
     """(input-rate trim, demod-rate trim_post, up) for the block plan: the
     sum of the modem cascade's FIR trims (taps - 1 each)."""
@@ -281,7 +272,6 @@ def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
     JAX package's grouping and leaf layout (float32)."""
     banks: dict[tuple, list] = {}
     for chain in chains:
-        check_chain_supported(chain)
         params = _chain_device_params(chain)
         sl = chain.slicer
         shapes = tuple((np.shape(v), str(np.asarray(v).dtype))
@@ -716,11 +706,18 @@ def _chain_bit_rate(chain: ChainSpec) -> float:
 
 
 def _protocol_max_packet_seconds(chain: ChainSpec) -> float:
-    """Wire time of the protocol-max IL2P frame at the chain's bit rate:
+    """Wire time of the codec's longest packet at the chain's bit rate:
+    what the block overlap must cover so that no protocol-legal packet
+    straddles a boundary unseen.  AX.25: max_packet_length decoded bytes
+    (ax25.py:15) at the worst-case HDLC stuffing of 6/5, plus flags.  IL2P:
     sync(3) + header(15) + 1023 payload + 16 parity per 239-byte block +
     CRC(4) bytes."""
-    payload = 1023
-    wire_bits = (3 + 15 + payload + -(-payload // 239) * 16 + 4) * 8
+    codec = chain.codec
+    if codec.kind == "ax25":
+        wire_bits = codec.max_packet_length * 8 * 1.2 + 32
+    else:
+        payload = 1023
+        wire_bits = (3 + 15 + payload + -(-payload // 239) * 16 + 4) * 8
     return wire_bits / _chain_bit_rate(chain)
 
 
@@ -871,14 +868,15 @@ def run_banked(chains: list[ChainSpec], audio: np.ndarray,
 
     ``audio`` is int16 (the WAV wire type, framed before the float32 cast)
     or float.  The device stages run on ``device``.  ``codec="device"``
-    (the default, as in the JAX package) decodes IL2P on the same device
-    (``il2p_decode_blocks``), reads back one packed buffer per codec
-    sub-group and runs the host state machines only for blocks whose
-    budgets still overflow after escalation; ``max_packets_per_block`` and
-    ``total_candidates`` are its first packet-slot and candidate budgets
-    (None: sized from the sync map).  ``codec="host"`` reads the byte
-    streams back and runs the reference-exact state machines on every
-    block with a sync candidate."""
+    (the default, as in the JAX package) decodes on the same device
+    (``il2p_decode_blocks``, ``ax25_decode_blocks``), reads back one packed
+    buffer per codec sub-group and runs the host state machines only for
+    blocks whose budgets still overflow after escalation;
+    ``max_packets_per_block`` and ``total_candidates`` are its first
+    packet-slot and (IL2P) candidate budgets (None: sized from the sync
+    map).  ``codec="host"`` reads the byte streams back and runs the
+    reference-exact state machines on every block (an IL2P chain's only
+    where it has a sync candidate)."""
     if codec not in ("device", "host"):
         raise ValueError(f"codec={codec!r}: expected 'device' or 'host'")
     dev = resolve(device)
@@ -892,11 +890,10 @@ def run_banked(chains: list[ChainSpec], audio: np.ndarray,
                          max_packet_seconds)
         tol = sync_tolerance(bank)
         arrays = dispatch_bank(bank, plan, audio_t, tol)
-        groups = _codec_subgroups(bank) if codec == "device" else None
-        if groups is not None:
+        if codec == "device":
             collect = _device_codec_submit_mixed(
-                bank, plan, groups, *arrays, max_packets_per_block,
-                total_candidates)
+                bank, plan, _codec_subgroups(bank), *arrays,
+                max_packets_per_block, total_candidates)
             results.update(collect())
         else:
             results.update(host_codec_collect(bank, plan, tol, arrays))
@@ -904,8 +901,9 @@ def run_banked(chains: list[ChainSpec], audio: np.ndarray,
 
 
 def host_codec_collect(bank: Bank, plan: BlockPlan, sync_tol: int, arrays):
-    """Read a bank's byte streams back and run the reference-exact IL2P
-    state machines per block, keeping packets inside each block's range."""
+    """Read a bank's byte streams back and run the reference-exact state
+    machines (AX.25 or IL2P, per chain) per block, keeping packets inside
+    each block's range."""
     from .. import profiling
     from ..codecs.host import il2p_seeded_sync_any
 
@@ -939,12 +937,22 @@ def host_codec_collect(bank: Bank, plan: BlockPlan, sync_tol: int, arrays):
 
 def host_decode_block(chain: ChainSpec, block_bytes: np.ndarray,
                       block_addr: np.ndarray, sync_row: np.ndarray | None):
-    """Run the chain's IL2P state machine over one block's byte stream.
-    ``sync_row``: the block's packed sync-candidate bitmap, or None to
-    rescan on the host."""
-    from ..codecs.host import il2p_decode_host, il2p_seeded_sync_possible
+    """Run the chain's codec state machine (AX.25 or IL2P) over one block's
+    byte stream.  ``sync_row``: the block's packed IL2P sync-candidate
+    bitmap, or None to rescan on the host."""
+    from ..codecs.host import (
+        ax25_decode_host,
+        il2p_decode_host,
+        il2p_seeded_sync_possible,
+    )
 
     codec = chain.codec
+    if codec.kind == "ax25":
+        return ax25_decode_host(
+            block_bytes, block_addr, codec.ident,
+            min_packet_length=codec.min_packet_length,
+            max_packet_length=codec.max_packet_length,
+        )
     n = len(block_bytes)
     candidates = None
     if sync_row is not None:
@@ -983,7 +991,7 @@ def _dedup_block_boundary(packets, chain):
 
 
 # ---------------------------------------------------------------------------
-# Device IL2P codec route
+# Device codec route
 # ---------------------------------------------------------------------------
 
 
@@ -993,33 +1001,40 @@ def bank_codec_step(codec_kind: str, data, addr, count, sync, plan: BlockPlan,
                     total_candidates: int | None = None,
                     total_rs_blocks: int | None = None,
                     scan_cap: int = 64, rs_fail_frac: int | None = 2,
-                    max_payload: int = 1023) -> dict:
-    """The device codec over dispatch_bank outputs: (C, B, cap) byte streams
-    -> fixed-capacity packet buffers (C, B, max_packets, ...).
+                    max_payload: int = 1023, min_packet_length: int = 18,
+                    max_packet_length: int = 1023) -> dict:
+    """The device codec (``"il2p"`` or ``"ax25"``) over dispatch_bank
+    outputs: (C, B, cap) byte streams -> fixed-capacity packet buffers
+    (C, B, max_packets, ...).
 
     Absolute stream addresses are formed on the device (block b's demod
     range starts at b*block_len - overlap), and each block's keep window
     (plan.keep_range) applies on the device, so halo duplicates never reach
-    the packed readback; the host filter stays as an idempotent guard.
-    IL2P only: the AX.25 device codec is not ported."""
+    the packed readback; the host filter stays as an idempotent guard."""
+    from ..codecs.ax25_device import ax25_decode_blocks
     from ..codecs.il2p_device import il2p_decode_blocks
 
-    if codec_kind != "il2p":
-        raise NotImplementedError(
-            f"device codec {codec_kind!r} is not ported (ROADMAP Queue 1, "
-            "AX.25)")
     n_blocks = data.shape[1]
     offsets = (torch.arange(n_blocks, dtype=torch.int32, device=data.device)
                * plan.block_len - plan.overlap)
     addr_abs = addr + offsets[None, :, None]
-    out = il2p_decode_blocks(
-        data.to(torch.uint8), sync, count, addr_abs,
-        max_packets=max_packets, collect_crc=collect_crc,
-        disable_rs=disable_rs, min_distance=min_distance,
-        total_candidates=total_candidates, total_rs_blocks=total_rs_blocks,
-        scan_cap=scan_cap, rs_fail_frac=rs_fail_frac,
-        max_payload=max_payload,
-    )
+    if codec_kind == "il2p":
+        out = il2p_decode_blocks(
+            data.to(torch.uint8), sync, count, addr_abs,
+            max_packets=max_packets, collect_crc=collect_crc,
+            disable_rs=disable_rs, min_distance=min_distance,
+            total_candidates=total_candidates,
+            total_rs_blocks=total_rs_blocks, scan_cap=scan_cap,
+            rs_fail_frac=rs_fail_frac, max_payload=max_payload,
+        )
+    elif codec_kind == "ax25":
+        out = ax25_decode_blocks(
+            data.to(torch.uint8), count, addr_abs, max_packets=max_packets,
+            min_packet_length=min_packet_length,
+            max_packet_length=max_packet_length,
+        )
+    else:
+        raise ValueError(codec_kind)
     lo = (torch.arange(n_blocks, device=data.device)
           * plan.block_len)[None, :, None]
     hi = (lo + plan.block_len).clamp(max=plan.n_demod)
@@ -1028,24 +1043,23 @@ def bank_codec_step(codec_kind: str, data, addr, count, sync, plan: BlockPlan,
 
 
 def _codec_static_key(codec):
-    """Static (kind, options) of one chain's device codec, or None when the
-    port has no device implementation for the codec type (AX.25)."""
+    """Static (kind, options) of one chain's device codec."""
     if codec.kind == "il2p":
         return ("il2p", codec.collect_trailing_crc, codec.disable_rs,
                 codec.min_distance, codec.sync_tolerance)
-    return None
+    if codec.kind == "ax25":
+        return ("ax25", codec.min_packet_length, codec.max_packet_length)
+    raise ValueError(f"no device codec for {codec.kind!r}")
 
 
 def _codec_subgroups(bank: Bank):
-    """[(codec_key, chain_index_list)] in config order, or None when some
-    chain's codec has no device implementation.  A bank mixing codec
-    options runs one device codec per sub-group of chains."""
+    """[(codec_key, chain_index_list)] in config order.  A bank mixing
+    codecs or codec options runs one device codec per sub-group of
+    chains."""
     order: list[tuple] = []
     groups: dict[tuple, list[int]] = {}
     for i, c in enumerate(bank.specs):
         key = _codec_static_key(c.codec)
-        if key is None:
-            return None
         if key not in groups:
             groups[key] = []
             order.append(key)
@@ -1114,7 +1128,8 @@ def _codec_out_sizes(ok, length) -> torch.Tensor:
     return torch.stack([okf.sum(dtype=torch.int64), lenf.sum(), lenf.max()])
 
 
-# row order of compact_codec_out's stacked metadata
+# row order of compact_codec_out's stacked metadata (AX.25 has no
+# ``corrected`` row)
 COMPACT_META_KEYS = ("address", "length", "chain", "block", "base",
                      "corrected")
 
@@ -1132,10 +1147,11 @@ def compact_codec_out(ok, address, length, corrected, packet, dropped,
     """Dense-pack the codec's fixed (C, B, P, Lmax) packet buffers on the
     device into ONE flat uint8 buffer: the exact output sizes (so a caller
     on cached budgets can check them from the same readback), the int32
-    metadata in COMPACT_META_KEYS row order, the per-block ``dropped``
-    counts, then ``meta_budget`` rows of ``len_budget`` length-masked
-    packet bytes.  Valid packets rank-compact into the metadata slots;
-    those past ``meta_budget`` are dropped (the sizes say so)."""
+    metadata in COMPACT_META_KEYS row order (without ``corrected`` when it
+    is None, as for AX.25), the per-block ``dropped`` counts, then
+    ``meta_budget`` rows of ``len_budget`` length-masked packet bytes.
+    Valid packets rank-compact into the metadata slots; those past
+    ``meta_budget`` are dropped (the sizes say so)."""
     C, B, Pk = ok.shape
     dev = ok.device
     okf = ok.reshape(-1)
@@ -1153,7 +1169,9 @@ def compact_codec_out(ok, address, length, corrected, packet, dropped,
     bi = torch.arange(B, device=dev)[None, :, None].expand(C, B, Pk)
     base = torch.cumsum(lenf, 0) - lenf
     meta_rows = [cmeta(address), cmeta(length), cmeta(ci), cmeta(bi),
-                 cmeta(base), cmeta(corrected)]
+                 cmeta(base)]
+    if corrected is not None:
+        meta_rows.append(cmeta(corrected))
     row_src = cmeta(torch.arange(C * B * Pk, device=dev))
     flat_pk = packet.reshape(C * B * Pk, -1)[:, :len_budget]
     rows = flat_pk[row_src]  # (meta_budget, len_budget) uint8
@@ -1231,6 +1249,11 @@ def _il2p_payload_budget(bank: Bank, plan: BlockPlan) -> int:
 def _dispatch_codec(codec_key, data, addr, count, sync, plan,
                     max_packets_per_block, total_candidates, scan_cap,
                     rs_fail_frac: int | None, max_payload: int) -> dict:
+    if codec_key[0] == "ax25":
+        return bank_codec_step(
+            "ax25", data, addr, count, sync, plan,
+            max_packets=max_packets_per_block,
+            min_packet_length=codec_key[1], max_packet_length=codec_key[2])
     return bank_codec_step(
         "il2p", data, addr, count, sync, plan,
         max_packets=max_packets_per_block,
@@ -1247,15 +1270,15 @@ def _dispatch_codec(codec_key, data, addr, count, sync, plan,
 
 
 def _read_compact(packed: torch.Tensor, meta_budget: int, len_budget: int,
-                  dropped_shape: tuple):
+                  dropped_shape: tuple, has_corrected: bool = True):
     """Read compact_codec_out's buffer back (one transfer) and split it by
     the budget sizes into (sizes, comp dict, dropped)."""
     flat = packed.cpu().numpy()
     n_ok, total_bytes, max_len = (int(v) for v in flat[:12].view("<i4"))
     off = 12
-    end = off + len(COMPACT_META_KEYS) * meta_budget * 4
-    comp = dict(zip(COMPACT_META_KEYS, flat[off:end].view("<i4").reshape(
-        len(COMPACT_META_KEYS), -1)))
+    keys = COMPACT_META_KEYS if has_corrected else COMPACT_META_KEYS[:-1]
+    end = off + len(keys) * meta_budget * 4
+    comp = dict(zip(keys, flat[off:end].view("<i4").reshape(len(keys), -1)))
     off = end
     dsize = int(np.prod(dropped_shape))
     dropped = flat[off : off + dsize * 4].view("<i4").reshape(dropped_shape)
@@ -1310,13 +1333,14 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
 
     def compact(out, meta_budget, len_budget):
         return compact_codec_out(
-            out["ok"], out["address"], out["length"], out["corrected"],
+            out["ok"], out["address"], out["length"], out.get("corrected"),
             out["packet"], out["dropped"], meta_budget, len_budget)
 
     def read(packed, meta_budget, len_budget):
         with profiling.timed("device_codec_transfer"):
             return _read_compact(packed, meta_budget, len_budget,
-                                 tuple(data.shape[:2]))
+                                 tuple(data.shape[:2]),
+                                 has_corrected=codec_key[0] == "il2p")
 
     def run_exact(mp, cand_budget, scan_cap, rs_frac, pay_budget):
         out = dispatch(mp, cand_budget, scan_cap, rs_frac, pay_budget)
@@ -1342,7 +1366,7 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
                 # so any saturated budget converges to exact
                 rs_frac = None
                 pay_budget = 1023
-                if total_candidates is None:
+                if total_candidates is None and cand_budget is not None:
                     cand_budget = cand_budget * 2
                 n_ok, meta_budget, len_budget, comp, dropped = run_exact(
                     mp, cand_budget, scan_cap, rs_frac, pay_budget
@@ -1392,8 +1416,10 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
         scan_cap = 64
         cand_budget = total_candidates
         mp = max_packets_per_block
-        pay0 = _il2p_payload_budget(bank, plan)
-        if total_candidates is None:
+        # AX.25 starts at max_packets_per_block and pays no IL2P budget
+        il2p = codec_key[0] == "il2p"
+        pay0 = _il2p_payload_budget(bank, plan) if il2p else 1023
+        if il2p and total_candidates is None:
             with profiling.timed("candidate_budget"):
                 cand_budget, scan_cap, max_pb = (
                     auto_candidate_budget_device(sync)
@@ -1504,7 +1530,9 @@ def packets_from_compact(bank, plan, comp, n_ok, dropped, data, addr, count,
             keep &= ~np.isin(key, fb_keys)
         idx = np.nonzero(keep)[0]
         flat_list = comp["bytes"].tolist()
-        corr_l = comp["corrected"][:n_ok][idx].tolist()
+        corrected = comp.get("corrected")
+        corr_l = (corrected[:n_ok][idx].tolist() if corrected is not None
+                  else [0] * len(idx))
         idents = [spec.codec.ident for spec in bank.specs]
         per_chain: dict[int, list] = {}
         with profiling.timed("packet_build"):

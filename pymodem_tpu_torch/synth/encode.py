@@ -1,10 +1,12 @@
-"""Transmit-side IL2P frame encoder (test-fixture generator), jax-free.
+"""Transmit-side frame encoders (test-fixture generators), jax-free.
 
-Port of the IL2P half of ``pymodem_tpu.synth.encode`` over the port's
-re-homed numpy codec modules, so audio can be synthesised where JAX is not
-installed.  The reference is decode-only, so the encoder is defined by
+Port of ``pymodem_tpu.synth.encode`` over the port's re-homed numpy codec
+modules, so audio can be synthesised where JAX is not installed.  The
+reference is decode-only, so every encoder is defined by
 ``decode(encode(x)) == x``:
 
+* AX.25/HDLC: flags + LSB-first bytes + zero stuffing + trailing CRC-16
+  (the deframer at ax25.py:25-93 consumes exactly this).
 * IL2P: syncword + 13-byte type-1 header (bitfield layout inverted from
   il2p.py:214-290) + RS parity + scrambled payload blocks + Hamming(7,4)
   trailing CRC (il2p.py:360-519).
@@ -42,6 +44,13 @@ def bytes_to_bits_msb(data) -> list[int]:
     return out
 
 
+def bytes_to_bits_lsb(data) -> list[int]:
+    out = []
+    for byte in data:
+        out.extend((int(byte) >> k) & 1 for k in range(8))
+    return out
+
+
 def bits_to_bytes_msb(bits) -> list[int]:
     assert len(bits) % 8 == 0
     return [
@@ -74,6 +83,50 @@ def scramble_bytes(data, polynomial: int, invert: bool = False,
     return bits_to_bytes_msb(
         scramble_bits(bytes_to_bits_msb(data), polynomial, invert, seed)
     )
+
+
+# ---------------------------------------------------------------------------
+# AX.25 / HDLC
+# ---------------------------------------------------------------------------
+
+
+def ax25_address_field(dest: str, source: str, dest_ssid: int = 0,
+                       source_ssid: int = 0) -> list[int]:
+    """14-byte AX.25 address field (callsigns shifted left, final ext bit)."""
+    out = [ord(c) << 1 for c in dest.ljust(6)[:6]]
+    out.append(((dest_ssid & 0xF) << 1) + 0x60 + 0x80)  # command bit set
+    out += [ord(c) << 1 for c in source.ljust(6)[:6]]
+    out.append(((source_ssid & 0xF) << 1) + 0x60 + 0x01)  # extension bit
+    return out
+
+
+def ax25_ui_frame(dest: str, source: str, payload: bytes,
+                  pid: int = 0xF0) -> list[int]:
+    """Address + UI control (0x03) + PID + payload + CRC16 (little-endian)."""
+    frame = ax25_address_field(dest, source)
+    frame += [0x03, pid]
+    frame += list(payload)
+    crc = np_crc16(np.asarray(frame, dtype=np.uint8))
+    frame += [crc & 0xFF, crc >> 8]
+    return frame
+
+
+def hdlc_encode(frame, flag_count: int = 4) -> list[int]:
+    """Frame bytes -> HDLC bit stream: flags, LSB-first bits, zero stuffing
+    after five 1s, closing flag."""
+    flag = [0, 1, 1, 1, 1, 1, 1, 0]
+    bits: list[int] = []
+    for _ in range(flag_count):
+        bits += flag
+    ones = 0
+    for bit in bytes_to_bits_lsb(frame):
+        bits.append(bit)
+        ones = ones + 1 if bit else 0
+        if ones == 5:
+            bits.append(0)
+            ones = 0
+    bits += flag
+    return bits
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Synthetic IL2P fixtures for the ported modem families, jax-free.
+"""Synthetic IL2P and AX.25 fixtures for every modem family, jax-free.
 
-Port of the IL2P part of ``pymodem_tpu.synth.fixtures``: modulated frames
-matched to a chain spec (AFSK, AFSK-PLL, BPSK, Costas QPSK, MPSK, FSK and
-4FSK), for tests and for
+Port of ``pymodem_tpu.synth.fixtures``: modulated frames matched to a
+chain spec (AFSK, AFSK-PLL, BPSK, Costas QPSK, MPSK, FSK and 4FSK, either
+codec), for tests and for
 ``chip_smoke.py`` on a machine without JAX.  Modulation goes through the
 port's copy of ``synth/modulate.py``.  The round trip
 decode(modulate(frames)) == frames is what the tests assert.
@@ -35,6 +35,19 @@ def il2p_line_bits(payloads, polynomial: int = 0x3, invert: bool = False,
     return enc.scramble_bits(bits, polynomial, invert)
 
 
+def ax25_line_bits(frames_payloads, polynomial: int = 0x3, invert: bool = True,
+                   gap_bits: int = 400, dest: str = "KI5ABC",
+                   source: str = "N0CALL") -> list[int]:
+    """Concatenated AX.25/HDLC frames, NRZI(+scramble)-encoded line bits."""
+    bits: list[int] = []
+    for payload in frames_payloads:
+        frame = enc.ax25_ui_frame(dest, source, payload)
+        bits += _idle_bits(gap_bits)
+        bits += enc.hdlc_encode(frame, flag_count=8)
+    bits += _idle_bits(gap_bits)
+    return enc.scramble_bits(bits, polynomial, invert)
+
+
 def payloads(rng: np.random.Generator, count: int = 3,
              size: int = 40) -> list[bytes]:
     """ASCII payloads (printable-header safe)."""
@@ -50,17 +63,18 @@ def payloads(rng: np.random.Generator, count: int = 3,
 def synthesize_for_chain(chain, rate: float, rng: np.random.Generator,
                          n_frames: int = 3, size: int = 30,
                          gap_bits: int = 600):
-    """Audio carrying ``n_frames`` IL2P frames, line-coded per the chain's
-    own spec (scrambler poly/invert, modem tones, carrier and rates).
-    Returns (sent_payloads, audio_float)."""
-    if chain.codec.kind != "il2p":
-        raise NotImplementedError(
-            "only IL2P fixtures are ported (AX.25: ROADMAP Queue 1 item 12)")
+    """Audio carrying ``n_frames`` frames, line-coded per the chain's own
+    spec (codec family, scrambler poly/invert, modem tones, carrier and
+    rates).  Returns (sent_payloads, audio_float)."""
     poly = chain.stream.polynomial if chain.stream else 0x1
     invert = bool(chain.stream.invert) if chain.stream else False
     sent = payloads(rng, count=n_frames, size=size)
-    line = il2p_line_bits(sent, polynomial=poly, invert=invert,
-                          gap_bits=gap_bits)
+    if chain.codec.kind == "ax25":
+        line = ax25_line_bits(sent, polynomial=poly, invert=invert,
+                              gap_bits=gap_bits)
+    else:
+        line = il2p_line_bits(sent, polynomial=poly, invert=invert,
+                              gap_bits=gap_bits)
     modem = chain.modem
     if modem.kind == "afsk":
         return sent, mod.afsk_modulate(line, rate, modem.symbol_rate,

@@ -68,8 +68,7 @@ CARRIER = [replace(PAIR[0], name=f"pll{i}",
 BANKS = {"sweep": SWEEP, "pll_pair": PAIR, "carrier_sweep": CARRIER}
 
 
-@pytest.fixture(scope="module")
-def audio():
+def _audio():
     """~9 s of int16 AFSK-300 (1695/1705 Hz) carrying 3 IL2P+CRC frames."""
     rng = np.random.default_rng(20261016)
     sent, x = tfx.synthesize_for_chain(BASE, float(RATE), rng, n_frames=3,
@@ -77,8 +76,7 @@ def audio():
     return sent, mod.to_int16(x)
 
 
-@pytest.fixture(scope="module")
-def audio_1600_1800():
+def _audio_1600_1800():
     """The same frames at 1600/1800 Hz (as chip_smoke.py synthesises), which
     the "300" preset's correlators decode from any block phase."""
     rng = np.random.default_rng(20261016)
@@ -86,6 +84,19 @@ def audio_1600_1800():
     line = tfx.il2p_line_bits(sent, polynomial=0x3, gap_bits=400)
     return sent, mod.to_int16(mod.afsk_modulate(line, float(RATE), 300.0,
                                                 1600.0, 1800.0))
+
+
+AUDIOS = {"audio": _audio, "audio_1600_1800": _audio_1600_1800}
+
+
+@pytest.fixture(scope="module")
+def audio():
+    return _audio()
+
+
+@pytest.fixture(scope="module")
+def audio_1600_1800():
+    return _audio_1600_1800()
 
 
 def _packets(by_name):
@@ -146,48 +157,81 @@ E2E_CASES = pytest.mark.parametrize(
     "name,audio_name", [("sweep", "audio"), ("pll_pair", "audio"),
                         ("sweep", "audio_1600_1800")],
     ids=["sweep", "pll_pair", "sweep_1600_1800"])
-_PORT_RUNS: dict = {}
+# Both packages' run_banked on one case, both codec routes, in a process of
+# its own that sets JAX up as the tests' conftest.py does (the CPU, x64 on)
+# but compiles its programs afresh, without the persistent compile cache:
+# the result cannot depend on what earlier test files left in a shared
+# test worker, nor on a cached executable compiled elsewhere.  Writes a
+# pickle of {(package, codec): (packets, decoded payloads)} to the given
+# file.
+_E2E_SCRIPT = """
+import pickle, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_compilation_cache", False)
+import jax.numpy as jnp
+sys.path.insert(0, sys.argv[1])
+import test_torch_bank as t
+name, audio_name, out = sys.argv[2:5]
+_, x = t.AUDIOS[audio_name]()
+runs = {}
+for codec in ("host", "device"):
+    for package, by_name in (
+            ("jax", t.jbank.run_banked(t.BANKS[name], x, dtype=jnp.float32,
+                                       codec=codec, **t.GEOM)),
+            ("port", t.tbank.run_banked(t.BANKS[name], x, codec=codec,
+                                        device="cpu", **t.GEOM))):
+        runs[package, codec] = (t._packets(by_name), sorted(
+            bytes(p.data[16:-2]) for pkts in by_name.values() for p in pkts))
+with open(out, "wb") as fh:
+    pickle.dump(runs, fh)
+"""
+_E2E_RUNS: dict = {}
 
 
-def _port_run(name, audio_name, x, codec):
-    """The port's run_banked on the CPU, once per (bank, audio, codec) in
-    this module."""
-    key = (name, audio_name, codec)
-    if key not in _PORT_RUNS:
-        _PORT_RUNS[key] = tbank.run_banked(BANKS[name], x, codec=codec,
-                                           device="cpu", **GEOM)
-    return _PORT_RUNS[key]
+def _e2e_runs(name, audio_name, tmp_path_factory):
+    """Both packages' packets on both routes for one case, computed once
+    per (bank, audio) in this module, in a fresh process (_E2E_SCRIPT)."""
+    import pickle
+
+    key = (name, audio_name)
+    if key not in _E2E_RUNS:
+        out = tmp_path_factory.mktemp("e2e") / "runs.pkl"
+        env = dict(os.environ, PYTHONPATH=REPO)
+        proc = subprocess.run(
+            [sys.executable, "-c", _E2E_SCRIPT,
+             os.path.join(REPO, "tests"), name, audio_name, str(out)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        with open(out, "rb") as fh:
+            _E2E_RUNS[key] = pickle.load(fh)
+    return _E2E_RUNS[key]
 
 
 @E2E_CASES
-def test_run_banked_matches_jax(name, audio_name, request):
+def test_run_banked_matches_jax(name, audio_name, tmp_path_factory):
     """Packets equal the JAX package's; the space-gain sweep also on
     1600/1800 Hz tones."""
-    sent, x = request.getfixturevalue(audio_name)
-    chains = BANKS[name]
-    want = jbank.run_banked(chains, x, dtype=jnp.float32, codec="host",
-                            **GEOM)
-    got = _port_run(name, audio_name, x, "host")
-    got_p, want_p = _packets(got), _packets(want)
+    sent, _ = AUDIOS[audio_name]()
+    runs = _e2e_runs(name, audio_name, tmp_path_factory)
+    (got_p, decoded), (want_p, _) = runs["port", "host"], runs["jax", "host"]
     assert got_p == want_p, _packet_diff(got_p, want_p)
-    decoded = [bytes(p.data[16:-2]) for pkts in got.values() for p in pkts]
-    assert sorted(decoded) == sorted(sent)
+    assert decoded == sorted(sent)
 
 
 @E2E_CASES
-def test_device_codec_matches_jax_and_host(name, audio_name, request):
+def test_device_codec_matches_jax_and_host(name, audio_name,
+                                           tmp_path_factory):
     """The device IL2P codec route (the default): packets equal the JAX
     package's device route and the port's host route on the same audio."""
-    sent, x = request.getfixturevalue(audio_name)
-    want = jbank.run_banked(BANKS[name], x, dtype=jnp.float32,
-                            codec="device", **GEOM)
-    got = _port_run(name, audio_name, x, "device")
-    host = _port_run(name, audio_name, x, "host")
-    got_p, want_p, host_p = _packets(got), _packets(want), _packets(host)
+    sent, _ = AUDIOS[audio_name]()
+    runs = _e2e_runs(name, audio_name, tmp_path_factory)
+    got_p, decoded = runs["port", "device"]
+    want_p, host_p = runs["jax", "device"][0], runs["port", "host"][0]
     assert got_p == want_p, _packet_diff(got_p, want_p)
     assert got_p == host_p, _packet_diff(got_p, host_p)
-    decoded = [bytes(p.data[16:-2]) for pkts in got.values() for p in pkts]
-    assert sorted(decoded) == sorted(sent)
+    assert decoded == sorted(sent)
 
 
 def test_run_plan_banked_report_matches_jax(audio):
@@ -231,17 +275,45 @@ def test_sync_tolerance_counts_il2p_chains_only():
     assert got == want == [2, 2, 0, 0, 2]
 
 
-def test_unported_chains_raise(audio):
-    """Every modem and slicer is ported; the AX.25 codec (on any modem) is
-    not, on either codec route."""
-    _, x = audio
-    fsk_ax25 = build_chain_spec(float(RATE), {
-        **_line("fsk", "afsk", codec="ax25"),
-        "modem": {"type": "fsk", "config": "9600", "options": {}}})
-    for chain in (fsk_ax25, _chain("ax", "afsk", codec="ax25")):
-        for codec in ("device", "host"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tbank.run_banked([chain], x, codec=codec, device="cpu")
+FSK_RATE = 96000  # the FSK-9600 preset's own rate (tests/test_torch_fsk.py)
+
+
+def _formerly_unported(kind):
+    """(chain, rate, sent payloads, int16 audio) for the two AX.25 chains
+    the port once refused: FSK-9600 AX.25 at 96 kHz and AFSK-300 AX.25 at
+    8 kHz (on 1600/1800 Hz tones, which the "300" preset decodes from any
+    block phase), each on 3 AX.25 frames of its own."""
+    rng = np.random.default_rng(20261020)
+    if kind == "fsk_ax25":
+        chain = build_chain_spec(float(FSK_RATE), {
+            **_line("fsk", "afsk", codec="ax25"),
+            "modem": {"type": "fsk", "config": "9600", "options": {}},
+            "slicer": {"type": "binary", "config": "9600", "options": {}}})
+        sent, x = tfx.synthesize_for_chain(chain, float(FSK_RATE), rng,
+                                           n_frames=3, size=10)
+        return chain, FSK_RATE, sent, mod.to_int16(x)
+    chain = _chain("ax", "afsk", codec="ax25")
+    sent = tfx.payloads(rng, count=3, size=10)
+    line = tfx.ax25_line_bits(sent, polynomial=0x3, invert=False,
+                              gap_bits=400)
+    return chain, RATE, sent, mod.to_int16(
+        mod.afsk_modulate(line, float(RATE), 300.0, 1600.0, 1800.0))
+
+
+@pytest.mark.parametrize("kind", ["fsk_ax25", "afsk_ax25"])
+def test_unported_chains_raise(kind):
+    """The two AX.25 chains this test once saw refused (the AX.25 codec was
+    not ported) now run on both codec routes and give the JAX package's
+    packets on the same audio, every frame decoded."""
+    chain, rate, sent, x = _formerly_unported(kind)
+    for codec in ("device", "host"):
+        want = jbank.run_banked([chain], x, dtype=jnp.float32, codec=codec,
+                                **GEOM)
+        got = tbank.run_banked([chain], x, codec=codec, device="cpu", **GEOM)
+        got_p, want_p = _packets(got), _packets(want)
+        assert got_p == want_p, _packet_diff(got_p, want_p)
+        decoded = {bytes(p.data[16:-2]) for p in got[chain.name]}
+        assert set(sent) <= decoded, (kind, codec)
 
 
 def _cli(module, *args, env_extra=None):

@@ -2,9 +2,11 @@
 
 ``pymodem_tpu_torch`` imports nothing of ``pymodem_tpu``, so it carries
 copies of ``config``, ``dsp/window_design``, ``ops/hamming``,
-``synth/modulate`` and ``wav_io``.  Each copy must equal its original:
-the same specs for every preset of every modem and slicer type, the same
-filter taps and tables bitwise, the same audio sample for sample.
+``synth/modulate`` and ``wav_io``, and re-homed copies of the AX.25
+deframer (``codecs/host``) and encoders (``synth/encode``,
+``synth/fixtures``).  Each copy must equal its original: the same specs for
+every preset of every modem and slicer type, the same filter taps and
+tables bitwise, the same packets, bits and audio sample for sample.
 """
 
 import dataclasses
@@ -161,3 +163,77 @@ def test_hamming_and_wav_io_equal(tmp_path):
     np.testing.assert_array_equal(back, data)
     jwav.write_wav(str(tmp_path / "b.wav"), 8000, data)
     assert twav.read_wav(str(tmp_path / "b.wav"))[0] == 8000
+
+
+def test_ax25_host_decoder_equal():
+    """The re-homed AX.25 deframer gives the JAX package's packets (bytes,
+    address, ident) on frames, noise, stuffing and aborts, the byte
+    counter's reset past max_packet_length and a short length cap."""
+    from pymodem_tpu.codecs.host import ax25_decode_host as jdec
+    from pymodem_tpu.synth import encode as jenc
+    from pymodem_tpu_torch.codecs.host import ax25_decode_host as tdec
+
+    rng = np.random.default_rng(11)
+    bits = []
+    for i in range(5):
+        bits += [1] * int(rng.integers(1, 12)) + [0] * int(rng.integers(1, 3))
+        bits += [int(b) for b in rng.integers(0, 2, 150)]
+        payload = bytes(rng.integers(32, 127, 15 + 300 * (i == 2)).astype(
+            np.uint8))
+        bits += jenc.hdlc_encode(jenc.ax25_ui_frame("KI5ABC", "N0CALL",
+                                                    payload), flag_count=2)
+    bits += [0] * ((8 - len(bits) % 8) % 8)
+    framed = np.array(jenc.bits_to_bytes_msb(bits), np.int64)
+    noise = rng.integers(0, 256, 4000).astype(np.int64)
+    n = 0
+    for data in (framed, noise, np.concatenate([noise, framed])):
+        addr = np.arange(len(data), dtype=np.int64) * 3 + 7
+        for lo, hi in ((18, 1023), (18, 200), (30, 1023)):
+            got, want = (
+                [(list(map(int, p.data)), p.streamaddress, p.source_decoder)
+                 for p in dec(data, addr, "ax", min_packet_length=lo,
+                              max_packet_length=hi)]
+                for dec in (tdec, jdec))
+            assert got == want
+            n += len(want)
+    assert n > 10
+
+
+def test_ax25_encoders_and_fixtures_equal():
+    """The AX.25 frame encoders, line coder and chain fixture give the JAX
+    package's bits, bytes and audio."""
+    from pymodem_tpu.config import build_chain_spec as jbuild
+    from pymodem_tpu.synth import encode as jenc
+    from pymodem_tpu.synth import fixtures as jfx
+    from pymodem_tpu_torch.synth import encode as tenc
+    from pymodem_tpu_torch.synth import fixtures as tfx
+
+    frame = ([0x7E, 0xFF, 0x00, 0x1F] * 9)[:30]
+    assert tenc.bytes_to_bits_lsb(frame) == jenc.bytes_to_bits_lsb(frame)
+    assert tenc.ax25_address_field("KI5ABC", "N0", 3, 12) == \
+        jenc.ax25_address_field("KI5ABC", "N0", 3, 12)
+    assert tenc.ax25_ui_frame("AB1CDE", "FG2HIJ", b"hello\xff", 0xCF) == \
+        jenc.ax25_ui_frame("AB1CDE", "FG2HIJ", b"hello\xff", 0xCF)
+    for flags in (1, 4):
+        assert tenc.hdlc_encode(frame, flags) == jenc.hdlc_encode(frame,
+                                                                  flags)
+    payloads = [b"0123456789", b"\xff" * 12]
+    for poly, invert in ((0x3, True), (0x63003, False)):
+        assert tfx.ax25_line_bits(payloads, poly, invert, 50) == \
+            jfx.ax25_line_bits(payloads, poly, invert, 50)
+    line = {"object_name": "a", "object_type": "demod_chain",
+            "modem": {"type": "afsk", "config": "1200"},
+            "slicer": {"type": "binary", "config": "1200"},
+            "stream": {"type": "lfsr", "options": {"poly": "0x3",
+                                                   "invert": "yes"}},
+            "codec": {"type": "ax25"}}
+    for rate in (8000.0, 44100.0):
+        got = tfx.synthesize_for_chain(tcfg.build_chain_spec(rate, line),
+                                       rate, np.random.default_rng(4),
+                                       n_frames=2, size=12, gap_bits=100)
+        want = jfx.synthesize_for_chain(jbuild(rate, line), rate,
+                                        np.random.default_rng(4),
+                                        n_frames=2, size=12, gap_bits=100)
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(np.asarray(got[1]),
+                                      np.asarray(want[1]))

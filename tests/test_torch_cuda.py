@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K8) on the card, against their plain twins.
+"""The port's CUDA kernels (K1-K9) on the card, against their plain twins.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it also
 runs where JAX is not installed (the tests' conftest.py imports JAX, so run
@@ -609,6 +609,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                  cosine)
     with pytest.raises(ValueError, match="NCO tables"):
         tloops.qpsk_costas_lanes(x, rows17, sine[:128], cosine)
+    from pymodem_tpu_torch.codecs import ax25_device as tax
+
+    rows = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
+    counts = torch.full((4,), 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="uint8"):
+        tax.ax25_deframe_rows(rows.int(), counts, 8, 18, 1023)
+    with pytest.raises(ValueError, match="int32"):
+        tax.ax25_deframe_rows(rows, counts.long(), 8, 18, 1023)
+    with pytest.raises(ValueError, match="contiguous"):
+        tax.ax25_deframe_rows(rows.t().contiguous().t(), counts, 8, 18, 1023)
 
 
 # ---------------------------------------------------------------------------
@@ -728,3 +738,57 @@ def test_il2p_decode_blocks_on_the_card_matches_cpu(cuda, kw, overflows):
         assert torch.equal(got[key].cpu(), want[key]), key
     assert want["ok"].sum() > 0
     assert bool(want["dropped"].any()) == overflows
+
+
+def _ax25_rows(n_rows, seed):
+    """(n_rows, K) uint8 rows, int32 counts: HDLC frames among noise, runs
+    of ones (stuffing and aborts), a frame over 1023 bytes, and counts past
+    K, zero and short."""
+    from pymodem_tpu_torch.synth import encode as enc
+
+    g = np.random.default_rng(seed)
+    bits = []
+    for i in range(6):
+        bits += [1] * int(g.integers(1, 12)) + [0] * int(g.integers(1, 3))
+        bits += [int(b) for b in g.integers(0, 2, 120)]
+        size = 1100 if i == 3 else int(g.integers(16, 60))
+        payload = bytes(g.integers(32, 127, size).astype(np.uint8))
+        bits += enc.hdlc_encode(enc.ax25_ui_frame("KI5ABC", "N0CALL",
+                                                  payload), flag_count=2)
+    bits += [0] * ((8 - len(bits) % 8) % 8)
+    stream = np.array(enc.bits_to_bytes_msb(bits), np.uint8)
+    K = len(stream) + 37
+    data = g.integers(0, 256, (n_rows, K)).astype(np.uint8)
+    counts = g.integers(0, K + 60, n_rows).astype(np.int32)
+    for r in range(0, n_rows, 3):
+        shift = int(g.integers(0, K - len(stream)))
+        data[r, shift:shift + len(stream)] = stream
+        counts[r] = shift + len(stream)
+    counts[1:2] = 0
+    return torch.from_numpy(data), torch.from_numpy(counts)
+
+
+@pytest.mark.parametrize("n_rows,max_packets", [(1, 8), (45, 8), (300, 2)])
+def test_ax25_deframe_kernel_matches_twin(cuda, n_rows, max_packets):
+    """K9 against its plain twin on the card, every output bitwise, and
+    ax25_decode_blocks on the card against the CPU."""
+    from pymodem_tpu_torch.codecs import ax25_device as tax
+
+    data, counts = _ax25_rows(n_rows, 13 + n_rows)
+    d, c = data.to(cuda), counts.to(cuda)
+    before = tax.ax25_deframe_rows.launches
+    got = tax.ax25_deframe_rows(d, c, max_packets, 18, 1023)
+    assert tax.ax25_deframe_rows.launches == before + 1
+    want = tax.ax25_deframe(d, c, max_packets, 18, 1023)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    addr = torch.arange(data.numel(), dtype=torch.int32).reshape(data.shape)
+    on_card = tax.ax25_decode_blocks(d, c, addr.to(cuda),
+                                     max_packets=max_packets)
+    on_cpu = tax.ax25_decode_blocks(data, counts, addr,
+                                    max_packets=max_packets)
+    for key, value in on_cpu.items():
+        assert torch.equal(on_card[key].cpu(), value), key
+    if max_packets == 2:
+        assert int(on_cpu["dropped"].max()) > 0
