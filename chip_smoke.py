@@ -18,7 +18,12 @@ hand-written kernel (K1-K9) against its plain PyTorch twin:
   (kernels K8 four-level slicer, K5 QPSK Costas + AGC, and K1, K7 again);
 * the AX.25 path: an 8-chain AFSK-1200 AX.25 space-gain sweep (44.1 kHz)
   and a mixed AFSK-300 AX.25/IL2P+CRC bank (8 kHz), 600 s each (kernels
-  K9 AX.25 deframer, K1 again).
+  K9 AX.25 deframer, K1 again);
+* the other front doors, on those paths' recordings: ``run_banked_many``,
+  ``run_banked_files``, ``run_plans_banked_pipelined``, the sequential
+  executor (every family, its kernels at one lane), the resilient retry
+  and the decode server (kernels K1-K9 again), all with
+  ``resilient=False`` but the retry phase.
 
 Phases, each printing one line with its seconds:
 
@@ -101,7 +106,32 @@ Phases, each printing one line with its seconds:
     sub-groups; IL2P and AX.25 frames on 1600/1800 Hz tones), each
     decoding every frame with none rejected, device-route packets equal to
     the host route's, no warm run on the host fallback;
-16. the CLI as a subprocess on a WAV and an AFSK-1200 AX.25 config.
+16. the CLI as a subprocess on a WAV and an AFSK-1200 AX.25 config;
+17. ``run_banked_many(depth=1)`` over three 600 s recordings of
+    ``pll_sweep8`` (the AFSK path's audio, and twice with noise added):
+    packets equal to solo ``run_banked`` calls, every frame, no sizing
+    readback in the warm call (``profiling`` counts), the walls of the
+    pipelined call and of the three solo calls; the stream
+    synchronisations in one warm submit, by source line (torch's sync
+    debug mode; it fails unless there are none), and the pipelined walls with the codec's pinned,
+    non-blocking readback against a blocking ``.cpu()`` in ``collect()``;
+18. ``run_banked_files`` over 600 (591), 300 and 45 s files of
+    ``sweep64`` and ``ax25_afsk1200_sweep8`` (correlator banks, no AGC):
+    each file's packets equal to its solo ``run_banked``;
+19. ``run_plans_banked_pipelined`` over the AFSK and QPSK-2400 CLI
+    configs (60 s each): reports equal to per-job ``run_plan_banked``;
+20. the sequential executor, one chain per family (AFSK-300 correlator
+    and PLL, BPSK-1200, MPSK QPSK-2400, Costas QPSK-2400, FSK-9600, 4FSK,
+    AFSK-1200 AX.25) over 60 s of its path's recording: every frame, 0
+    rejected, its family's kernels launched, each kernel at one lane equal
+    to its twin on a prefix of its own inputs; seconds a chain;
+21. an injected bank failure: ``run_plan_banked`` retries chain by chain
+    through the executor on the card, with the JAX package's message;
+22. the decode server as a subprocess: one request cold and warm, then
+    three queued requests (two configs and an unreadable WAV).
+
+Phases 17-22 and the CLI phases fail if any output holds "banked runtime
+failed" or "skipped chain" (the retry's messages), but phase 21's own.
 
 Every bank must launch each kernel of its family at least once in its
 main-path run, or the script fails.
@@ -721,19 +751,22 @@ def _packet_rows(by_name) -> dict:
             for name, pkts in by_name.items()}
 
 
-def _same_packets(name, got, want) -> None:
-    """Raise unless two routes' {chain: packets} are equal (address,
-    bytes, corrections); print the first differences of each chain."""
+def _same_packets(name, got, want, sides=("device route", "host route")
+                  ) -> None:
+    """Raise unless two runs' {chain: packets} are equal (address, bytes,
+    corrections); print the first differences of each chain.  ``sides``
+    names the two runs (by default the device and the host codec route on
+    the same arrays)."""
     got, want = _packet_rows(got), _packet_rows(want)
     if got == want:
         return
     for chain in sorted(set(got) | set(want)):
         a, b = set(got.get(chain, [])), set(want.get(chain, []))
         if a != b:
-            print(f"  {name} {chain}: device route only "
-                  f"{sorted(a - b)[:3]}, host route only {sorted(b - a)[:3]}")
-    raise AssertionError(f"bank {name}: the device codec's packets differ "
-                         f"from the host codec's on the same arrays")
+            print(f"  {name} {chain}: {sides[0]} only {sorted(a - b)[:3]}, "
+                  f"{sides[1]} only {sorted(b - a)[:3]}")
+    raise AssertionError(f"{name}: the {sides[0]}'s packets differ from the "
+                         f"{sides[1]}'s")
 
 
 def _profile_summary(events) -> tuple:
@@ -811,11 +844,590 @@ def _cli(cfg_lines, wav, rate, audio, expected: int) -> str:
     if proc.returncode != 0:
         raise AssertionError(f"CLI exited {proc.returncode}:\n"
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    _no_retry("CLI", proc.stdout)
     line = f"Unique, valid packets:  {expected}"
     if line not in proc.stdout:
         raise AssertionError(f"CLI did not print {line!r}:\n"
                              f"{proc.stdout[-3000:]}")
     return line
+
+
+# phrases of the resilient retry: the new paths run with resilient=False,
+# and no CLI or server output may hold them
+RETRY_PHRASES = ("banked runtime failed", "skipped chain")
+# the executor phase: 60 s of each family's recording, whole segments
+EXECUTOR_SECONDS = 60
+# the pipelining phase: int16 noise added to the AFSK recording, so that
+# the three recordings differ (-40 dB against its peak)
+NOISE_STD = 300.0
+
+
+def _no_retry(what: str, text: str) -> None:
+    hits = [p for p in RETRY_PHRASES if p in text]
+    if hits:
+        raise AssertionError(f"{what} printed {hits}:\n{text[-3000:]}")
+
+
+def _whole_segments(sent, wave, seg_len, rate, seconds):
+    """(payloads, audio) of the whole segments in the first ``seconds`` of
+    a tiled recording (3 frames a segment)."""
+    n_seg = max(seconds * rate // seg_len, 1)
+    return list(sent[: 3 * n_seg]), wave[: n_seg * seg_len]
+
+
+def _executor_cases(afsk, psk, fsk, ax):
+    """The executor phase's chains, one per family, each with (rate,
+    payloads, audio): the first EXECUTOR_SECONDS of the paths' own
+    recordings (AFSK-300 correlator and PLL at 8 kHz on the AFSK path's
+    audio; BPSK-1200, MPSK QPSK-2400 and Costas QPSK-2400 at 44.1 kHz;
+    FSK-9600 at 96 kHz; 4FSK at 48 kHz; AFSK-1200 AX.25 at 44.1 kHz)."""
+    from pymodem_tpu_torch.config import build_chain_spec
+
+    sent, wave = afsk
+    seg = len(wave) // (SECONDS // 30)
+    afsk60 = (RATE,) + _whole_segments(sent, wave, seg, RATE,
+                                       EXECUTOR_SECONDS)
+    cases = {
+        "afsk300": (build_chain_spec(float(RATE), _chain_line(
+            "AFSK 300 Il2Pc Correlator", "afsk")),) + afsk60,
+        "afsk300_pll": (build_chain_spec(float(RATE), _chain_line(
+            "AFSK 300 Il2Pc PLL", "afsk_pll")),) + afsk60,
+    }
+    for name, line, rate, (sent_, wave_, seg_len, _) in (
+            ("bpsk1200", PSK_LINES["bpsk"], PSK_RATE,
+             psk["bpsk1200_sweep8"]),
+            ("mpsk_qpsk2400", PSK_LINES["qpsk"], PSK_RATE,
+             psk["qpsk2400_sweep8"]),
+            ("qpsk2400_costas", FSK_LINES["qpsk_costas"], PSK_RATE,
+             fsk["qpsk_costas2400_sweep8"]),
+            ("fsk9600", FSK_LINES["fsk9600"], FSK_RATE,
+             fsk["fsk9600_sweep8"]),
+            ("fsk4_9600", FSK_LINES["fsk4"], FSK4_RATE,
+             fsk["fsk4_9600_sweep8"]),
+            ("afsk1200_ax25", AX25_LINES["afsk1200"], AX25_RATE,
+             ax["ax25_afsk1200_sweep8"])):
+        cases[name] = (build_chain_spec(float(rate), line), rate) + \
+            _whole_segments(sent_, wave_, seg_len, rate, EXECUTOR_SECONDS)
+    return cases
+
+
+def _one_lane_checks(chain, wave, dev):
+    """Each kernel of the chain's executor path at one lane against its
+    twin on the first SLICE samples of its own inputs (from the whole
+    recording ``wave``): bitwise.  Returns (the kernels checked, seconds
+    of the chain's device stages: demod, slicer, compaction)."""
+    import torch
+
+    from pymodem_tpu_torch import modems
+    from pymodem_tpu_torch.dsp.agc import agc_follower, agc_lanes
+    from pymodem_tpu_torch.dsp.fir import fir_valid_nd
+    from pymodem_tpu_torch.dsp.loops import (
+        afsk_pll,
+        afsk_pll_lanes,
+        bpsk_costas,
+        bpsk_costas_lanes,
+        mpsk_loop,
+        mpsk_loop_lanes,
+        qpsk_costas,
+        qpsk_costas_lanes,
+    )
+    from pymodem_tpu_torch.ops.slicers import (
+        binary_slice,
+        binary_slice_lanes,
+        four_level_slice,
+        four_level_slice_lanes,
+        quadrature_slice,
+        quadrature_slice_lanes,
+    )
+    from pymodem_tpu_torch.runtime.executor import (
+        run_slicer,
+        slicer_lane_params,
+    )
+
+    m, sl = chain.modem, chain.slicer
+    params = modems.build_params(m)
+    audio = torch.from_numpy(wave).to(dev).to(torch.float32)
+    checked = []
+
+    def cut(t):
+        return t[..., :SLICE].contiguous()
+
+    if m.kind in ("afsk_pll", "bpsk", "qpsk"):
+        x, rows = modems.coherent_loop_inputs(m, params, audio)
+        x = cut(x)
+        tables = modems.nco_tables(dev)
+        kernel, twin, key = {
+            "afsk_pll": (afsk_pll_lanes, afsk_pll, "K2"),
+            "bpsk": (bpsk_costas_lanes, bpsk_costas, "K3"),
+            "qpsk": (qpsk_costas_lanes, qpsk_costas, "K5")}[m.kind]
+        tabs = tables[:1] if m.kind == "afsk_pll" else tables
+        _same(f"{key} at one lane on {chain.name}", kernel(x, rows, *tabs),
+              twin(x, rows, *tabs))
+        checked.append(key)
+    if m.kind == "mpsk":
+        x = fir_valid_nd(audio, params.input_bpf)
+        rows = modems.agc_rows(params.agc, x).contiguous()
+        xs = cut(x[None])
+        _same(f"K4 at one lane on {chain.name}", agc_lanes(xs, rows),
+              agc_follower(xs, rows))
+        re, im, rows, table, index = modems.mpsk_loop_inputs(m, params,
+                                                             audio)
+        args = (rows, *modems.nco_tables(dev), table, index)
+        _same(f"K6 at one lane on {chain.name}",
+              mpsk_loop_lanes(cut(re), cut(im), *args),
+              mpsk_loop(cut(re), cut(im), *args))
+        checked += ["K4", "K6"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    base = modems.demod(m, params, audio)
+    run_slicer(sl, base)
+    torch.cuda.synchronize()
+    device_s = time.time() - t0
+    lp = slicer_lane_params(sl, dev)
+    if sl.kind == "quadrature":
+        i_d, q_d = (cut(t[None]) for t in base)
+        _same(f"K7 at one lane on {chain.name}",
+              quadrature_slice_lanes(i_d, q_d, lp, sl.demap, sl.state_mask,
+                                     sl.bits_per_symbol),
+              quadrature_slice(i_d, q_d, lp, sl.demap, sl.state_mask,
+                               sl.bits_per_symbol))
+        checked.append("K7")
+    elif sl.kind == "4level":
+        xs = cut(base[None])
+        _same(f"K8 at one lane on {chain.name}",
+              four_level_slice_lanes(xs, lp, sl.demap),
+              four_level_slice(xs, lp, sl.demap))
+        checked.append("K8")
+    else:
+        xs = cut(base[None])
+        _same(f"K1 at one lane on {chain.name}", binary_slice_lanes(xs, lp),
+              binary_slice(xs, lp))
+        checked.append("K1")
+    return checked, device_s
+
+
+def _serve_phase(requests_single, queued, device: str) -> dict:
+    """The decode server as a subprocess on the card: one request cold
+    (the server's first), the same request warm, then ``queued`` requests
+    sent together (drained into one batch by the accept window, default
+    0.05 s, which every request also waits out).
+    ``requests_single`` and each of ``queued`` are (config, wav, expected
+    exit code, expected 'Unique, valid packets' count or None).  Raises
+    unless every answer has its exit code and count and none holds a
+    retry phrase; stops the server.  ``device``: the server's
+    PYMODEM_TPU_TORCH_DEVICE.  Returns the request walls."""
+    import threading
+
+    from pymodem_tpu_torch.serve import client_request, client_shutdown
+
+    tmp = tempfile.mkdtemp()
+    sock = os.path.join(tmp, "serve.sock")
+    env = dict(os.environ, PYTHONPATH=ROOT, PYMODEM_TPU_TORCH_DEVICE=device)
+    env.pop("PYMODEM_TPU_TORCH_SERVE_BATCH_WINDOW", None)
+    log_path = os.path.join(tmp, "server.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pymodem_tpu_torch.serve", sock], cwd=ROOT,
+        env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def check(what, answer, code, count):
+        got_code, output = answer
+        _no_retry(what, output)
+        line = f"Unique, valid packets:  {count}"
+        if got_code != code or (count is not None and line not in output):
+            raise AssertionError(f"{what}: exit {got_code} (expected {code}"
+                                 f"), {line!r} expected:\n{output[-3000:]}")
+
+    try:
+        for _ in range(600):
+            if os.path.exists(sock) or proc.poll() is not None:
+                break
+            time.sleep(0.1)
+        if not os.path.exists(sock):
+            raise AssertionError(f"server did not start:\n"
+                                 f"{open(log_path).read()[-3000:]}")
+        walls = {}
+        cfg, wav, code, count = requests_single
+        for what in ("cold", "warm"):
+            t1 = time.time()
+            check(f"served request ({what})",
+                  client_request(sock, cfg, wav, timeout=600), code, count)
+            walls[what] = time.time() - t1
+        answers = [None] * len(queued)
+
+        def ask(i):
+            answers[i] = client_request(sock, *queued[i][:2], timeout=600)
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(len(queued))]
+        t1 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        walls["queued"] = time.time() - t1
+        for i, (_cfg, _wav, code, count) in enumerate(queued):
+            if answers[i] is None:
+                raise AssertionError(f"queued request {i}: no answer")
+            check(f"queued request {i}", answers[i], code, count)
+        client_shutdown(sock)
+        proc.wait(timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"server exited {proc.returncode}:\n"
+                                 f"{open(log_path).read()[-3000:]}")
+        return walls
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _submit_syncs(tbank, chains, audio, kw):
+    """Stream synchronisations in one warm ``_submit_banked`` of ``chains``
+    over ``audio``, by the port's source line that made each, as torch's
+    sync debug mode reports them (``Counter``; the collectors are drained
+    after counting)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+
+    def note(message, *args, **kw_):
+        here = [f for f in traceback.extract_stack()
+                if f"{os.sep}pymodem_tpu_torch{os.sep}" in f.filename]
+        site = (f"{os.path.basename(here[-1].filename)}:{here[-1].lineno}"
+                if here else "outside the port")
+        # torch's own notice that the mode is a prototype is not a sync
+        if "called a synchronizing CUDA operation" in str(message):
+            sites[site] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            collectors = tbank._submit_banked(chains, audio, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    tbank._drain(collectors)
+    return sites
+
+
+def _front_doors(dev, smi, banks, afsk, psk_audio, fsk_audio, ax_chains,
+                 ax_audio, ax_mps, wrappers) -> list[dict]:
+    """Phases 17-22, the front doors other than run_plan_banked and the
+    one-shot CLI: ``run_banked_many``, ``run_banked_files``,
+    ``run_plans_banked_pipelined``, the sequential executor, the resilient
+    retry and the decode server, each on ``dev`` with the paths' own
+    recordings (``afsk`` is the AFSK path's (payloads, audio)).
+    ``wrappers``: the kernel wrappers by key, whose launch counts each path
+    sets to 0 before it and reads after.  Returns each path's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from pymodem_tpu_torch import profiling
+    from pymodem_tpu_torch.config import ReportSpec, RunPlan, build_chain_spec
+    from pymodem_tpu_torch.runtime import bank as tbank
+    from pymodem_tpu_torch.runtime import executor
+    from pymodem_tpu_torch.wav_io import write_wav
+
+    expected, audio = afsk
+    reports = (ReportSpec("decoded", style="decoded_headers"),)
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in wrappers.items()
+                if fn.launches}
+
+    # 17. run_banked_many(depth=1) over three recordings of pll_sweep8
+    t0 = time.time()
+    chains = banks["pll_sweep8"]
+    g = np.random.default_rng(SEED)
+    recs = [audio] + [np.clip(audio + g.normal(0.0, NOISE_STD, len(audio)),
+                              -32768, 32767).astype(np.int16)
+                      for _ in range(2)]
+    many_kw = dict(max_packet_seconds=MAX_PACKET_SECONDS, device=dev)
+    tbank.run_banked_many(chains, recs, depth=1, **many_kw)  # budgets
+    zero_counts()
+    profiling.reset()
+    profiling.enable(True)
+    t1 = time.time()
+    many = tbank.run_banked_many(chains, recs, depth=1, **many_kw)
+    many_walls = [time.time() - t1]
+    profiling.enable(False)
+    counts = profiling.counts()
+    many_launches = read_counts()
+    sizing = {k: counts.get(k, 0) for k in ("candidate_budget",
+                                            "codec_sizes")}
+    if any(sizing.values()) or set(many_launches) != {"K1", "K2"}:
+        raise AssertionError(f"warm run_banked_many: sizing readbacks "
+                             f"{sizing}, launches {many_launches}")
+    solo_walls = []
+    for _ in range(2):
+        t1 = time.time()
+        solo = [tbank.run_banked(chains, r, **many_kw) for r in recs]
+        solo_walls.append(time.time() - t1)
+        t1 = time.time()
+        tbank.run_banked_many(chains, recs, depth=1, **many_kw)
+        many_walls.append(time.time() - t1)
+    syncs = _submit_syncs(tbank, chains, recs[0], many_kw)
+    if syncs:
+        raise AssertionError(f"a warm submit synchronised the stream: "
+                             f"{dict(syncs)}")
+    # the readback the codec submit starts (pinned, non-blocking, waited on
+    # by its event) against a blocking .cpu() of the same buffer inside
+    # collect(), alternated in this call
+    pinned_readback = tbank._start_readback
+    readback_walls = {"pinned": [], "blocking": []}
+    for kind in ("pinned", "blocking", "blocking", "pinned"):
+        tbank._start_readback = (pinned_readback if kind == "pinned" else
+                                 lambda t: lambda: t.cpu().numpy())
+        try:
+            t1 = time.time()
+            tbank.run_banked_many(chains, recs, depth=1, **many_kw)
+            readback_walls[kind].append(time.time() - t1)
+        finally:
+            tbank._start_readback = pinned_readback
+    for i, (got, want) in enumerate(zip(many, solo)):
+        _same_packets(f"pll_sweep8 recording {i}", got, want,
+                      ("run_banked_many", "solo run_banked"))
+        decoded = [bytes(p.data[16:-2]) for p in max(got.values(), key=len)]
+        if decoded != expected:
+            raise AssertionError(f"run_banked_many recording {i}: "
+                                 f"{len(decoded)} of {len(expected)} frames")
+    print(f"run_banked_many(depth=1) over {len(recs)} recordings of "
+          f"pll_sweep8 ({SECONDS} s each; two with noise of std "
+          f"{NOISE_STD}): packets equal to solo run_banked, every frame; "
+          f"warm call: sizing readbacks {sizing}, launches {many_launches},"
+          f" stages over 20 ms "
+          f"{ {k: round(v, 3) for k, v in profiling.stages().items() if v > 0.02} }"
+          f"; walls: run_banked_many "
+          f"{', '.join(f'{w:.3f}' for w in many_walls)} s, "
+          f"{len(recs)} solo run_banked {', '.join(f'{w:.3f}' for w in solo_walls)}"
+          f" s [{smi}]")
+    print(f"run_banked_many stream synchronisations in one warm submit "
+          f"(torch.cuda sync debug mode): {sum(syncs.values())} "
+          f"{dict(syncs.most_common(5))}; walls with the codec's readback "
+          f"pinned and non-blocking "
+          f"{', '.join(f'{w:.3f}' for w in readback_walls['pinned'])} s, "
+          f"with a blocking .cpu() in collect() "
+          f"{', '.join(f'{w:.3f}' for w in readback_walls['blocking'])} s "
+          f"(order pinned, blocking, blocking, pinned) [{smi}]")
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            tbank.run_banked_many(chains, recs, depth=1, **many_kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+        launches, n_kernels, kernel_ms, top = _profile_summary(
+            prof.key_averages())
+        print(f"run_banked_many profile (torch.profiler): {launches} kernel "
+              f"launches, {kernel_ms:.3f} ms of kernel time in a {wall:.3f} "
+              f"s call (traced): the card busy {kernel_ms / 1e3 / wall:.1%}"
+              f"; operators by their kernels' device time: "
+              f"{[(round(ms, 3), n, key[:40]) for ms, n, key in top[:5]]}")
+    except Exception as exc:  # noqa: BLE001 - the trace is optional
+        print(f"run_banked_many profile: not traced ({exc!r})")
+    del recs, many, solo
+    _phase(17, "run_banked_many == solo runs, no sizing readback", t0)
+
+    # 18. run_banked_files over 600, 300 and 45 s files of the correlator
+    # sweeps
+    t0 = time.time()
+    files_launches = {}
+    for name, chains, (sent, wave), rate, mps in (
+            ("sweep64", banks["sweep64"], (expected, audio), RATE,
+             MAX_PACKET_SECONDS),
+            ("ax25_afsk1200_sweep8", ax_chains["ax25_afsk1200_sweep8"],
+             ax_audio["ax25_afsk1200_sweep8"][:2], AX25_RATE,
+             ax_mps["ax25_afsk1200_sweep8"])):
+        files = [wave, wave[: 300 * rate], wave[: 45 * rate]]
+        zero_counts()
+        t1 = time.time()
+        batched = tbank.run_banked_files(chains, files,
+                                         max_packet_seconds=mps, device=dev)
+        wall = time.time() - t1
+        launched = read_counts()
+        for k, v in launched.items():
+            files_launches[k] = files_launches.get(k, 0) + v
+        need = {"K1", "K9"} if name.startswith("ax25") else {"K1"}
+        if set(launched) != need:
+            raise AssertionError(f"run_banked_files {name}: launches "
+                                 f"{launched}")
+        frames = []
+        for fi, f in enumerate(files):
+            solo = tbank.run_banked(chains, f, max_packet_seconds=mps,
+                                    device=dev)
+            _same_packets(f"{name} file {fi} ({len(f) / rate:.0f} s)",
+                          batched[fi], solo,
+                          ("run_banked_files", "solo run_banked"))
+            frames.append(len({bytes(p.data[16:-2]) for pkts in
+                               batched[fi].values() for p in pkts}))
+        decoded = [bytes(p.data[16:-2]) for p in
+                   max(batched[0].values(), key=len)]
+        if decoded != sent:
+            raise AssertionError(f"run_banked_files {name}: the whole "
+                                 f"recording decoded {len(decoded)} of "
+                                 f"{len(sent)} frames")
+        print(f"run_banked_files {name}: files of "
+              f"{', '.join(f'{len(f) / rate:.0f}' for f in files)} s in one "
+              f"dispatch, packets equal to each file's solo run_banked, the "
+              f"first every frame ({len(sent)}); distinct payloads a file "
+              f"{frames}; launches {launched}; wall {wall:.3f} s [{smi}]")
+    _phase(18, "run_banked_files == solo runs (correlator banks)", t0)
+
+    # 19. run_plans_banked_pipelined over the AFSK and QPSK-2400 CLI configs
+    t0 = time.time()
+    afsk_lines = (_chain_line("AFSK 300 Il2Pc Correlator", "afsk"),
+                  _chain_line("AFSK 300 Il2Pc PLL", "afsk_pll"))
+    plan_afsk = RunPlan(chains=tuple(build_chain_spec(float(RATE), ln)
+                                     for ln in afsk_lines), reports=reports)
+    plan_qpsk = RunPlan(chains=(build_chain_spec(float(PSK_RATE),
+                                                 PSK_LINES["qpsk"]),),
+                        reports=reports)
+    q_sent, q_wave = _whole_segments(*psk_audio["qpsk2400_sweep8"][:3],
+                                     PSK_RATE, EXECUTOR_SECONDS)
+    a_sent, a_wave = _whole_segments(expected, audio, len(audio) // (
+        SECONDS // 30), RATE, EXECUTOR_SECONDS)
+    jobs = [(plan_afsk, a_wave, RATE), (plan_qpsk, q_wave, PSK_RATE),
+            (plan_afsk, audio[len(audio) - len(a_wave):], RATE)]
+    zero_counts()
+    t1 = time.time()
+    piped = tbank.run_plans_banked_pipelined(jobs, depth=1, device=dev)
+    wall = time.time() - t1
+    piped_launches = read_counts()
+    if set(piped_launches) != {"K1", "K2", "K4", "K6", "K7"}:
+        raise AssertionError(f"pipelined plans: launches {piped_launches}")
+    t1 = time.time()
+    per_job = [tbank.run_plan_banked(p, a, r, resilient=False, device=dev)
+               for p, a, r in jobs]
+    solo_wall = time.time() - t1
+    for i, (got, want) in enumerate(zip(piped, per_job)):
+        if got.reports != want.reports:
+            raise AssertionError(f"pipelined job {i}: report differs from "
+                                 f"run_plan_banked's")
+    for result, n in zip(piped, (len(a_sent), len(q_sent), len(a_sent))):
+        if f"Unique, valid packets:  {n}\n" not in result.reports[0]:
+            raise AssertionError(f"pipelined job: expected {n} packets")
+    print(f"run_plans_banked_pipelined over 3 jobs (AFSK 2-chain config at "
+          f"8 kHz, QPSK-2400 at 44.1 kHz, AFSK again; "
+          f"{len(a_wave) / RATE:.0f}, {len(q_wave) / PSK_RATE:.1f} and "
+          f"{len(a_wave) / RATE:.0f} s): reports "
+          f"equal to per-job run_plan_banked; launches {piped_launches}; "
+          f"wall {wall:.3f} s, per-job runs {solo_wall:.3f} s [{smi}]")
+    _phase(19, "run_plans_banked_pipelined == per-job runs", t0)
+
+    # 20. the sequential executor, one chain per family
+    t0 = time.time()
+    cases = _executor_cases((expected, audio), psk_audio, fsk_audio,
+                            ax_audio)
+    exec_launches = {}
+    for name, (chain, rate, sent, wave) in cases.items():
+        plan_ = RunPlan(chains=(chain,), reports=reports)
+        zero_counts()
+        t1 = time.time()
+        result = executor.run_plan(plan_, wave, rate, resilient=False,
+                                   device=dev)
+        cold = time.time() - t1
+        launched = read_counts()
+        t1 = time.time()
+        executor.run_plan(plan_, wave, rate, resilient=False, device=dev)
+        warm = time.time() - t1
+        for k, v in launched.items():
+            exec_launches[k] = exec_launches.get(k, 0) + v
+        _check_bank(f"executor {name}", result, sent)
+        checked, device_s = _one_lane_checks(chain, wave, dev)
+        if set(launched) != set(checked):
+            raise AssertionError(f"executor {name}: launches {launched}, "
+                                 f"kernels of its family {checked}")
+        print(f"executor {name} ({chain.modem.kind}, {chain.slicer.kind}, "
+              f"{chain.codec.kind}) over {len(wave) / rate:.1f} s at "
+              f"{rate} Hz: {len(sent)} frames, 0 rejected; launches "
+              f"{launched}; {', '.join(checked)} at one lane bitwise equal "
+              f"to their twins on {SLICE} samples; "
+              f"{warm:.3f} s a chain warm (first {cold:.3f} s), of which "
+              f"device stages {device_s:.3f} s, the rest the host codec "
+              f"and packets [{smi}]")
+    _phase(20, "sequential executor, every family", t0)
+
+    # 21. an injected bank failure, retried chain by chain on the card
+    t0 = time.time()
+    real_run_banked = tbank.run_banked
+
+    def broken(*args, **kw):
+        raise RuntimeError("injected bank failure")
+
+    buf = io.StringIO()
+    tbank.run_banked = broken
+    zero_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = tbank.run_plan_banked(plan_afsk, a_wave, RATE,
+                                           device=dev)
+    finally:
+        tbank.run_banked = real_run_banked
+    retry_launches = read_counts()
+    want = ("banked runtime failed (RuntimeError: injected bank failure); "
+            "retrying chains sequentially")
+    if want not in buf.getvalue() or "skipped chain" in buf.getvalue():
+        raise AssertionError(f"retry printed:\n{buf.getvalue()}")
+    _check_bank("retried plan", result, a_sent)
+    if set(retry_launches) != {"K1", "K2"}:
+        raise AssertionError(f"retry launches {retry_launches}")
+    print(f"injected bank failure: retried chain by chain through the "
+          f"executor on {dev}, {len(a_sent)} frames, 0 rejected, no chain "
+          f"skipped; "
+          f"launches {retry_launches}")
+    _phase(21, "injected bank failure retried on the card", t0)
+
+    # 22. the decode server: one request cold and warm, then three queued
+    # requests of two configs and an unreadable WAV
+    t0 = time.time()
+    srv_dir = tempfile.mkdtemp()
+
+    def srv_file(fname, body):
+        path = os.path.join(srv_dir, fname)
+        if fname.endswith(".wav"):
+            write_wav(path, *body)
+        else:
+            with open(path, "w") as fh:
+                for line in (*body, {"object_name": "report",
+                                     "object_type": "report",
+                                     "options": {"style": "decoded_headers"}}):
+                    fh.write(json.dumps(line) + "\n")
+        return path
+
+    afsk_cfg = srv_file("afsk.json", afsk_lines)
+    qpsk_cfg = srv_file("qpsk.json", (PSK_LINES["qpsk"],))
+    afsk_wav = srv_file("afsk.wav", (RATE, a_wave))
+    qpsk_wav = srv_file("qpsk.wav", (PSK_RATE, q_wave))
+    walls = _serve_phase(
+        (afsk_cfg, afsk_wav, 0, len(a_sent)),
+        [(afsk_cfg, afsk_wav, 0, len(a_sent)),
+         (qpsk_cfg, qpsk_wav, 0, len(q_sent)),
+         (qpsk_cfg, os.path.join(srv_dir, "missing.wav"), 4, None)],
+        dev.type)
+    print(f"decode server on {dev.type}: a request of the AFSK config "
+          f"({len(a_wave) / RATE:.0f} s) "
+          f"cold {walls['cold']:.3f} s, warm {walls['warm']:.3f} s; three "
+          f"queued requests (AFSK, QPSK-2400, an unreadable WAV: exit 4) "
+          f"{walls['queued']:.3f} s; answers as expected, no retry [{smi}]")
+    _phase(22, "decode server subprocess", t0)
+    return [many_launches, files_launches, piped_launches, exec_launches,
+            retry_launches]
 
 
 def main() -> int:
@@ -995,7 +1607,8 @@ def main() -> int:
 
     def run(plan_, audio_, rate, mps):
         result = tbank.run_plan_banked(plan_, audio_, rate,
-                                       max_packet_seconds=mps, device=dev)
+                                       max_packet_seconds=mps,
+                                       resilient=False, device=dev)
         torch.cuda.synchronize()
         return result
 
@@ -1598,6 +2211,16 @@ def main() -> int:
     print(f"CLI: {line}, exit 0")
     _phase(16, "CLI subprocess (AFSK 1200 AX.25)", t0)
 
+    # 17-22. the front doors
+    paths = _front_doors(
+        dev, smi, banks, (expected, audio), psk_audio, fsk_audio, ax_chains,
+        ax_audio, ax_mps,
+        {"K1": binary_slice_lanes, "K2": afsk_pll_lanes,
+         "K3": bpsk_costas_lanes, "K4": agc_lanes,
+         "K5": qpsk_costas_lanes, "K6": mpsk_loop_lanes,
+         "K7": quadrature_slice_lanes, "K8": four_level_slice_lanes,
+         "K9": ax25_deframe_rows})
+
     for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]
                            + fsk_launches["K1"] + ax_launches["K1"]),
                           ("K2", afsk_launches["K2"]),
@@ -1608,7 +2231,8 @@ def main() -> int:
                           ("K7", psk_launches["K7"] + fsk_launches["K7"]),
                           ("K8", fsk_launches["K8"]),
                           ("K9", ax_launches["K9"])):
-        kernels[key]["launches"] = fn_count
+        kernels[key]["launches"] = fn_count + sum(path.get(key, 0)
+                                                  for path in paths)
     kernels["K1"]["other_banks"] = {
         name: {key: k[key] for key in ("shape", "max_abs_err", "ms",
                                        "plain_ms", "bound_ms")}

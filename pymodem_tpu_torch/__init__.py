@@ -6,13 +6,17 @@ PyTorch; every Pallas kernel of the JAX package (K1-K8) is a hand-written
 CUDA kernel for Hopper (``csrc/``), built at first use, with a plain
 PyTorch twin beside its wrapper.  The package imports no JAX.
 
-Slice carried so far: the banked IL2P+CRC decode (``runtime/bank.run_banked``,
-``run_plan_banked``, the CLI) for every modem family (``afsk``,
+Carried so far: the decode of every modem family (``afsk``,
 ``afsk_pll``, ``bpsk``, ``qpsk``, ``mpsk``, ``fsk``) with the binary,
-quadrature and four-level slicers, on the device IL2P codec route (the
-default, ``codecs/il2p_device.py``) or the host state machines
-(``codec="host"``).  Not yet ported: AX.25, float64 parity mode, the
-sequential executor, streaming and serving, multi-GPU.
+quadrature and four-level slicers and both codecs (IL2P+CRC and AX.25, on
+the device codecs by default or the host state machines), through every
+front door of the JAX package but streaming: ``runtime/bank.py``
+(``run_banked``, ``run_banked_many``, ``run_banked_files``,
+``run_plan_banked`` with its resilient retry, ``run_plan_banked_many``,
+``run_plans_banked_pipelined``), the sequential executor
+(``runtime/executor.py``), the CLI (``python -m pymodem_tpu_torch``) and
+the decode server (``python -m pymodem_tpu_torch.serve``).  Not yet
+ported: float64 parity mode, streaming, multi-GPU.
 """
 
 __version__ = "0.1.0"

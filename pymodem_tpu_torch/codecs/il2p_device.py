@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import constant
 from ..ops import rs as rs_ops
 from ..ops.bits import place_rows_shifted, take_rows_shifted
 from ..ops.crc import crc16_masked
@@ -43,6 +44,8 @@ MAX_PACKET_LEN = MAX_AX25_HEADER + MAX_PAYLOAD + 2
 _HAMMING = torch.from_numpy(HAMMING74_DECODE.astype(np.int64))
 _PID = torch.tensor(PID_TABLE, dtype=torch.int64)
 _UCTL = torch.tensor(U_CONTROL, dtype=torch.int64)
+# the trailing CRC's four Hamming nibbles, most significant first
+_NIBBLE_SHIFTS = torch.tensor([12, 8, 4, 0], dtype=torch.int64)
 # _SETBIT_POS[v, r] = stream-order index (0 = MSB) of the (r+1)-th set bit
 # of byte value v (unused ranks point at 0; rank validity is guaranteed by
 # the popcount cumsum that produced the rank)
@@ -93,12 +96,12 @@ def _ax25_header(count, pid, control, header_type, ui, dest, dest_ssid,
 
     dssid = (dest_ssid << 1) + 0x60 + torch.where(c_bit, 0x80, 0)
     sssid = (source_ssid << 1) + 0x60 + torch.where(c_bit, 0, 0x80) + 1
-    u_ctl = _UCTL.to(dev)[opcode.clamp(0, 7)] | pf
+    u_ctl = constant(_UCTL, dev)[opcode.clamp(0, 7)] | pf
     s_ctl = 0x1 | (opcode << 2) | (nr << 5) | pf
     i_ctl = (ns << 1) | (nr << 5) | pf
     control_byte = torch.where(is_u | ui, u_ctl,
                                torch.where(is_s, s_ctl, i_ctl))
-    pid_byte = _PID.to(dev)[pid.clamp(0, 15)]
+    pid_byte = constant(_PID, dev)[pid.clamp(0, 15)]
     has_pid = pid_byte != 0
     out = torch.cat([dest << 1, dssid[:, None], source << 1, sssid[:, None],
                      control_byte[:, None], pid_byte[:, None]], dim=1)
@@ -220,7 +223,7 @@ def _il2p_decode_flat(data, sync_packed, counts, addresses, max_packets,
     # within the source byte comes from the set-bit-position table
     masked = torch.where(torch.arange(K, device=dev)[None, :]
                          < counts[:, None], sync_packed, 0).to(torch.uint8)
-    pcb2 = _POPCOUNT8.to(dev)[masked.long()]  # (N, K)
+    pcb2 = constant(_POPCOUNT8, dev)[masked.long()]  # (N, K)
     pcb = pcb2.reshape(-1)
     bcs = torch.cumsum(pcb, 0, dtype=torch.int32)
     total = bcs[-1]
@@ -230,7 +233,7 @@ def _il2p_decode_flat(data, sync_packed, counts, addresses, max_packets,
     before = bcs[bsrc] - pcb[bsrc]
     rank_in_byte = (slots - 1 - before).clamp(0, 7)
     bytev = masked.reshape(-1)[bsrc].long()
-    k_in = _SETBIT_POS.to(dev)[bytev, rank_in_byte.long()]
+    k_in = constant(_SETBIT_POS, dev)[bytev, rank_in_byte.long()]
     src = bsrc * 8 + k_in
     blk = src // n_bits_total
     pos = src % n_bits_total
@@ -355,8 +358,8 @@ def _il2p_decode_flat(data, sync_packed, counts, addresses, max_packets,
 
     # trailing CRC (il2p.py:503-518): 4 bytes right after the coded payload
     crc_raw = take_rows_shifted(spans, 15 + coded_total, 4).long()
-    nib = _HAMMING.to(dev)[crc_raw & 0x7F]
-    sh = torch.tensor([12, 8, 4, 0], device=dev)
+    nib = constant(_HAMMING, dev)[crc_raw & 0x7F]
+    sh = constant(_NIBBLE_SHIFTS, dev)
     carried_crc = (nib << sh[None, :]).sum(1)
 
     # packet = ax25 header + payload (+2 CRC bytes): the payload, masked to
@@ -454,8 +457,11 @@ def _il2p_decode_flat(data, sync_packed, counts, addresses, max_packets,
         return buf[:N]
 
     def per_block(mask):
-        return torch.bincount(torch.where(mask, blk, N),
-                              minlength=N + 1)[:N]
+        # a histogram by scatter-add: bincount reads its input's maximum
+        # back to the host, which waits for the whole stream
+        idx = torch.where(mask, blk, N)
+        return torch.zeros(N + 1, dtype=torch.int64, device=dev).scatter_add_(
+            0, idx, torch.ones_like(idx))[:N]
 
     # per-block saturation: candidates lost to global compaction (slot
     # budget T exhausted), emitted packets beyond max_packets, RS and

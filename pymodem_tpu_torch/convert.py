@@ -12,6 +12,10 @@ too, so the two agree leaf for leaf.  The port adds what its kernels read
 in place of the JAX package's in-kernel transcendentals: the NCO's sine
 and cosine tables (coherent banks) and, for ``mpsk``, each chain's f32
 phase-detector error table (``dsp/loops.py``).
+
+``chain_params_from_jax`` does the same for one chain's modem parameters
+(``pymodem_tpu.modems.build_params(spec)``), the input of the sequential
+executor's whole-recording demods (``modems.demod``).
 """
 
 from __future__ import annotations
@@ -19,11 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import upload
 from .dsp.loops import nco_cos_table, nco_sine_table, pd_error_table
 
 
 def _leaf(v, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(v, copy=True)).to(device)
+    return upload(np.array(v, copy=True), device)
 
 
 def _tree(node, device):
@@ -59,3 +64,19 @@ def bank_params_from_jax(jax_bank_params: dict, sine_table=None,
                 np.asarray(jax_bank_params["pd_gain"]))
         ]), device)
     return params
+
+
+def chain_params_from_jax(jax_params):
+    """The port's modem parameters (``modems.build_params``'s NamedTuple of
+    the same name: ``AFSKParams``, ``PLLParams``, ``PSKParams``,
+    ``MPSKParams`` or ``FSKParams``) from the JAX package's, leaf for leaf
+    (numpy arrays and scalars as they are, the AGC constants as the port's
+    ``AGCParams``).  The JAX package's f64 ``pd_table`` is dropped: the
+    port's K6 reads ``dsp/loops.pd_error_table``."""
+    from . import modems
+
+    cls = getattr(modems, type(jax_params).__name__)
+    fields = jax_params._asdict()
+    if "agc" in fields:
+        fields["agc"] = modems.AGCParams(*fields["agc"])
+    return cls(**{k: fields[k] for k in cls._fields})

@@ -14,6 +14,7 @@ card the port's FIRs with more than 8 taps are banded matmuls on cuBLAS
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -47,3 +48,40 @@ def from_env() -> torch.device:
     import os
 
     return resolve(os.environ.get(ENV_VAR) or "cuda")
+
+
+def upload(host, device: str | torch.device) -> torch.Tensor:
+    """``host`` (a numpy array or a CPU tensor) on ``device``.  A copy to
+    the card goes through pinned memory with ``non_blocking``: a copy from
+    pageable memory synchronises the stream, so it would wait for every
+    launch queued before it (torch's pinned allocator keeps the staging
+    block until its copy is done)."""
+    if isinstance(host, torch.Tensor):
+        t = host
+    else:
+        a = np.asarray(host)
+        # ascontiguousarray would turn a 0-d array into a 1-d one
+        t = torch.from_numpy(a if a.flags.c_contiguous
+                             else np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(table, device: str | torch.device) -> torch.Tensor:
+    """A module-level constant ``table`` (a CPU tensor, or a numpy array
+    that lives as long as the process) on ``device``, uploaded once per
+    device (``upload``).  The cache holds ``table`` itself, so its id is
+    never reused while the entry stands."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return (table if isinstance(table, torch.Tensor)
+                else torch.from_numpy(table))
+    key = (id(table), dev)
+    hit = _CONSTANTS.get(key)
+    if hit is None:
+        hit = _CONSTANTS[key] = (table, upload(table, dev))
+    return hit[1]

@@ -337,7 +337,10 @@ def _check_lanes(name, x, lane_params, n_rows, row_of_lane, *tables):
     """Raise ValueError unless lane_params is (n, L) with n in ``n_rows``,
     x holds (R, T) input rows for the L lanes (R == L without
     ``row_of_lane``, else ``row_of_lane`` (L,) int32 in [0, R)) and every
-    table is (256,).  Returns L."""
+    table is (256,).  Returns L.  On the card the range of ``row_of_lane``
+    is asserted on the device (``torch._assert_async``): reading it back
+    would wait for every launch queued before it, and a failed assertion
+    stops the stream before the kernel reads out of range."""
     n = lane_params.shape[0] if lane_params.ndim == 2 else -1
     if n not in n_rows:
         raise ValueError(f"{name}: {n} lane rows, need "
@@ -355,8 +358,11 @@ def _check_lanes(name, x, lane_params, n_rows, row_of_lane, *tables):
             raise ValueError(f"{name}: row_of_lane must be ({L},) int32, "
                              f"got {tuple(row_of_lane.shape)} "
                              f"{row_of_lane.dtype}")
-        if L and not (0 <= int(row_of_lane.min())
-                      and int(row_of_lane.max()) < x.shape[0]):
+        if L and row_of_lane.device.type == "cuda":
+            torch._assert_async(((row_of_lane >= 0)
+                                 & (row_of_lane < x.shape[0])).all())
+        elif L and not (0 <= int(row_of_lane.min())
+                        and int(row_of_lane.max()) < x.shape[0]):
             raise ValueError(f"{name}: row_of_lane outside the "
                              f"{x.shape[0]} input rows")
     return L

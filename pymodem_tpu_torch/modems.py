@@ -1,12 +1,22 @@
-"""Modem parameters, built once on the host (numpy).
+"""Modem parameters (built once on the host, numpy) and whole-recording
+demods (tensors).
 
-Port of the host side of ``pymodem_tpu.modems`` for every family: the
-AFSK tone correlator (``afsk``), the coherent AFSK PLL (``afsk_pll``), the
-BPSK Costas loop (``bpsk``), the QPSK Costas loop with branch IIRs
-(``qpsk``), the PSK demodulator on the analytic signal (``mpsk``) and the
-baseband FSK filter (``fsk``).  Filter design goes through the port's copy
-of ``dsp/window_design.py``, so taps are identical to the JAX package's.
-The demod itself runs banked, in ``runtime/bank.py``.
+Port of ``pymodem_tpu.modems`` for every family: the AFSK tone correlator
+(``afsk``), the coherent AFSK PLL (``afsk_pll``), the BPSK Costas loop
+(``bpsk``), the QPSK Costas loop with branch IIRs (``qpsk``), the PSK
+demodulator on the analytic signal (``mpsk``) and the baseband FSK filter
+(``fsk``).  Filter design goes through the port's copy of
+``dsp/window_design.py``, so taps are identical to the JAX package's.
+
+The banked runtime demods blocks of many chains (``runtime/bank.py``);
+``demod`` here runs one chain over a whole recording, for the sequential
+executor (``runtime/executor.py``): the FIRs on the direct engines of
+``dsp/fir.py``, and every recurrence as its kernel at one lane (K2, K3 and
+K5 with the AGC fused, K4 then K6 for ``mpsk``), with the AGC normal taken
+over the whole recording (agc.py:67).  On a CPU tensor the kernels' plain
+twins run.  The JAX package's f32 FIRs are FFT convolutions by default,
+which round differently: float stages agree with its ``method="direct"``
+to a few ulps, and decisions and packets agree with its default run.
 """
 
 from __future__ import annotations
@@ -24,8 +34,23 @@ from .config import (
     MPSKModemSpec,
     QPSKModemSpec,
 )
+import torch
+
 from .dsp import window_design as wd
-from .dsp.loops import LoopParams
+from .dsp.agc import agc_lanes
+from .dsp.fir import fir_valid_multi, fir_valid_nd
+from .dsp.loops import (
+    LoopParams,
+    afsk_pll_lanes,
+    agc_lane_params,
+    bpsk_costas_lanes,
+    lane_params_from_loop,
+    mpsk_loop_lanes,
+    nco_cos_table,
+    nco_sine_table,
+    pd_error_table,
+    qpsk_costas_lanes,
+)
 
 TWO_PI = 2.0 * np.pi
 
@@ -232,3 +257,153 @@ _BUILDERS = {
 
 def build_params(spec):
     return _BUILDERS[spec.kind](spec)
+
+
+# ---------------------------------------------------------------------------
+# Whole-recording demods (one chain, one lane)
+# ---------------------------------------------------------------------------
+
+
+def _f32(values, device) -> torch.Tensor:
+    """(1,) float32 tensor of a host scalar, rounded once from float64 as
+    the JAX package's ``jnp.asarray(v, float32)``."""
+    return torch.tensor([np.float32(values)], device=device)
+
+
+def agc_rows(agc: AGCParams, x: torch.Tensor) -> torch.Tensor:
+    """(5, 1) AGC lane rows (kernel K4's, or the fused AGC's of K2, K3 and
+    K5) for the whole recording ``x``: the steps scaled by its signed max
+    (agc.py:67)."""
+    leaves = {k: _f32(v, x.device) for k, v in agc._asdict().items()}
+    return agc_lane_params(leaves, x.max().reshape(1), 1, 1)
+
+
+def _apply_agc(audio: torch.Tensor, agc: AGCParams) -> torch.Tensor:
+    """The AGC over a whole recording: kernel K4 at one lane (its twin on
+    the CPU)."""
+    return agc_lanes(audio[None], agc_rows(agc, audio).contiguous())[0]
+
+
+def _loop_rows(spec) -> torch.Tensor:
+    """(10, 1) loop lane rows of a coherent modem (``PLL_PARAMS``)."""
+    loop = {k: np.float32(v) for k, v in _loop_params_host(spec)._asdict()
+            .items() if k != "wavetable"}
+    return lane_params_from_loop({k: torch.tensor([v]) for k, v in
+                                  loop.items()}, 1, 1)
+
+
+def coherent_loop_inputs(spec, params, audio: torch.Tensor):
+    """(band-passed (1, n) row, its lane rows) of kernel K2, K3 or K5 over
+    a whole recording: the loop's 10 rows, for ``qpsk`` the branch IIR's
+    2, then the fused AGC's 5 (normal over the whole recording)."""
+    x = fir_valid_nd(audio, params.input_bpf)
+    rows = [_loop_rows(spec).to(x.device)]
+    if spec.kind == "qpsk":
+        b0, a1 = wd.iir1_lpf_coefs(spec.sample_rate, spec.branch_lpf_cutoff,
+                                   1.0)
+        rows += [_f32(b0, x.device)[None], _f32(a1, x.device)[None]]
+    rows.append(agc_rows(params.agc, x))
+    return x[None], torch.cat(rows).contiguous()
+
+
+def nco_tables(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The NCO's (256,) float32 sine and cosine tables on ``device``."""
+    return (torch.from_numpy(nco_sine_table()).to(device),
+            torch.from_numpy(nco_cos_table()).to(device))
+
+
+def mpsk_loop_inputs(spec, params, audio: torch.Tensor):
+    """The inputs of kernel K6 over a whole recording: the analytic (real,
+    imag) rows (1, n) -- band-pass FIR, the AGC (K4), the Hilbert FIR and
+    its delay (psk.py:714-716) -- the (12, 1) lane rows, the (1, g*g)
+    phase-detector table and the lane's table index (1,)."""
+    leveled = _apply_agc(fir_valid_nd(audio, params.input_bpf), params.agc)
+    imag = fir_valid_nd(leveled, params.hilbert)
+    d = params.hilbert_delay
+    real = leveled[d:-d] if d else leveled
+    dev = leveled.device
+    rows = torch.cat([_loop_rows(spec).to(dev), _f32(spec.pd_gain, dev)[None],
+                      _f32(spec.pd_granularity, dev)[None]]).contiguous()
+    table = torch.from_numpy(pd_error_table(int(spec.pd_granularity),
+                                            float(spec.pd_gain)))
+    return (real[None].contiguous(), imag[None].contiguous(), rows,
+            table[None].to(dev), torch.zeros(1, dtype=torch.int32,
+                                             device=dev))
+
+
+def _upsample_poly(x: torch.Tensor, taps, up: int) -> torch.Tensor:
+    """scipy.signal.resample_poly(x, up, 1) as the JAX package computes it:
+    zero-stuff to n*up, then the centred kaiser FIR (odd taps, a 'valid'
+    convolution of the half-padded stream); output length n*up."""
+    n = x.shape[-1]
+    stuffed = x.new_zeros(x.shape[:-1] + (n * up,))
+    stuffed[..., ::up] = x
+    half = (len(taps) - 1) // 2
+    return fir_valid_nd(torch.nn.functional.pad(stuffed, (half, half)), taps)
+
+
+def afsk_demod(params: AFSKParams, audio: torch.Tensor) -> torch.Tensor:
+    """Band-pass FIR, the four tone correlators, mark minus space
+    magnitude, the optional polyphase upsample, the output LPF."""
+    filtered = fir_valid_nd(audio, params.input_bpf)
+    corr = np.stack([params.mark_i, params.mark_q, params.space_i,
+                     params.space_q])
+    mi, mq, si, sq = fir_valid_multi(filtered, corr)
+    diff = torch.sqrt(mi * mi + mq * mq) - torch.sqrt(si * si + sq * sq)
+    if params.oversample > 1:
+        diff = _upsample_poly(diff, params.resample_taps, params.oversample)
+    return fir_valid_nd(diff, params.output_lpf)
+
+
+def afsk_pll_demod(spec: AFSKPLLModemSpec, params: PLLParams,
+                   audio: torch.Tensor) -> torch.Tensor:
+    """Band-pass FIR, the AGC and PLL as kernel K2 at one lane, the output
+    LPF."""
+    x, rows = coherent_loop_inputs(spec, params, audio)
+    sine, _ = nco_tables(audio.device)
+    return fir_valid_nd(afsk_pll_lanes(x, rows, sine)[0], params.output_lpf)
+
+
+def bpsk_demod(spec: BPSKModemSpec, params: PSKParams,
+               audio: torch.Tensor) -> torch.Tensor:
+    """Band-pass FIR, the AGC and Costas loop as kernel K3 at one lane, the
+    RRC."""
+    x, rows = coherent_loop_inputs(spec, params, audio)
+    return fir_valid_nd(
+        bpsk_costas_lanes(x, rows, *nco_tables(audio.device))[0], params.rrc)
+
+
+def qpsk_demod(spec: QPSKModemSpec, params: PSKParams,
+               audio: torch.Tensor):
+    """Band-pass FIR, the AGC and Costas loop with branch IIRs as kernel K5
+    at one lane, the RRC on both rails; returns (i, q)."""
+    x, rows = coherent_loop_inputs(spec, params, audio)
+    i_d, q_d = qpsk_costas_lanes(x, rows, *nco_tables(audio.device))
+    return fir_valid_nd(i_d[0], params.rrc), fir_valid_nd(q_d[0], params.rrc)
+
+
+def mpsk_demod(spec: MPSKModemSpec, params: MPSKParams,
+               audio: torch.Tensor):
+    """The analytic signal (``mpsk_loop_inputs``), the loop as kernel K6 at
+    one lane, the RRC on both rails; returns (i, q)."""
+    re, im, rows, table, index = mpsk_loop_inputs(spec, params, audio)
+    i_d, q_d = mpsk_loop_lanes(re, im, rows, *nco_tables(audio.device),
+                               table, index)
+    return fir_valid_nd(i_d[0], params.rrc), fir_valid_nd(q_d[0], params.rrc)
+
+
+def fsk_demod(params: FSKParams, audio: torch.Tensor) -> torch.Tensor:
+    out = fir_valid_nd(audio, params.input_lpf)
+    return -out if params.invert else out
+
+
+def demod(spec, params, audio: torch.Tensor):
+    """A whole-recording baseband (n,), or an (i, q) pair for ``qpsk`` and
+    ``mpsk``, from float32 audio (n,)."""
+    kind = spec.kind
+    if kind == "afsk":
+        return afsk_demod(params, audio)
+    if kind == "fsk":
+        return fsk_demod(params, audio)
+    return {"afsk_pll": afsk_pll_demod, "bpsk": bpsk_demod,
+            "qpsk": qpsk_demod, "mpsk": mpsk_demod}[kind](spec, params, audio)

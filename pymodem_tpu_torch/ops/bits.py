@@ -13,12 +13,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import constant
+
 _MSB_SHIFTS = torch.arange(7, -1, -1, dtype=torch.uint8)
 
 
 def bytes_to_bits_msb(data: torch.Tensor) -> torch.Tensor:
     """(..., K) uint8 -> (..., K*8) {0,1} uint8, MSB first within each byte."""
-    shifts = _MSB_SHIFTS.to(data.device)
+    shifts = constant(_MSB_SHIFTS, data.device)
     bits = (data[..., :, None] >> shifts) & 1
     return bits.reshape(*data.shape[:-1], data.shape[-1] * 8)
 
@@ -27,7 +29,7 @@ def bits_to_bytes_msb(bits: torch.Tensor) -> torch.Tensor:
     """(..., K*8) {0,1} -> (..., K) uint8, MSB first within each byte."""
     k8 = bits.shape[-1]
     grouped = bits.reshape(*bits.shape[:-1], k8 // 8, 8).to(torch.uint8)
-    return (grouped << _MSB_SHIFTS.to(bits.device)).sum(
+    return (grouped << constant(_MSB_SHIFTS, bits.device)).sum(
         -1, dtype=torch.uint8)
 
 

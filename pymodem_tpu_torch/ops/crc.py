@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import constant
+
 _POLY = 0x8408
 
 
@@ -164,7 +166,7 @@ def crc16_masked(data: torch.Tensor, length: torch.Tensor,
     len2 = torch.broadcast_to(torch.as_tensor(length, device=dev),
                               batch_shape).reshape(-1).to(torch.int64)
     m, init_n, inv_tabs = _crc_linear_ops(max_len)
-    m_t = torch.from_numpy(m).to(dev)
+    m_t = constant(m, dev)
     idx = torch.arange(max_len, device=dev)
     d2 = torch.where(idx[None, :] < len2[:, None], d2, 0).to(torch.uint8)
     shifts8 = torch.arange(8, dtype=torch.uint8, device=dev)
@@ -180,7 +182,7 @@ def crc16_masked(data: torch.Tensor, length: torch.Tensor,
                                                      device=dev)
     crc = crc ^ int(init_n)
     z = max_len - len2.clamp(0, max_len)
-    tabs = torch.from_numpy(inv_tabs.astype(np.int64)).to(dev)
+    tabs = constant(inv_tabs, dev).long()
     for k in range(inv_tabs.shape[0]):
         stepped = tabs[k, 0][(crc >> 8) & 0xFF] ^ tabs[k, 1][crc & 0xFF]
         crc = torch.where(((z >> k) & 1) == 1, stepped, crc)

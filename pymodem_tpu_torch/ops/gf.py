@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import upload
+
 
 @dataclass(frozen=True)
 class GFTables:
@@ -66,11 +68,11 @@ def np_poly_mul(gf: GFTables, p: np.ndarray, q: np.ndarray) -> np.ndarray:
     return out
 
 
-def torch_tables(gf: GFTables, device=None):
+def torch_tables(gf: GFTables, device="cpu"):
     """The (antilog, log, inverse) tables as int64 tensors on ``device``
     (the counterpart of the JAX package's ``jnp_tables``; int64, torch's
     index type, holds the same values)."""
-    return tuple(torch.from_numpy(t.astype(np.int64)).to(device)
+    return tuple(upload(t.astype(np.int64), device)
                  for t in (gf.antilog, gf.log, gf.inverse))
 
 

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import upload
+
 
 def poly_tap_positions(polynomial: int) -> tuple[int, ...]:
     """Bit positions set in the polynomial (delay of each XOR tap)."""
@@ -69,7 +71,7 @@ def descramble_bytes(data: torch.Tensor, polynomial: int,
         pad = np.zeros(n, dtype=np.uint8)
         sb = _seed_bytes(seed, n)
         pad[: sb.shape[0]] = sb
-        out = out ^ torch.from_numpy(pad).to(d.device)
+        out = out ^ upload(pad, d.device)
     if invert:
         out = out ^ 0xFF
     return out
@@ -92,7 +94,7 @@ def descramble_bytes_multi(data: torch.Tensor, polys: tuple[int, ...],
     extra = (1,) * (d.ndim - 1)
 
     def sel(mask_np: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(mask_np).to(d.device).reshape((-1,) + extra)
+        return upload(mask_np, d.device).reshape((-1,) + extra)
 
     taps = sorted({j for p in eff for j in poly_tap_positions(p)})
     out = torch.zeros_like(d)

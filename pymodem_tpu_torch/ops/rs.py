@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import constant, upload
 from .gf import GF256, GFTables, gf_mul, np_gf_mul, np_poly_mul, torch_tables
 
 
@@ -176,7 +177,7 @@ _BIT_W = torch.arange(8)
 def _xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     """XOR of 8-bit values along ``dim``, as the parity of each bit plane
     (torch has no XOR reduction)."""
-    bit_w = _BIT_W.to(x.device)
+    bit_w = constant(_BIT_W, x.device)
     planes = (x.unsqueeze(-1) >> bit_w) & 1
     parity = planes.sum(dim if dim >= 0 else dim - 1) & 1
     return (parity << bit_w).sum(-1)
@@ -307,7 +308,7 @@ def _device_mats(num_roots: int, first_root: int, gf: GFTables, device):
     key = (num_roots, first_root, gf.order, str(device))
     if key not in _DEVICE_MATS:
         _DEVICE_MATS[key] = tuple(
-            torch.from_numpy(m).to(device)
+            upload(m, device)
             for m in _bitlinear_mats(num_roots, first_root, gf))
     return _DEVICE_MATS[key]
 
@@ -331,7 +332,7 @@ def _rs_syndromes(data, block_size, num_roots, first_root, gf, m_synd, ops):
     d_f = d_f[..., :lm]
     bits = torch.cat([(d_f >> k) & 1 for k in range(8)], dim=-1)
     sb = _gf2_matmul(bits, m_synd).reshape(B, num_roots, 8)
-    t_i = (sb << _BIT_W.to(data.device)).sum(2)  # (B, R)
+    t_i = (sb << constant(_BIT_W, data.device)).sum(2)  # (B, R)
     r_i = (first_root + torch.arange(num_roots, device=data.device))[None, :]
     shift = lm - block_size
     corr_e = (-(shift[:, None] * r_i)) % lm
@@ -425,7 +426,7 @@ def _rs_correct_batch(data, block_size, synd, num_roots, first_root,
         corrector = torch.nn.functional.pad(corrector[:, :-1], (1, 0))
 
     # Chien search as a GF(2) matmul over the right-aligned frame
-    bit_w = _BIT_W.to(dev)
+    bit_w = constant(_BIT_W, dev)
     loc_bits = ((locator[:, 1 : t2 + 1, None] >> bit_w) & 1).reshape(
         B, t2 * 8)
     cb = _gf2_matmul(loc_bits, m_chien).reshape(B, 8, lm)

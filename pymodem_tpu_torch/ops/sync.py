@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..codecs.host import SYNC24, SYNC32
+from ..device import constant
 
 _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)],
                           dtype=torch.int64)
@@ -24,7 +25,7 @@ _MSB_WEIGHTS = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int64)
 
 
 def _popcount32(v: torch.Tensor) -> torch.Tensor:
-    table = _POPCOUNT8.to(v.device)
+    table = constant(_POPCOUNT8, v.device)
     return (table[v & 0xFF] + table[(v >> 8) & 0xFF]
             + table[(v >> 16) & 0xFF] + table[(v >> 24) & 0xFF])
 
@@ -55,4 +56,5 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(..., K*8) {0,1} -> (..., K) uint8 MSB-first (np.unpackbits inverse)."""
     k8 = bits.shape[-1]
     grouped = bits.reshape(*bits.shape[:-1], k8 // 8, 8).to(torch.int64)
-    return (grouped * _MSB_WEIGHTS.to(bits.device)).sum(-1).to(torch.uint8)
+    return (grouped * constant(_MSB_WEIGHTS, bits.device)).sum(-1).to(
+        torch.uint8)

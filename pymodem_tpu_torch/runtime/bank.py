@@ -36,17 +36,27 @@ codec routes:
 
 ``PacketAggregate`` then correlates and reports.
 
-Deliberate differences from the JAX package: float32 only; no sequential
-executor, so a failing bank raises instead of being retried on the CPU
-(ROADMAP Queue 1, "the sequential executor"); block geometry drops the TPU
-lane-tile snapping of ``plan_bank_run``, and the device codec route drops
-its TPU tiling and per-group pipelining.
+Entry points: ``run_banked`` (one recording), ``run_banked_many`` (a stream
+of recordings, pipelined: recording i+1's device work is queued before
+recording i's packets are read back), ``run_banked_files`` (several
+recordings in one dispatch per bank, their blocks stacked), and over a
+``RunPlan`` ``run_plan_banked``, ``run_plan_banked_many`` and
+``run_plans_banked_pipelined`` (jobs of different configs).  With
+``resilient=True`` a failing bank is retried chain by chain through the
+sequential executor (``runtime/executor.py``), on the same device and
+kernels, and chains that still fail are skipped with a message.
+
+Deliberate differences from the JAX package: float32 only; block geometry
+drops the TPU lane-tile snapping of ``plan_bank_run``, and the device codec
+route drops its TPU tiling and per-group pipelining.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass, field
+from collections import deque
+from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -56,7 +66,7 @@ import torch.nn.functional as F
 from .. import modems
 from ..config import ChainSpec
 from ..convert import bank_params_from_jax
-from ..device import resolve
+from ..device import constant, resolve, upload
 from ..dsp import window_design as wd
 from ..dsp.agc import agc_lanes
 from ..dsp.fir import fir_valid_multi, fir_valid_nd, fir_valid_per_chain
@@ -79,6 +89,7 @@ from ..ops.slicers import (
     safe_compact_window,
 )
 from ..ops.sync import _POPCOUNT8, il2p_sync_candidates, pack_bits
+from .executor import RunResult
 
 # ---------------------------------------------------------------------------
 # Block plan
@@ -757,6 +768,16 @@ def resolve_bank_geometry(bank: Bank, sample_rate: float, block_seconds,
     return float(block_seconds), float(overlap_seconds)
 
 
+def _block_geometry(sample_rate: float, up: int, block_seconds: float,
+                    overlap_seconds: float) -> tuple[int, int]:
+    """(block_len, overlap) in demod units (``up`` times the input rate),
+    each a whole number of input samples: the block rounded up, the
+    overlap down."""
+    demod_rate = sample_rate * up
+    block_len = -(-max(int(block_seconds * demod_rate), up) // up) * up
+    return block_len, int(overlap_seconds * demod_rate) // up * up
+
+
 def default_block_plan(n_audio: int, trim: int, sample_rate: float,
                        block_seconds: float = 16.0,
                        overlap_seconds: float = 6.0, up: int = 1,
@@ -764,9 +785,8 @@ def default_block_plan(n_audio: int, trim: int, sample_rate: float,
     """Block layout in demod units (``up`` times the input rate, block
     starts on input-sample phases); one block when the recording is
     shorter than a block."""
-    demod_rate = sample_rate * up
-    block_len = -(-max(int(block_seconds * demod_rate), up) // up) * up
-    overlap = int(overlap_seconds * demod_rate) // up * up
+    block_len, overlap = _block_geometry(sample_rate, up, block_seconds,
+                                         overlap_seconds)
     n_demod = (n_audio - trim) * up - trim_post
     if block_len >= n_demod:
         one = -(-max(n_demod, 1) // up) * up
@@ -786,14 +806,18 @@ def bank_plan(bank: Bank, n_audio: int,
                               bank.up, bank.trim_post)
 
 
-def blocks_per_group(bank: Bank, plan: BlockPlan) -> int:
+def blocks_per_group(bank: Bank, plan: BlockPlan,
+                     n_blocks: int | None = None) -> int:
     """Blocks per device pass, so a pass's working set stays under
-    _GROUP_BUDGET_BYTES; balanced so the last group is not mostly empty."""
+    _GROUP_BUDGET_BYTES; balanced so the last group is not mostly empty.
+    ``n_blocks``: the blocks of the dispatch (default ``plan.n_blocks``;
+    run_banked_files stacks several recordings' blocks)."""
+    n_blocks = plan.n_blocks if n_blocks is None else n_blocks
     per_block = max(len(bank.specs) * plan.block_input_len * plan.up
                     * _BYTES_PER_CHAIN_SAMPLE[bank.kind], 1)
     g = max(int(_GROUP_BUDGET_BYTES // per_block), 1)
-    n_groups = -(-plan.n_blocks // g)
-    return -(-plan.n_blocks // n_groups)
+    n_groups = -(-n_blocks // g)
+    return -(-n_blocks // n_groups)
 
 
 def slicer_window(bank: Bank) -> int:
@@ -822,10 +846,19 @@ def bank_capacity(bank: Bank, plan: BlockPlan) -> int:
 # ---------------------------------------------------------------------------
 
 
-@dataclass
-class RunResult:
-    aggregate: Any
-    reports: list[str] = field(default_factory=list)
+def _compute_groups(bank: Bank, frames: torch.Tensor, per_group: int,
+                    capacity: int, sync_tolerance: int):
+    """bank_frames_compute over (N, Lin) wire-dtype frames, ``per_group``
+    blocks a pass, concatenated along the block axis."""
+    window = slicer_window(bank)
+    outs = [
+        bank_frames_compute(bank, frames[s : s + per_group].to(torch.float32),
+                            capacity, window, sync_tolerance)
+        for s in range(0, frames.shape[0], per_group)
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
 def dispatch_bank(bank: Bank, plan: BlockPlan, audio: torch.Tensor,
@@ -835,18 +868,9 @@ def dispatch_bank(bank: Bank, plan: BlockPlan, audio: torch.Tensor,
     blocks.  Each group normalises its AGC over its own blocks, as the JAX
     package's grouped dispatch does; the 600 s main-path banks fit one
     group."""
-    frames = frame_blocks(audio, plan)
-    cap = bank_capacity(bank, plan)
-    window = slicer_window(bank)
-    g = blocks_per_group(bank, plan)
-    outs = [
-        bank_frames_compute(bank, frames[s : s + g].to(torch.float32), cap,
-                            window, sync_tolerance)
-        for s in range(0, plan.n_blocks, g)
-    ]
-    if len(outs) == 1:
-        return outs[0]
-    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return _compute_groups(bank, frame_blocks(audio, plan),
+                           blocks_per_group(bank, plan),
+                           bank_capacity(bank, plan), sync_tolerance)
 
 
 def sync_tolerance(bank: Bank) -> int:
@@ -854,6 +878,69 @@ def sync_tolerance(bank: Bank) -> int:
     AX.25 chain has none)."""
     return max((getattr(c.codec, "sync_tolerance", 0) for c in bank.specs
                 if c.codec.kind == "il2p"), default=0)
+
+
+def _audio_tensor(audio, device: torch.device) -> torch.Tensor:
+    """A recording on ``device`` in its wire dtype (int16 or float32; any
+    other dtype becomes float32)."""
+    wire = np.asarray(audio)
+    if wire.dtype not in (np.int16, np.float32):
+        wire = wire.astype(np.float32)
+    return upload(wire, device)
+
+
+def _check_codec(codec: str) -> None:
+    if codec not in ("device", "host"):
+        raise ValueError(f"codec={codec!r}: expected 'device' or 'host'")
+
+
+def _submit_banked(chains: list[ChainSpec], audio,
+                   block_seconds: float | str = "auto",
+                   overlap_seconds: float | str = "auto",
+                   codec: str = "device", max_packets_per_block: int = 8,
+                   total_candidates: int | None = None,
+                   max_packet_seconds: float | None = None,
+                   device: str | torch.device = "cuda") -> list:
+    """Queue every bank's device stages for one recording; return one
+    collect() per bank, each giving {chain_name: [Packet]}.
+
+    Launches are asynchronous, so bank i's first readback overlaps the
+    device work of banks i+1..n.  On a budget-cache hit the device codec
+    and its compaction are queued here too, with the packed readback
+    (``_device_codec_submit``): the whole recording then runs back to back
+    on the device, and collect() waits for its own readback only, not for
+    work queued after it (run_banked_many pipelines recordings on this).
+    ``codec="host"`` collectors read the byte streams back in collect()."""
+    from .. import profiling
+
+    _check_codec(codec)
+    dev = resolve(device)
+    n_audio = len(audio)
+    audio_t = _audio_tensor(audio, dev)
+    with profiling.timed("group_chains"):
+        banks = group_chains(chains, dev)
+    collectors = []
+    for bank in banks:
+        plan = bank_plan(bank, n_audio, block_seconds, overlap_seconds,
+                         max_packet_seconds)
+        tol = sync_tolerance(bank)
+        with profiling.timed("device_step"):
+            arrays = dispatch_bank(bank, plan, audio_t, tol)
+        if codec == "device":
+            collectors.append(_device_codec_submit_mixed(
+                bank, plan, _codec_subgroups(bank), *arrays,
+                max_packets_per_block, total_candidates))
+        else:
+            collectors.append(partial(host_codec_collect, bank, plan, tol,
+                                      arrays))
+    return collectors
+
+
+def _drain(collectors) -> dict[str, list]:
+    out: dict[str, list] = {}
+    for collect in collectors:
+        out.update(collect())
+    return out
 
 
 def run_banked(chains: list[ChainSpec], audio: np.ndarray,
@@ -877,26 +964,102 @@ def run_banked(chains: list[ChainSpec], audio: np.ndarray,
     map).  ``codec="host"`` reads the byte streams back and runs the
     reference-exact state machines on every block (an IL2P chain's only
     where it has a sync candidate)."""
-    if codec not in ("device", "host"):
-        raise ValueError(f"codec={codec!r}: expected 'device' or 'host'")
+    return _drain(_submit_banked(
+        chains, audio, block_seconds, overlap_seconds, codec,
+        max_packets_per_block, total_candidates, max_packet_seconds, device))
+
+
+def run_banked_many(chains: list[ChainSpec], audios, depth: int = 1,
+                    block_seconds: float | str = "auto",
+                    overlap_seconds: float | str = "auto",
+                    codec: str = "device", max_packets_per_block: int = 8,
+                    total_candidates: int | None = None,
+                    max_packet_seconds: float | None = None,
+                    device: str | torch.device = "cuda") -> list[dict]:
+    """Pipelined decode of a stream of recordings (the serving loop):
+    recording i+1's device work is queued before recording i's results are
+    read back, so each readback and host packet build overlaps the next
+    recording's device work.  ``depth`` recordings stay in flight (device
+    memory holds depth+1 recordings' block outputs).  Returns one
+    {chain: packets} dict per recording, in order, equal to
+    [run_banked(chains, a) for a in audios]."""
+    kw = (block_seconds, overlap_seconds, codec, max_packets_per_block,
+          total_candidates, max_packet_seconds, device)
+    out = []
+    queue: deque = deque()
+    for audio in audios:
+        queue.append(_submit_banked(chains, audio, *kw))
+        if len(queue) > depth:
+            out.append(_drain(queue.popleft()))
+    while queue:
+        out.append(_drain(queue.popleft()))
+    return out
+
+
+def run_banked_files(chains: list[ChainSpec], audios,
+                     block_seconds: float | str = "auto",
+                     overlap_seconds: float | str = "auto",
+                     codec: str = "device", max_packets_per_block: int = 8,
+                     max_packet_seconds: float | None = None,
+                     device: str | torch.device = "cuda") -> list[dict]:
+    """Decode several recordings in one device dispatch per bank: every
+    file's blocks stack along the block axis, so a corpus fills the lanes
+    of one pass.  Returns one {chain_name: packets} dict per file, with the
+    file's own stream addresses.
+
+    Geometry is uniform (the JAX package's rule): every file takes the
+    bank's block and overlap lengths, a short file too (padded, its
+    packets clipped to its length), so every file's codec runs against one
+    template plan and shares its budget-cache entry by block count; all
+    files' codecs are queued before any packed readback.  ``codec="host"``
+    runs the reference-exact state machines per file.
+
+    The AGC of a coherent bank normalises over the frames of its dispatch,
+    so a coherent bank runs every file's blocks in ONE pass, as the JAX
+    package's single call does: a file decoded here may then differ from
+    the same file decoded alone, in both packages, but equals the JAX
+    package's batched result.  A corpus whose working set does not fit the
+    card must be split by the caller.  The other banks' blocks are
+    independent, so they keep the group budget (``blocks_per_group``)."""
+    _check_codec(codec)
     dev = resolve(device)
-    wire = np.asarray(audio)
-    if wire.dtype not in (np.int16, np.float32):
-        wire = wire.astype(np.float32)
-    audio_t = torch.from_numpy(np.ascontiguousarray(wire)).to(dev)
-    results: dict[str, list] = {}
+    audios = [np.asarray(a) for a in audios]
+    results: list[dict[str, list]] = [dict() for _ in audios]
+    waves = [_audio_tensor(a, dev) for a in audios]
     for bank in group_chains(chains, dev):
-        plan = bank_plan(bank, len(wire), block_seconds, overlap_seconds,
-                         max_packet_seconds)
+        rate = bank.specs[0].modem.sample_rate
+        bank_block, bank_overlap = resolve_bank_geometry(
+            bank, rate, block_seconds, overlap_seconds, max_packet_seconds)
+        block_len, overlap = _block_geometry(rate, bank.up, bank_block,
+                                             bank_overlap)
+        plans = [BlockPlan(len(a), bank.trim, block_len, overlap, bank.up,
+                           bank.trim_post) for a in audios]
+        frames = torch.cat([frame_blocks(w, p) for w, p in zip(waves, plans)])
         tol = sync_tolerance(bank)
-        arrays = dispatch_bank(bank, plan, audio_t, tol)
-        if codec == "device":
-            collect = _device_codec_submit_mixed(
-                bank, plan, _codec_subgroups(bank), *arrays,
-                max_packets_per_block, total_candidates)
-            results.update(collect())
-        else:
-            results.update(host_codec_collect(bank, plan, tol, arrays))
+        per_group = (frames.shape[0] if bank.kind in _COHERENT_KINDS else
+                     blocks_per_group(bank, plans[0], frames.shape[0]))
+        arrays = _compute_groups(bank, frames, per_group,
+                                 max(bank_capacity(bank, p) for p in plans),
+                                 tol)
+        del frames
+        template = BlockPlan(0, bank.trim, block_len, overlap, bank.up,
+                             bank.trim_post)
+        groups = _codec_subgroups(bank)
+        collectors = []
+        start = 0
+        for plan in plans:
+            part = tuple(t[:, start : start + plan.n_blocks].contiguous()
+                         for t in arrays)
+            start += plan.n_blocks
+            if codec == "device":
+                collectors.append(_device_codec_submit_mixed(
+                    bank, template, groups, *part, max_packets_per_block,
+                    None, host_plan=plan))
+            else:
+                collectors.append(partial(host_codec_collect, bank, plan,
+                                          tol, part))
+        for res, collect in zip(results, collectors):
+            res.update(collect())
     return results
 
 
@@ -1002,15 +1165,18 @@ def bank_codec_step(codec_kind: str, data, addr, count, sync, plan: BlockPlan,
                     total_rs_blocks: int | None = None,
                     scan_cap: int = 64, rs_fail_frac: int | None = 2,
                     max_payload: int = 1023, min_packet_length: int = 18,
-                    max_packet_length: int = 1023) -> dict:
+                    max_packet_length: int = 1023,
+                    keep_filter: bool = True) -> dict:
     """The device codec (``"il2p"`` or ``"ax25"``) over dispatch_bank
     outputs: (C, B, cap) byte streams -> fixed-capacity packet buffers
     (C, B, max_packets, ...).
 
     Absolute stream addresses are formed on the device (block b's demod
-    range starts at b*block_len - overlap), and each block's keep window
-    (plan.keep_range) applies on the device, so halo duplicates never reach
-    the packed readback; the host filter stays as an idempotent guard."""
+    range starts at b*block_len - overlap).  With ``keep_filter`` each
+    block's keep window (plan.keep_range) applies on the device, so halo
+    duplicates never reach the packed readback (the host filter stays as
+    an idempotent guard); it needs ``plan`` to be the recording's own, so
+    a template plan (run_banked_files) leaves the filter to the host."""
     from ..codecs.ax25_device import ax25_decode_blocks
     from ..codecs.il2p_device import il2p_decode_blocks
 
@@ -1035,10 +1201,12 @@ def bank_codec_step(codec_kind: str, data, addr, count, sync, plan: BlockPlan,
         )
     else:
         raise ValueError(codec_kind)
-    lo = (torch.arange(n_blocks, device=data.device)
-          * plan.block_len)[None, :, None]
-    hi = (lo + plan.block_len).clamp(max=plan.n_demod)
-    out["ok"] = out["ok"] & (out["address"] > lo) & (out["address"] <= hi)
+    if keep_filter:
+        lo = (torch.arange(n_blocks, device=data.device)
+              * plan.block_len)[None, :, None]
+        hi = (lo + plan.block_len).clamp(max=plan.n_demod)
+        out["ok"] = (out["ok"] & (out["address"] > lo)
+                     & (out["address"] <= hi))
     return out
 
 
@@ -1084,7 +1252,7 @@ def _bank_chain_subset(bank: Bank, idxs: list[int]) -> Bank:
 def _popcount_stats(sync: torch.Tensor) -> torch.Tensor:
     """(total candidates, max candidates in any one block) of a packed
     (..., cap) sync bitmap."""
-    per_block = _POPCOUNT8.to(sync.device)[sync.long()].sum(-1)
+    per_block = constant(_POPCOUNT8, sync.device)[sync.long()].sum(-1)
     return torch.stack([per_block.sum(), per_block.max()])
 
 
@@ -1248,15 +1416,17 @@ def _il2p_payload_budget(bank: Bank, plan: BlockPlan) -> int:
 
 def _dispatch_codec(codec_key, data, addr, count, sync, plan,
                     max_packets_per_block, total_candidates, scan_cap,
-                    rs_fail_frac: int | None, max_payload: int) -> dict:
+                    rs_fail_frac: int | None, max_payload: int,
+                    keep_filter: bool = True) -> dict:
     if codec_key[0] == "ax25":
         return bank_codec_step(
             "ax25", data, addr, count, sync, plan,
             max_packets=max_packets_per_block,
-            min_packet_length=codec_key[1], max_packet_length=codec_key[2])
+            min_packet_length=codec_key[1], max_packet_length=codec_key[2],
+            keep_filter=keep_filter)
     return bank_codec_step(
         "il2p", data, addr, count, sync, plan,
-        max_packets=max_packets_per_block,
+        max_packets=max_packets_per_block, keep_filter=keep_filter,
         collect_crc=codec_key[1], disable_rs=codec_key[2],
         min_distance=codec_key[3],
         total_candidates=total_candidates,
@@ -1269,11 +1439,32 @@ def _dispatch_codec(codec_key, data, addr, count, sync, plan,
     )
 
 
-def _read_compact(packed: torch.Tensor, meta_budget: int, len_budget: int,
+def _start_readback(t: torch.Tensor):
+    """Start reading a device tensor back; return a wait() that gives it
+    as a numpy array.  On CUDA the copy goes into a pinned host buffer of
+    its own (never one still in flight) without blocking, and wait()
+    blocks on an event recorded right after it: only on the work queued
+    before the copy, not on what was queued after it (a blocking
+    ``.cpu()`` waits for the whole stream, the next recording's kernels
+    included).  On the CPU wait() gives the tensor itself."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+
+    return wait
+
+
+def _read_compact(flat: np.ndarray, meta_budget: int, len_budget: int,
                   dropped_shape: tuple, has_corrected: bool = True):
-    """Read compact_codec_out's buffer back (one transfer) and split it by
-    the budget sizes into (sizes, comp dict, dropped)."""
-    flat = packed.cpu().numpy()
+    """Split compact_codec_out's buffer, read back (``flat``), by the
+    budget sizes into (sizes, comp dict, dropped)."""
     n_ok, total_bytes, max_len = (int(v) for v in flat[:12].view("<i4"))
     off = 12
     keys = COMPACT_META_KEYS if has_corrected else COMPACT_META_KEYS[:-1]
@@ -1302,22 +1493,34 @@ def _len_bucket(max_len: int, lmax: int) -> int:
 
 
 def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
-                         max_packets_per_block, total_candidates):
+                         max_packets_per_block, total_candidates,
+                         host_plan: BlockPlan | None = None):
     """Run the device codec and compaction over bank outputs; return a
     collect() closure that performs the single packed readback and builds
     packet objects.
 
-    On a budget-cache hit the codec and compaction launch NOW and collect()
-    reads back once; a compaction overflow there redoes the compaction with
-    exact budgets.  On a miss collect() sizes exactly: one readback of the
-    sync map's candidate statistics, one of the output sizes, then the
-    packed one.  Blocks still saturated (``dropped``) ESCALATE on the
-    device -- packet slots and scan cap double, the RS split turns off, the
-    payload budget goes to 1023 and an auto-sized candidate budget doubles
-    -- up to MP_CAP; the host FSM decodes only the blocks still dropped
-    after that.  The learned budgets land in the cache."""
+    On a budget-cache hit the codec and compaction launch NOW, with the
+    packed readback into pinned memory (``_start_readback``), and collect()
+    waits for that copy alone; a compaction overflow there redoes the
+    compaction with exact budgets.  On a miss collect() sizes exactly: one
+    readback of the sync map's candidate statistics, one of the output
+    sizes, then the packed one.  Blocks still saturated (``dropped``)
+    ESCALATE on the device -- packet slots and scan cap double, the RS
+    split turns off, the payload budget goes to 1023 and an auto-sized
+    candidate budget doubles -- up to MP_CAP; the host FSM decodes only the
+    blocks still dropped after that.  The learned budgets land in the
+    cache.
+
+    ``host_plan`` (run_banked_files): the device program addresses the
+    blocks against the template ``plan`` (so the budget-cache key does not
+    change from file to file), and the host packet build keeps packets
+    inside ``host_plan``'s blocks, the file's own; the device keep filter
+    is then off."""
     from .. import profiling
 
+    device_keep = host_plan is None
+    if host_plan is None:
+        host_plan = plan
     cache_key = (codec_key, plan, tuple(data.shape[:2]),
                  max_packets_per_block)
     cached = None
@@ -1329,16 +1532,16 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
         with profiling.timed("device_codec_step"):
             return _dispatch_codec(codec_key, data, addr, count, sync, plan,
                                    mp, cand_budget, scan_cap, rs_frac,
-                                   pay_budget)
+                                   pay_budget, device_keep)
 
     def compact(out, meta_budget, len_budget):
         return compact_codec_out(
             out["ok"], out["address"], out["length"], out.get("corrected"),
             out["packet"], out["dropped"], meta_budget, len_budget)
 
-    def read(packed, meta_budget, len_budget):
+    def read(flat, meta_budget, len_budget):
         with profiling.timed("device_codec_transfer"):
-            return _read_compact(packed, meta_budget, len_budget,
+            return _read_compact(flat, meta_budget, len_budget,
                                  tuple(data.shape[:2]),
                                  has_corrected=codec_key[0] == "il2p")
 
@@ -1352,7 +1555,8 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
             len_budget = _len_bucket(max_len, out["packet"].shape[-1])
             meta_budget = _budget_bucket(n_ok)
             packed = compact(out, meta_budget, len_budget)
-        _sizes, comp, dropped = read(packed, meta_budget, len_budget)
+        _sizes, comp, dropped = read(packed.cpu().numpy(), meta_budget,
+                                     len_budget)
         return n_ok, meta_budget, len_budget, comp, dropped
 
     def resolve_budgets(mp, cand_budget, scan_cap, rs_frac, pay_budget, n_ok,
@@ -1381,7 +1585,7 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
             else:
                 _CODEC_BUDGET_CACHE.pop(cache_key, None)
         return packets_from_compact(
-            bank, plan, comp, n_ok, dropped, data, addr, count, sync,
+            bank, host_plan, comp, n_ok, dropped, data, addr, count, sync,
         )
 
     if cached is not None:
@@ -1390,11 +1594,12 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
          pay0) = cached
         out = dispatch(mp0, cand_budget, scan_cap, rs_frac0, pay0)
         with profiling.timed("device_codec_compact"):
-            packed = compact(out, meta_budget0, len_budget0)
+            readback = _start_readback(compact(out, meta_budget0,
+                                               len_budget0))
 
         def collect():
             meta_budget, len_budget = meta_budget0, len_budget0
-            sizes, comp, dropped = read(packed, meta_budget, len_budget)
+            sizes, comp, dropped = read(readback(), meta_budget, len_budget)
             n_ok, _total_bytes, max_len = sizes
             if n_ok > meta_budget or max_len > len_budget:
                 # compaction budgets overflowed (the workload grew): redo
@@ -1404,8 +1609,8 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
                     len_budget = _len_bucket(max_len,
                                              out["packet"].shape[-1])
                     _, comp, dropped = read(
-                        compact(out, meta_budget, len_budget), meta_budget,
-                        len_budget)
+                        compact(out, meta_budget, len_budget).cpu().numpy(),
+                        meta_budget, len_budget)
             return resolve_budgets(mp0, cand_budget, scan_cap, rs_frac0,
                                    pay0, n_ok, meta_budget, len_budget, comp,
                                    dropped)
@@ -1442,7 +1647,8 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
 
 
 def _device_codec_submit_mixed(bank, plan, groups, data, addr, count, sync,
-                               max_packets_per_block, total_candidates):
+                               max_packets_per_block, total_candidates,
+                               host_plan: BlockPlan | None = None):
     """_device_codec_submit over the bank's codec SUB-GROUPS (from
     _codec_subgroups): a bank whose chains mix codec options runs one
     device codec per sub-group of chain rows; the demod already ran once
@@ -1450,7 +1656,7 @@ def _device_codec_submit_mixed(bank, plan, groups, data, addr, count, sync,
     if len(groups) == 1:
         return _device_codec_submit(
             bank, plan, groups[0][0], data, addr, count, sync,
-            max_packets_per_block, total_candidates,
+            max_packets_per_block, total_candidates, host_plan,
         )
     subs = []
     for key, idxs in groups:
@@ -1458,20 +1664,13 @@ def _device_codec_submit_mixed(bank, plan, groups, data, addr, count, sync,
         if idxs == list(range(lo, hi)):
             sel = slice(lo, hi)
         else:
-            sel = torch.as_tensor(idxs, device=data.device)
+            sel = upload(np.asarray(idxs, np.int64), data.device)
         subs.append(_device_codec_submit(
             _bank_chain_subset(bank, idxs), plan, key,
             data[sel], addr[sel], count[sel], sync[sel],
-            max_packets_per_block, total_candidates,
+            max_packets_per_block, total_candidates, host_plan,
         ))
-
-    def collect():
-        out: dict[str, list] = {}
-        for c in subs:
-            out.update(c())
-        return out
-
-    return collect
+    return partial(_drain, subs)
 
 
 def _fallback_block_packets(per_chain, bank, plan, fallback, data, addr,
@@ -1567,19 +1766,102 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
                     block_seconds: float | str = "auto",
                     overlap_seconds: float | str = "auto",
                     codec: str = "device", verbose: bool = False,
+                    resilient: bool = True,
                     max_packet_seconds: float | None = None,
                     device: str | torch.device = "cuda") -> RunResult:
-    """Full plan -> aggregated report.  Errors propagate: there is no
-    sequential executor to retry a failed bank on (ROADMAP Queue 1, the
-    sequential executor)."""
+    """Full plan -> aggregated report (chains in config order).
+
+    ``resilient`` is the reference's skip-and-continue (chain_execute.py:
+    8-27): if the banked run fails, every chain is retried alone through
+    the sequential executor, on the same device and kernels, and a chain
+    that still fails is reported and skipped.  ``resilient=False``
+    raises."""
+    from .executor import run_chain
+
     if verbose:
         print(f"banked runtime: {len(plan.chains)} chains")
-    by_name = run_banked(
-        plan.chains, audio, block_seconds=block_seconds,
-        overlap_seconds=overlap_seconds, codec=codec,
-        max_packet_seconds=max_packet_seconds, device=device,
-    )
+    seq_chains = []
+    try:
+        by_name = run_banked(
+            plan.chains, audio, block_seconds=block_seconds,
+            overlap_seconds=overlap_seconds, codec=codec,
+            max_packet_seconds=max_packet_seconds, device=device,
+        )
+    except Exception as exc:  # noqa: BLE001 - skip-and-continue contract
+        if not resilient:
+            raise
+        print(f"banked runtime failed ({type(exc).__name__}: {exc}); "
+              f"retrying chains sequentially")
+        by_name = {}
+        seq_chains = list(plan.chains)
+    for c in seq_chains:
+        try:
+            by_name[c.name] = run_chain(c, audio, device=device)
+        except Exception as exc:  # noqa: BLE001
+            print(f"skipped chain {c.name}: {type(exc).__name__}: {exc}")
+            by_name[c.name] = []
     return _finish_plan(plan, by_name, sample_rate)
+
+
+def run_plans_banked_pipelined(jobs, depth: int = 1,
+                               block_seconds: float | str = "auto",
+                               overlap_seconds: float | str = "auto",
+                               codec: str = "device",
+                               max_packet_seconds: float | None = None,
+                               device: str | torch.device = "cuda"
+                               ) -> list[RunResult]:
+    """Pipelined decode of (plan, audio, sample_rate) jobs that may use
+    different configs: every job's device work is queued before earlier
+    jobs' readbacks (up to ``depth`` jobs in flight), so a mixed queue (a
+    decode server's batch across config files) overlaps each readback and
+    report build with the next job's device work.  Returns one RunResult
+    per job, equal to per-job run_plan_banked."""
+    out = []
+    queue: deque = deque()
+    for plan, audio, rate in jobs:
+        queue.append((plan, rate, _submit_banked(
+            plan.chains, audio, block_seconds, overlap_seconds, codec,
+            max_packet_seconds=max_packet_seconds, device=device)))
+        if len(queue) > depth:
+            plan_, rate_, collectors = queue.popleft()
+            out.append(_finish_plan(plan_, _drain(collectors), rate_))
+    while queue:
+        plan_, rate_, collectors = queue.popleft()
+        out.append(_finish_plan(plan_, _drain(collectors), rate_))
+    return out
+
+
+def run_plan_banked_many(plan, audios, sample_rate: float, depth: int = 1,
+                         block_seconds: float | str = "auto",
+                         overlap_seconds: float | str = "auto",
+                         codec: str = "device", resilient: bool = True,
+                         max_packet_seconds: float | None = None,
+                         device: str | torch.device = "cuda"
+                         ) -> list[RunResult]:
+    """Pipelined run_plan_banked over several recordings (the serving warm
+    path, run_banked_many).  Returns one RunResult per recording, equal to
+    per-recording run_plan_banked; with ``resilient`` a failure retries
+    each recording through run_plan_banked."""
+    try:
+        per_rec = run_banked_many(
+            plan.chains, audios, depth=depth, block_seconds=block_seconds,
+            overlap_seconds=overlap_seconds, codec=codec,
+            max_packet_seconds=max_packet_seconds, device=device,
+        )
+    except Exception as exc:  # noqa: BLE001 - skip-and-continue contract
+        if not resilient:
+            raise
+        print(f"banked runtime failed ({type(exc).__name__}: {exc}); "
+              f"retrying recordings individually")
+        return [
+            run_plan_banked(plan, a, sample_rate,
+                            block_seconds=block_seconds,
+                            overlap_seconds=overlap_seconds, codec=codec,
+                            max_packet_seconds=max_packet_seconds,
+                            device=device)
+            for a in audios
+        ]
+    return [_finish_plan(plan, by_name, sample_rate) for by_name in per_rec]
 
 
 def _finish_plan(plan, by_name: dict, sample_rate: float) -> RunResult:

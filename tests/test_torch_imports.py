@@ -35,6 +35,30 @@ def test_port_imports_no_jax():
     assert int(proc.stdout.strip()) >= 20  # every module of the port
 
 
+_FRONT_DOORS = """
+import sys
+import pymodem_tpu_torch.cli, pymodem_tpu_torch.serve
+assert "torch" not in sys.modules  # the server's client path
+import pymodem_tpu_torch.runtime.executor, pymodem_tpu_torch.runtime.bank
+from pymodem_tpu_torch.runtime.bank import (run_banked_files,
+    run_banked_many, run_plan_banked_many, run_plans_banked_pipelined)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not any(m == "pymodem_tpu" or m.startswith("pymodem_tpu.")
+               for m in sys.modules)
+"""
+
+
+def test_front_doors_import_no_jax():
+    """The executor, the server and the CLI's batch and server routes
+    import no JAX and nothing of pymodem_tpu; the CLI and server modules
+    import no torch until a decode runs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _FRONT_DOORS], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def _port_sources():
     return sorted(glob.glob(os.path.join(REPO, "pymodem_tpu_torch", "**",
                                          "*.py"), recursive=True)
