@@ -23,7 +23,10 @@ hand-written kernel (K1-K9) against its plain PyTorch twin:
   ``run_banked_files``, ``run_plans_banked_pipelined``, the sequential
   executor (every family, its kernels at one lane), the resilient retry
   and the decode server (kernels K1-K9 again), all with
-  ``resilient=False`` but the retry phase.
+  ``resilient=False`` but the retry phase;
+* the streaming decoder (``runtime/stream.StreamDecoder``): the 64-chain
+  sweep over an hour in 2-minute chunks, the PLL sweep and the mixed
+  AX.25/IL2P bank over 600 s, and a checkpoint (kernels K1, K2, K9 again).
 
 Phases, each printing one line with its seconds:
 
@@ -128,13 +131,32 @@ Phases, each printing one line with its seconds:
 21. an injected bank failure: ``run_plan_banked`` retries chain by chain
     through the executor on the card, with the JAX package's message;
 22. the decode server as a subprocess: one request cold and warm, then
-    three queued requests (two configs and an unreadable WAV).
+    three queued requests (two configs and an unreadable WAV);
+23. the streaming decoder on bench.py's streaming workload: ``sweep64``
+    over an hour of 8 kHz int16 (the AFSK path's segment tiled) fed in
+    120 s chunks, 16 blocks a step, the device codec: every frame, none
+    rejected, packets equal to one-shot ``run_banked`` over the hour chain
+    for chain (a correlator bank takes no whole-recording AGC normal);
+    peak device memory after the first 10 minutes and after the hour (the
+    hour's may exceed the 10 minutes' by 10% at most) beside the one-shot
+    run's; a warm pass's wall and chain-Msamples/s beside the one-shot's;
+    0 stream synchronisations in the warm feeds (torch's sync debug mode,
+    the feeding thread); the tail a CUDA tensor of (ext,) samples
+    positioned at the next block;
+24. ``pll_sweep8`` (K2) over 600 s in 7,001- and 80,000-sample chunks:
+    equal packets, every frame, the one-shot run's payloads chain for
+    chain with addresses within rate/40 + 9 symbol periods (the JAX
+    package's rule: a stream normalises the AGC per step); a ``state()``
+    checkpoint taken halfway, through ``json``, restored into a new
+    decoder, giving the uninterrupted stream's packets (its size
+    printed); ``mixed_afsk300_ax25_il2p`` over 600 s with the device
+    codecs (K9) equal to the host codec packet for packet.
 
 Phases 17-22 and the CLI phases fail if any output holds "banked runtime
 failed" or "skipped chain" (the retry's messages), but phase 21's own.
 
 Every bank must launch each kernel of its family at least once in its
-main-path run, or the script fails.
+main-path run, or the script fails; so must each streaming phase.
 
 Any failure raises and the script exits non-zero.  Without a CUDA GPU, or
 outside a checkout of the repository, it exits non-zero before printing a
@@ -148,6 +170,7 @@ FSK-9600 sweeps' shapes) and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -163,6 +186,10 @@ FSK_RATE = 96000  # the FSK-9600 bank (bench.py:229)
 FSK4_RATE = 48000  # the 4FSK bank (bench.py:230)
 AX25_RATE = 44100  # the AFSK-1200 AX.25 sweep, at a sound card's rate
 SECONDS = 600
+# the streaming phase: bench.py's stream_msps workload, an hour of the
+# 64-chain sweep in 2-minute chunks (bench.py:202-217)
+STREAM_SECONDS = 3600
+STREAM_CHUNK_SECONDS = 120
 MAX_PACKET_SECONDS = 3.0  # the synthesised AFSK frames' wire time bound
 SLICE = 4096  # time slice of the twin comparisons (samples per lane)
 # the staged lane kernels' (K1-K8) slices, not multiples of their
@@ -1083,36 +1110,48 @@ def _serve_phase(requests_single, queued, device: str) -> dict:
         log.close()
 
 
-def _submit_syncs(tbank, chains, audio, kw):
-    """Stream synchronisations in one warm ``_submit_banked`` of ``chains``
-    over ``audio``, by the port's source line that made each, as torch's
-    sync debug mode reports them (``Counter``; the collectors are drained
-    after counting)."""
+@contextlib.contextmanager
+def _syncs_on_this_thread():
+    """Count the stream synchronisations the calling thread makes inside
+    the block, by the port's source line that made each, as torch's sync
+    debug mode reports them (a ``Counter``).  Other threads (the streaming
+    decoder's collector) are not counted."""
     import collections
+    import threading
     import traceback
     import warnings
 
     import torch
 
     sites = collections.Counter()
+    me = threading.current_thread()
 
     def note(message, *args, **kw_):
+        # torch's own notice that the mode is a prototype is not a sync
+        if (threading.current_thread() is not me or
+                "called a synchronizing CUDA operation" not in str(message)):
+            return
         here = [f for f in traceback.extract_stack()
                 if f"{os.sep}pymodem_tpu_torch{os.sep}" in f.filename]
-        site = (f"{os.path.basename(here[-1].filename)}:{here[-1].lineno}"
-                if here else "outside the port")
-        # torch's own notice that the mode is a prototype is not a sync
-        if "called a synchronizing CUDA operation" in str(message):
-            sites[site] += 1
+        sites[f"{os.path.basename(here[-1].filename)}:{here[-1].lineno}"
+              if here else "outside the port"] += 1
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = note
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            collectors = tbank._submit_banked(chains, audio, **kw)
+            yield sites
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+def _submit_syncs(tbank, chains, audio, kw):
+    """Stream synchronisations in one warm ``_submit_banked`` of ``chains``
+    over ``audio``, by the port's source line that made each (a
+    ``Counter``; the collectors are drained after counting)."""
+    with _syncs_on_this_thread() as sites:
+        collectors = tbank._submit_banked(chains, audio, **kw)
     tbank._drain(collectors)
     return sites
 
@@ -1126,7 +1165,6 @@ def _front_doors(dev, smi, banks, afsk, psk_audio, fsk_audio, ax_chains,
     recordings (``afsk`` is the AFSK path's (payloads, audio)).
     ``wrappers``: the kernel wrappers by key, whose launch counts each path
     sets to 0 before it and reads after.  Returns each path's launches."""
-    import contextlib
     import io
 
     import numpy as np
@@ -1428,6 +1466,259 @@ def _front_doors(dev, smi, banks, afsk, psk_audio, fsk_audio, ax_chains,
     _phase(22, "decode server subprocess", t0)
     return [many_launches, files_launches, piped_launches, exec_launches,
             retry_launches]
+
+
+def _by_chain(chains, packets) -> dict:
+    """A stream's emitted packets by chain (each chain's codec ident is
+    its name), in emission order."""
+    out = {c.name: [] for c in chains}
+    for p in packets:
+        out[p.source_decoder].append(p)
+    return out
+
+
+def _stream(chains, wave, rate, chunk, on_feed=None, **kw):
+    """Feed ``wave`` to a new StreamDecoder on the card ``chunk`` samples at
+    a time, then flush; returns (decoder, emitted packets).
+    ``on_feed(i, dec, feed)`` runs feed i itself when given."""
+    from pymodem_tpu_torch.runtime.stream import StreamDecoder
+
+    dec = StreamDecoder(chains, rate, **kw)
+    out = []
+    for i, s in enumerate(range(0, len(wave), chunk)):
+        part = wave[s: s + chunk]
+        out += (on_feed(i, dec, part) if on_feed is not None
+                else dec.feed(part))
+    out += dec.flush()
+    return dec, out
+
+
+def _same_by_jax_rule(name, got, want, rate, baud) -> None:
+    """The JAX package's rule between a stream and a one-shot run of a
+    coherent bank (its AGC normalises per step group in a stream): each
+    chain's payloads equal, addresses within rate/40 + 9 sample periods of
+    a symbol."""
+    window = rate / 40 + 9 * (rate / baud)
+    for chain in want:
+        a, b = want[chain], got[chain]
+        if [p.data for p in a] != [p.data for p in b] or any(
+                abs(x.streamaddress - y.streamaddress) >= window
+                for x, y in zip(a, b)):
+            raise AssertionError(
+                f"{name} {chain}: {len(b)} stream packets against "
+                f"{len(a)} one-shot, payloads equal "
+                f"{[p.data for p in a] == [p.data for p in b]}")
+
+
+def _stream_phases(dev, smi, banks, afsk, ax_chains, ax_audio, ax_mps,
+                   wrappers) -> list[dict]:
+    """Phases 23-24, the streaming decoder (``runtime/stream.py``) on the
+    card: ``sweep64`` over an hour in 120 s chunks, then ``pll_sweep8``,
+    the mixed AX.25/IL2P bank and a checkpoint over 600 s.  ``wrappers``:
+    the kernel wrappers by key, whose launch counts each phase sets to 0
+    before its main path and reads after.  Returns each phase's
+    launches."""
+    import numpy as np
+    import torch
+
+    from pymodem_tpu_torch.config import ReportSpec, RunPlan
+    from pymodem_tpu_torch.runtime import bank as tbank
+    from pymodem_tpu_torch.runtime.stream import StreamDecoder
+
+    expected, audio = afsk
+    reports = (ReportSpec("decoded", style="decoded_headers"),)
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in wrappers.items()
+                if fn.launches}
+
+    def check_frames(name, chains, by_name, sent, rate):
+        _check_bank(name, tbank._finish_plan(
+            RunPlan(chains=tuple(chains), reports=reports), by_name, rate),
+            sent)
+
+    # 23. sweep64 over an hour, bench.py's streaming workload
+    t0 = time.time()
+    chains = banks["sweep64"]
+    reps = STREAM_SECONDS // SECONDS
+    hour, sent = np.tile(audio, reps), expected * reps
+    chunk = STREAM_CHUNK_SECONDS * RATE
+    kw = dict(blocks_per_step=16, max_packet_seconds=MAX_PACKET_SECONDS,
+              device=dev)
+    peaks = {}
+
+    def first_pass(i, dec, part):
+        fresh = dec.feed(part)
+        if (i + 1) * chunk >= 600 * RATE and "10 min" not in peaks:
+            peaks["10 min"] = torch.cuda.max_memory_allocated()
+        if (i + 1) * chunk >= len(hour):  # the last feed: drain, check
+            fresh += dec.drain()
+            st = dec._banks[0]
+            ext = st.plan.block_input_len - dec.block_len
+            if not (st.tail.is_cuda and tuple(st.tail.shape) == (ext,)
+                    and st.tail_block == st.next_block):
+                raise AssertionError(
+                    f"stream tail: {st.tail.device} {tuple(st.tail.shape)} "
+                    f"(ext {ext}), positioned at block {st.tail_block}, "
+                    f"next block {st.next_block}")
+            peaks["tail"] = (ext, st.tail_block)
+        return fresh
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t1 = time.time()
+    dec, out = _stream(chains, hour, RATE, chunk, first_pass, **kw)
+    torch.cuda.synchronize()
+    cold_wall = time.time() - t1
+    peaks["hour"] = torch.cuda.max_memory_allocated()
+    launches_23 = read_counts()
+    if set(launches_23) != {"K1"}:
+        raise AssertionError(f"sweep64 stream: launches {launches_23}")
+    streamed = _by_chain(chains, out)
+    check_frames("sweep64 stream", chains, streamed, sent, RATE)
+    if peaks["hour"] > 1.1 * peaks["10 min"]:
+        raise AssertionError(f"stream peak grew with the hour: {peaks}")
+    torch.cuda.reset_peak_memory_stats()
+    oneshot = tbank.run_banked(chains, hour,
+                               max_packet_seconds=MAX_PACKET_SECONDS,
+                               device=dev)
+    one_peak = torch.cuda.max_memory_allocated()
+    _same_packets("sweep64 over an hour", streamed, oneshot,
+                  ("stream", "one-shot run_banked"))
+    t1 = time.time()
+    tbank.run_banked(chains, hour, max_packet_seconds=MAX_PACKET_SECONDS,
+                     device=dev)
+    torch.cuda.synchronize()
+    one_wall = time.time() - t1
+    t1 = time.time()
+    _, warm_out = _stream(chains, hour, RATE, chunk, **kw)
+    torch.cuda.synchronize()
+    warm_wall = time.time() - t1
+    _same_packets("sweep64 warm stream", _by_chain(chains, warm_out),
+                  streamed, ("warm stream", "first stream"))
+    syncs, warm_feeds = {}, [0]
+
+    def counted_feed(i, dec_, part):
+        if dec_._banks[0].tail is None:  # no step yet: the next is cold
+            return dec_.feed(part)
+        warm_feeds[0] += 1
+        with _syncs_on_this_thread() as sites:
+            fresh = dec_.feed(part)
+        for k, v in sites.items():
+            syncs[k] = syncs.get(k, 0) + v
+        return fresh
+
+    _stream(chains, hour, RATE, chunk, counted_feed, **kw)
+    if syncs:
+        raise AssertionError(f"warm feeds synchronised the stream: {syncs}")
+    samples = len(chains) * len(hour)
+    print(f"stream sweep64 ({len(chains)} chains) over {STREAM_SECONDS} s "
+          f"of {RATE} Hz int16 in {STREAM_CHUNK_SECONDS} s chunks, "
+          f"{kw['blocks_per_step']} blocks a step ({dec.block_len} samples "
+          f"a block, halo {peaks['tail'][0]} samples on the card): "
+          f"{len(sent)} frames decoded, 0 rejected, packets equal to "
+          f"one-shot run_banked chain for chain; launches {launches_23}; "
+          f"first pass {cold_wall:.3f} s, warm pass {warm_wall:.3f} s = "
+          f"{samples / warm_wall / 1e6:.1f} chain-Msamples/s, one-shot "
+          f"run_banked warm {one_wall:.3f} s = "
+          f"{samples / one_wall / 1e6:.1f} chain-Msamples/s; peak device "
+          f"memory after 10 min {peaks['10 min'] / 2**30:.3f} GiB, after "
+          f"the hour {peaks['hour'] / 2**30:.3f} GiB, one-shot "
+          f"{one_peak / 2**30:.3f} GiB; stream synchronisations in "
+          f"{warm_feeds[0]} warm feeds: 0 [{smi}]")
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        for what, fn in (
+                ("warm stream", lambda: _stream(chains, hour, RATE, chunk,
+                                                **kw)),
+                ("warm one-shot run_banked", lambda: tbank.run_banked(
+                    chains, hour, max_packet_seconds=MAX_PACKET_SECONDS,
+                    device=dev))):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.time()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.time() - t1
+            launches, _, kernel_ms, top = _profile_summary(
+                prof.key_averages())
+            print(f"sweep64 over an hour, {what} (torch.profiler): "
+                  f"{launches} kernel launches, {kernel_ms:.3f} ms of kernel "
+                  f"time in a {wall:.3f} s call (traced): the card busy "
+                  f"{kernel_ms / 1e3 / wall:.1%}; operators by their "
+                  f"kernels' device time: "
+                  f"{[(round(ms, 3), n, key[:40]) for ms, n, key in top[:5]]}")
+    except Exception as exc:  # noqa: BLE001 - the trace is optional
+        print(f"sweep64 stream profile: not traced ({exc!r})")
+    del hour, oneshot, out, warm_out, dec
+    _phase(23, "stream: sweep64 over an hour", t0)
+
+    # 24. pll_sweep8 and the mixed AX.25/IL2P bank over 600 s, and a
+    # checkpoint
+    t0 = time.time()
+    pll = banks["pll_sweep8"]
+    kw = dict(max_packet_seconds=MAX_PACKET_SECONDS, device=dev)
+    zero_counts()
+    runs, walls = {}, {}
+    for n in (7001, 80000):
+        t1 = time.time()
+        runs[n] = _stream(pll, audio, RATE, n, **kw)[1]
+        torch.cuda.synchronize()
+        walls[n] = time.time() - t1
+    mixed, (m_sent, m_wave, _, _) = (ax_chains["mixed_afsk300_ax25_il2p"],
+                                     ax_audio["mixed_afsk300_ax25_il2p"])
+    m_kw = dict(max_packet_seconds=ax_mps["mixed_afsk300_ax25_il2p"],
+                device=dev)
+    m_dev = _by_chain(mixed, _stream(mixed, m_wave, RATE, 80000,
+                                     **m_kw)[1])
+    launches_24 = read_counts()
+    if set(launches_24) != {"K1", "K2", "K9"}:
+        raise AssertionError(f"phase 24 launches {launches_24}")
+    m_host = _by_chain(mixed, _stream(mixed, m_wave, RATE, 80000,
+                                      codec="host", **m_kw)[1])
+    _same_packets("mixed bank stream", m_dev, m_host)
+    check_frames("mixed bank stream", mixed, m_dev, m_sent, RATE)
+    oneshot = tbank.run_banked(pll, audio, device=dev, **{
+        k: v for k, v in kw.items() if k != "device"})
+    by_chunk = {n: _by_chain(pll, out) for n, out in runs.items()}
+    _same_packets("pll_sweep8 stream", by_chunk[7001], by_chunk[80000],
+                  ("7,001-sample chunks", "80,000-sample chunks"))
+    check_frames("pll_sweep8 stream", pll, by_chunk[80000], expected, RATE)
+    _same_by_jax_rule("pll_sweep8 stream", by_chunk[80000], oneshot, RATE,
+                      pll[0].slicer.symbol_rate)
+    chunks = [audio[s: s + 80000] for s in range(0, len(audio), 80000)]
+    half = len(chunks) // 2
+    first = StreamDecoder(pll, RATE, **kw)
+    got = []
+    for c in chunks[:half]:
+        got += first.feed(c)
+    blob = json.dumps(first.state())
+    del first
+    resumed = StreamDecoder(pll, RATE, **kw)
+    resumed.restore(json.loads(blob))
+    for c in chunks[half:]:
+        got += resumed.feed(c)
+    got += resumed.flush()
+    _same_packets("pll_sweep8 resumed from a checkpoint", _by_chain(pll, got),
+                  by_chunk[80000], ("resumed stream", "uninterrupted"))
+    print(f"stream pll_sweep8 over {SECONDS} s in 7,001- and 80,000-sample "
+          f"chunks ({walls[7001]:.3f} and {walls[80000]:.3f} s, the first "
+          f"with the codec's budgets cold): equal packets, every frame "
+          f"({len(expected)}), 0 "
+          f"rejected, the one-shot run's payloads chain for chain with "
+          f"addresses within rate/40 + 9 symbol periods; a checkpoint after "
+          f"{half} of {len(chunks)} chunks, {len(blob)} bytes of JSON, "
+          f"restored into a new decoder: the uninterrupted stream's "
+          f"packets; mixed_afsk300_ax25_il2p: device codecs equal to the "
+          f"host codec packet for packet, every frame ({len(m_sent)}); "
+          f"launches {launches_24} [{smi}]")
+    _phase(24, "stream: PLL and mixed banks, a checkpoint", t0)
+    return [launches_23, launches_24]
 
 
 def main() -> int:
@@ -2219,6 +2510,11 @@ def main() -> int:
          "K3": bpsk_costas_lanes, "K4": agc_lanes,
          "K5": qpsk_costas_lanes, "K6": mpsk_loop_lanes,
          "K7": quadrature_slice_lanes, "K8": four_level_slice_lanes,
+         "K9": ax25_deframe_rows})
+    # 23-24. the streaming decoder
+    paths += _stream_phases(
+        dev, smi, banks, (expected, audio), ax_chains, ax_audio, ax_mps,
+        {"K1": binary_slice_lanes, "K2": afsk_pll_lanes,
          "K9": ax25_deframe_rows})
 
     for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]

@@ -10,13 +10,24 @@ Carried so far: the decode of every modem family (``afsk``,
 ``afsk_pll``, ``bpsk``, ``qpsk``, ``mpsk``, ``fsk``) with the binary,
 quadrature and four-level slicers and both codecs (IL2P+CRC and AX.25, on
 the device codecs by default or the host state machines), through every
-front door of the JAX package but streaming: ``runtime/bank.py``
-(``run_banked``, ``run_banked_many``, ``run_banked_files``,
-``run_plan_banked`` with its resilient retry, ``run_plan_banked_many``,
-``run_plans_banked_pipelined``), the sequential executor
-(``runtime/executor.py``), the CLI (``python -m pymodem_tpu_torch``) and
-the decode server (``python -m pymodem_tpu_torch.serve``).  Not yet
-ported: float64 parity mode, streaming, multi-GPU.
+front door of the JAX package: ``runtime/bank.py`` (``run_banked``,
+``run_banked_many``, ``run_banked_files``, ``run_plan_banked`` with its
+resilient retry, ``run_plan_banked_many``, ``run_plans_banked_pipelined``),
+the streaming decoder (``runtime/stream.StreamDecoder``, exported here),
+the sequential executor (``runtime/executor.py``), the CLI (``python -m
+pymodem_tpu_torch``) and the decode server (``python -m
+pymodem_tpu_torch.serve``).  Not yet ported: float64 parity mode,
+multi-GPU.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # StreamDecoder imports torch; the CLI and the server's client path
+    # import this package without it
+    if name == "StreamDecoder":
+        from .runtime.stream import StreamDecoder
+
+        return StreamDecoder
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,7 +1,9 @@
 """Command-line entry point: ``python -m pymodem_tpu_torch <config.json> <audio.wav>``.
 
 Same arguments, exit codes (2 bad argv, 3 bad config, 4 bad wav) and report
-text as ``python -m pymodem_tpu`` (reference pymodem.py:5-9,25-49).  The
+text as ``python -m pymodem_tpu`` (reference pymodem.py:5-9,25-49); exit 1
+when a decode left the GPU lost (a sticky CUDA error, which the runtime
+names once).  The
 JAX package's environment variables, read under the
 ``PYMODEM_TPU_TORCH_`` prefix (so a port CLI never reaches a JAX server):
 
@@ -166,7 +168,7 @@ def run_decode(config_path: str, wav_path: str) -> int:
     names, print reports.  Shared by the one-shot CLI and the server."""
     from . import profiling
     from .config import load_plan
-    from .device import from_env
+    from .device import DeviceLostError, from_env
     from .wav_io import read_wav
 
     if runtime_name() == "banked":
@@ -203,9 +205,12 @@ def run_decode(config_path: str, wav_path: str) -> int:
     print(f"Built {len(plan.chains)} demod chains")
     start = time.time()
     trace_dir = profile if profile not in ("", "1", "true", "yes") else None
-    with profiling.trace(trace_dir):
-        result = run_plan(plan, audio, sample_rate, verbose=True,
-                          device=device)
+    try:
+        with profiling.trace(trace_dir):
+            result = run_plan(plan, audio, sample_rate, verbose=True,
+                              device=device)
+    except DeviceLostError:  # the runtime has named the error
+        return 1
     for report_spec, text in zip(plan.reports, result.reports):
         print(f"Generating {report_spec.name}")
         print(text)

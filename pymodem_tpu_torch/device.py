@@ -43,6 +43,26 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+class DeviceLostError(RuntimeError):
+    """The device's CUDA context is dead: a sticky error (a device-side
+    assert, an illegal address, a kernel fault) fails every later call on
+    it in this process, so no retry there can succeed."""
+
+
+def lost(device: str | torch.device) -> str | None:
+    """The sticky error that ``device`` reports on a synchronize (its
+    first line), or None while the device still runs work.  A CPU device
+    is never lost."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    try:
+        torch.cuda.synchronize(dev)
+    except Exception as exc:  # noqa: BLE001 - any failure is the answer
+        return f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+    return None
+
+
 def from_env() -> torch.device:
     """The device named by PYMODEM_TPU_TORCH_DEVICE (default ``cuda``)."""
     import os

@@ -152,16 +152,24 @@ class BlockPlan:
         return lo, min(lo + self.block_len, self.n_demod)
 
 
+def overlapped_frames(window: torch.Tensor, n_blocks: int, stride: int,
+                      ext: int) -> torch.Tensor:
+    """(n_blocks*stride + ext,) window -> (n_blocks, stride + ext)
+    overlapped frames, stride ``stride``.  ``unfold`` returns a view, so
+    nothing is copied; the window keeps its wire dtype (int16) until the
+    caller casts the frames."""
+    return window[: n_blocks * stride + ext].unfold(0, stride + ext, stride)
+
+
 def frame_blocks(audio: torch.Tensor, plan: BlockPlan) -> torch.Tensor:
     """(n,) -> (n_blocks, block_input_len) overlapped frames, stride
     ``stride_in``: front-padded with block 0's halo, tail-padded to fill the
-    last block.  ``unfold`` returns a view, so nothing is copied; audio
-    keeps its wire dtype (int16) until the caller casts the frames."""
+    last block (``overlapped_frames`` of the padded recording)."""
     ext = plan.block_input_len - plan.stride_in
     total = plan.n_blocks * plan.stride_in + ext
     padded = F.pad(audio, (plan.front_pad,
                            total - plan.front_pad - plan.n_audio))
-    return padded.unfold(0, plan.block_input_len, plan.stride_in)
+    return overlapped_frames(padded, plan.n_blocks, plan.stride_in, ext)
 
 
 # ---------------------------------------------------------------------------
@@ -658,6 +666,28 @@ def bank_frames_compute(bank: Bank, blocks: torch.Tensor, capacity: int,
                                   bank.stream_inverts)
     sync = il2p_sync_candidates(data, sync_tolerance)
     return data, addr, count, pack_bits(sync)
+
+
+def bank_device_step_stream(bank: Bank, tail: torch.Tensor,
+                            fresh: torch.Tensor, n_blocks: int, stride: int,
+                            ext: int, capacity: int, window: int,
+                            sync_tolerance: int):
+    """A streaming step with a device-resident audio tail.
+
+    The step window is ``cat(tail, fresh)`` on the device: ``tail`` (ext
+    samples) is the previous step's overlap+trim halo, returned by the
+    previous call and never read back, and ``fresh`` the ``n_blocks *
+    stride`` new input samples, so in steady state only new samples cross
+    to the card, in their wire dtype.  The window is framed into
+    ``n_blocks`` overlapped frames (``overlapped_frames``) that go through
+    ``bank_frames_compute`` as float32.  Returns its (data, addr, count,
+    sync) and the next step's tail, the window's last ``ext`` samples,
+    still on the device."""
+    win = torch.cat((tail, fresh))
+    frames = overlapped_frames(win, n_blocks, stride, ext)
+    out = bank_frames_compute(bank, frames.to(torch.float32), capacity,
+                              window, sync_tolerance)
+    return out + (win[n_blocks * stride:].clone(),)
 
 
 # ---------------------------------------------------------------------------
@@ -1494,7 +1524,7 @@ def _len_bucket(max_len: int, lmax: int) -> int:
 
 def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
                          max_packets_per_block, total_candidates,
-                         host_plan: BlockPlan | None = None):
+                         block0: int = 0, host_plan: BlockPlan | None = None):
     """Run the device codec and compaction over bank outputs; return a
     collect() closure that performs the single packed readback and builds
     packet objects.
@@ -1511,14 +1541,17 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
     blocks still dropped after that.  The learned budgets land in the
     cache.
 
-    ``host_plan`` (run_banked_files): the device program addresses the
-    blocks against the template ``plan`` (so the budget-cache key does not
-    change from file to file), and the host packet build keeps packets
-    inside ``host_plan``'s blocks, the file's own; the device keep filter
-    is then off."""
+    ``host_plan`` (run_banked_files, the streaming decoder): the device
+    program addresses the blocks against the template ``plan`` (so the
+    budget-cache key does not change from file to file or step to step),
+    and the host packet build keeps packets inside ``host_plan``'s blocks,
+    the recording's own.  ``block0`` (the streaming decoder): the global
+    index of the buffers' block 0; the host packet build shifts addresses
+    by ``block0 * plan.block_len`` and keep windows by ``block0`` blocks.
+    The device keep filter runs only with neither."""
     from .. import profiling
 
-    device_keep = host_plan is None
+    device_keep = host_plan is None and block0 == 0
     if host_plan is None:
         host_plan = plan
     cache_key = (codec_key, plan, tuple(data.shape[:2]),
@@ -1586,6 +1619,7 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
                 _CODEC_BUDGET_CACHE.pop(cache_key, None)
         return packets_from_compact(
             bank, host_plan, comp, n_ok, dropped, data, addr, count, sync,
+            block0,
         )
 
     if cached is not None:
@@ -1648,6 +1682,7 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
 
 def _device_codec_submit_mixed(bank, plan, groups, data, addr, count, sync,
                                max_packets_per_block, total_candidates,
+                               block0: int = 0,
                                host_plan: BlockPlan | None = None):
     """_device_codec_submit over the bank's codec SUB-GROUPS (from
     _codec_subgroups): a bank whose chains mix codec options runs one
@@ -1656,7 +1691,7 @@ def _device_codec_submit_mixed(bank, plan, groups, data, addr, count, sync,
     if len(groups) == 1:
         return _device_codec_submit(
             bank, plan, groups[0][0], data, addr, count, sync,
-            max_packets_per_block, total_candidates, host_plan,
+            max_packets_per_block, total_candidates, block0, host_plan,
         )
     subs = []
     for key, idxs in groups:
@@ -1668,16 +1703,18 @@ def _device_codec_submit_mixed(bank, plan, groups, data, addr, count, sync,
         subs.append(_device_codec_submit(
             _bank_chain_subset(bank, idxs), plan, key,
             data[sel], addr[sel], count[sel], sync[sel],
-            max_packets_per_block, total_candidates, host_plan,
+            max_packets_per_block, total_candidates, block0, host_plan,
         ))
     return partial(_drain, subs)
 
 
 def _fallback_block_packets(per_chain, bank, plan, fallback, data, addr,
-                            count, sync) -> None:
+                            count, sync, block0: int = 0) -> None:
     """Decode the blocks still saturated after escalation with the exact
     host FSM (the device result may be incomplete there).  Reads the byte
-    streams back only when such blocks exist."""
+    streams back only when such blocks exist.  ``fallback`` holds local
+    (chain, block) indices; ``block0`` shifts them to their global stream
+    position (streaming steps)."""
     from .. import profiling
 
     if not fallback:
@@ -1690,23 +1727,26 @@ def _fallback_block_packets(per_chain, bank, plan, fallback, data, addr,
         n = int(count[ci, b])
         if n == 0:
             continue
-        offset = b * plan.block_len - plan.overlap
+        offset = (b + block0) * plan.block_len - plan.overlap
         pkts = host_decode_block(
             chain,
             data[ci, b, :n].astype(np.int64),
             addr[ci, b, :n].astype(np.int64) + offset,
             sync[ci, b],
         )
-        lo, hi = plan.keep_range(b)
+        lo, hi = plan.keep_range(b + block0)
         per_chain.setdefault(int(ci), []).extend(
             p for p in pkts if lo < p.streamaddress <= hi
         )
 
 
 def packets_from_compact(bank, plan, comp, n_ok, dropped, data, addr, count,
-                         sync):
+                         sync, block0: int = 0):
     """Per-chain Packet lists from compact_codec_out's readback, with the
-    host FSM for the blocks still dropped."""
+    host FSM for the blocks still dropped.  ``block0``: the global stream
+    index of the buffers' block 0 (streaming steps address their blocks
+    locally on the device; addresses and keep windows shift by whole
+    blocks here)."""
     from .. import profiling
     from ..packets import Packet
 
@@ -1715,9 +1755,10 @@ def packets_from_compact(bank, plan, comp, n_ok, dropped, data, addr, count,
         # vectorized keep filter (keep_range + fallback membership), then
         # one bulk bytes->list conversion and a plain loop of constructions
         chain_a = comp["chain"][:n_ok].astype(np.int64)
-        block_a = comp["block"][:n_ok].astype(np.int64)
-        addr_a = comp["address"][:n_ok].astype(np.int64)
-        lo = block_a * plan.block_len
+        block_a = comp["block"][:n_ok].astype(np.int64)  # local indices
+        addr_a = (comp["address"][:n_ok].astype(np.int64)
+                  + block0 * plan.block_len)
+        lo = (block_a + block0) * plan.block_len
         keep = (addr_a > lo) & (
             addr_a <= np.minimum(lo + plan.block_len, plan.n_demod)
         )
@@ -1752,6 +1793,7 @@ def packets_from_compact(bank, plan, comp, n_ok, dropped, data, addr, count,
             with profiling.timed("packet_fallback"):
                 _fallback_block_packets(
                     per_chain, bank, plan, fallback, data, addr, count, sync,
+                    block0,
                 )
         for pkts in per_chain.values():
             pkts.sort(key=lambda p: p.streamaddress)
@@ -1774,8 +1816,11 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
     ``resilient`` is the reference's skip-and-continue (chain_execute.py:
     8-27): if the banked run fails, every chain is retried alone through
     the sequential executor, on the same device and kernels, and a chain
-    that still fails is reported and skipped.  ``resilient=False``
-    raises."""
+    that still fails is reported and skipped.  If the failure left the
+    device lost (a sticky CUDA error, ``device.lost``), no retry could
+    run: the message names the error once and ``DeviceLostError`` is
+    raised.  ``resilient=False`` raises."""
+    from ..device import DeviceLostError, lost
     from .executor import run_chain
 
     if verbose:
@@ -1790,6 +1835,11 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
     except Exception as exc:  # noqa: BLE001 - skip-and-continue contract
         if not resilient:
             raise
+        dead = lost(device)
+        if dead is not None:
+            print(f"banked runtime failed ({dead}); the device is lost, "
+                  f"no retry")
+            raise DeviceLostError(dead) from exc
         print(f"banked runtime failed ({type(exc).__name__}: {exc}); "
               f"retrying chains sequentially")
         by_name = {}

@@ -122,7 +122,10 @@ def run_plan(plan, audio: np.ndarray, sample_rate: float,
 
     ``resilient`` is the reference's skip-and-continue (chain_execute.py:
     8-27): a chain that raises is reported and skipped and the others
-    still decode.  ``resilient=False`` raises."""
+    still decode, unless the failure left the device lost (a sticky CUDA
+    error, ``device.lost``): then the message names the error once and
+    ``DeviceLostError`` is raised.  ``resilient=False`` raises."""
+    from ..device import DeviceLostError, lost
     from ..packets import PacketAggregate
 
     aggregate = PacketAggregate()
@@ -134,6 +137,11 @@ def run_plan(plan, audio: np.ndarray, sample_rate: float,
         except Exception as exc:  # noqa: BLE001 - skip-and-continue contract
             if not resilient:
                 raise
+            dead = lost(device)
+            if dead is not None:
+                print(f"chain {chain.name} failed ({dead}); the device is "
+                      f"lost, no retry")
+                raise DeviceLostError(dead) from exc
             print(f"skipped chain {chain.name}: {type(exc).__name__}: {exc}")
             packets = []
         aggregate.add(packets)

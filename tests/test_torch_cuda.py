@@ -792,3 +792,116 @@ def test_ax25_deframe_kernel_matches_twin(cuda, n_rows, max_packets):
         assert torch.equal(on_card[key].cpu(), value), key
     if max_packets == 2:
         assert int(on_cpu["dropped"].max()) > 0
+
+
+def _pll_stream_case():
+    """An AFSK-PLL chain at 8 kHz and 11.6 s of int16 audio carrying 4
+    IL2P+CRC frames (1600/1800 Hz, 8-byte payloads)."""
+    from pymodem_tpu_torch.config import build_chain_spec
+    from pymodem_tpu_torch.synth import fixtures as fx
+    from pymodem_tpu_torch.synth import modulate as mod
+
+    line = {
+        "object_name": "AFSK 300 Il2Pc PLL", "object_type": "demod_chain",
+        "modem": {"type": "afsk_pll", "config": "300", "options": {}},
+        "slicer": {"type": "binary", "config": "300", "options": {}},
+        "stream": {"type": "lfsr", "options": {"poly": "0x3",
+                                               "invert": "no"}},
+        "codec": {"type": "il2p", "options": {"crc": "yes"}},
+    }
+    sent = fx.payloads(np.random.default_rng(20261017), count=4, size=8)
+    bits = fx.il2p_line_bits(sent, polynomial=0x3, invert=False,
+                             gap_bits=400)
+    audio = mod.to_int16(mod.afsk_modulate(bits, 8000.0, 300.0, 1600.0,
+                                           1800.0))
+    return [build_chain_spec(8000.0, line)], sent, audio
+
+
+def test_stream_on_the_card_matches_cpu(cuda):
+    """A PLL-bank stream on the card (K1, K2 and the device codec) gives
+    the CPU stream's packets, and its tail stays on the card."""
+    from pymodem_tpu_torch.dsp.loops import afsk_pll_lanes
+    from pymodem_tpu_torch.runtime.stream import StreamDecoder
+
+    chains, sent, audio = _pll_stream_case()
+    got = {}
+    for dev in ("cpu", "cuda"):
+        dec = StreamDecoder(chains, 8000, block_seconds=1.5,
+                            overlap_seconds=2.5, blocks_per_step=4,
+                            device=dev)
+        before = afsk_pll_lanes.launches
+        out = []
+        for i in range(0, len(audio), 7001):
+            out += dec.feed(audio[i:i + 7001])
+        out += dec.drain()
+        (st,) = dec._banks
+        assert st.tail.device.type == dev
+        assert st.tail.shape == (st.plan.block_input_len - dec.block_len,)
+        assert st.tail_block == st.next_block > 0
+        out += dec.flush()
+        if dev == "cuda":
+            assert afsk_pll_lanes.launches > before
+        got[dev] = [(list(p.data), p.streamaddress, p.bytes_corrected)
+                    for p in out]
+    assert got["cuda"] == got["cpu"]
+    assert [bytes(d[16:-2]) for d, _, _ in got["cuda"]] == sent
+
+
+_TRIP_CHILD = """
+import sys
+import torch
+from pymodem_tpu_torch import cli
+from pymodem_tpu_torch.runtime import bank
+
+real = bank.dispatch_bank
+
+
+def tripped(bank_, plan, audio, tol):
+    # a device-side assert: the CUDA context is dead from here on
+    torch._assert_async(torch.zeros((), dtype=torch.bool,
+                                    device=audio.device))
+    return real(bank_, plan, audio, tol)
+
+
+bank.dispatch_bank = tripped
+sys.exit(cli.main(["pymodem_tpu_torch", sys.argv[1], sys.argv[2]]))
+"""
+
+
+def test_cli_after_a_device_side_fault(cuda, tmp_path):
+    """The CLI in a child process whose bank dispatch trips a device-side
+    assert: the context is dead, so the resilient retry cannot run.  The
+    process names the error once and exits non-zero (1), without
+    hanging, retrying chain by chain or printing a report."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from pymodem_tpu_torch.wav_io import write_wav
+
+    chains, _sent, audio = _pll_stream_case()
+    cfg = tmp_path / "pll.json"
+    line = {
+        "object_name": "AFSK 300 Il2Pc PLL", "object_type": "demod_chain",
+        "modem": {"type": "afsk_pll", "config": "300", "options": {}},
+        "slicer": {"type": "binary", "config": "300", "options": {}},
+        "stream": {"type": "lfsr", "options": {"poly": "0x3",
+                                               "invert": "no"}},
+        "codec": {"type": "il2p", "options": {"crc": "yes"}},
+    }
+    cfg.write_text(json.dumps(line) + "\n" + json.dumps(
+        {"object_name": "report", "object_type": "report",
+         "options": {"style": "decoded_headers"}}) + "\n")
+    wav = tmp_path / "pll.wav"
+    write_wav(str(wav), 8000, audio)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRIP_CHILD, str(cfg), str(wav)],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=300)
+    out = proc.stdout
+    assert proc.returncode == 1, (proc.returncode, out, proc.stderr[-2000:])
+    assert out.count("banked runtime failed") == 1, out
+    assert "the device is lost, no retry" in out
+    assert "skipped chain" not in out and "Generating" not in out

@@ -398,3 +398,39 @@ def test_banked_many_retries_recordings(tmp_path, monkeypatch, capsys):
     with pytest.raises(RuntimeError):
         bank.run_plan_banked_many(plan, [audio], 8000.0, resilient=False,
                                   device="cpu")
+
+
+@pytest.mark.parametrize("runtime", ["banked", "sequential"])
+def test_lost_device_is_not_retried(tmp_path, monkeypatch, capsys, runtime):
+    """After a failure that left the device lost (a sticky CUDA error,
+    ``device.lost``) no retry can run: the runtime names the error once
+    and raises DeviceLostError, and the CLI exits 1 without a report."""
+    from pymodem_tpu_torch import cli, device
+    from pymodem_tpu_torch.runtime import bank
+    from pymodem_tpu_torch.wav_io import write_wav
+
+    sticky = "AcceleratorError: CUDA error: device-side assert triggered"
+    plan = _two_chain_plan(tmp_path)
+
+    def broken(*a, **kw):
+        raise RuntimeError("CUDA error: device-side assert triggered")
+
+    monkeypatch.setattr(bank, "run_banked", broken)
+    monkeypatch.setattr(texecutor, "run_chain", broken)
+    monkeypatch.setattr(device, "lost", lambda dev: sticky)
+    run_plan = (bank.run_plan_banked if runtime == "banked"
+                else texecutor.run_plan)
+    with pytest.raises(device.DeviceLostError, match="device-side assert"):
+        run_plan(plan, _resilience_audio(), 8000.0, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count(sticky) == 1 and "the device is lost, no retry" in out
+    assert "skipped chain" not in out and "retrying" not in out
+
+    cfg = tmp_path / "two.json"
+    wav = tmp_path / "x.wav"
+    write_wav(str(wav), 8000, _resilience_audio())
+    monkeypatch.setenv("PYMODEM_TPU_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("PYMODEM_TPU_TORCH_RUNTIME", runtime)
+    assert cli.run_decode(str(cfg), str(wav)) == 1
+    out = capsys.readouterr().out
+    assert out.count(sticky) == 1 and "Generating" not in out

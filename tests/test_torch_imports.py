@@ -42,6 +42,9 @@ assert "torch" not in sys.modules  # the server's client path
 import pymodem_tpu_torch.runtime.executor, pymodem_tpu_torch.runtime.bank
 from pymodem_tpu_torch.runtime.bank import (run_banked_files,
     run_banked_many, run_plan_banked_many, run_plans_banked_pipelined)
+import pymodem_tpu_torch.runtime.stream
+from pymodem_tpu_torch import StreamDecoder
+assert StreamDecoder is pymodem_tpu_torch.runtime.stream.StreamDecoder
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not any(m == "pymodem_tpu" or m.startswith("pymodem_tpu.")
                for m in sys.modules)
@@ -49,9 +52,9 @@ assert not any(m == "pymodem_tpu" or m.startswith("pymodem_tpu.")
 
 
 def test_front_doors_import_no_jax():
-    """The executor, the server and the CLI's batch and server routes
-    import no JAX and nothing of pymodem_tpu; the CLI and server modules
-    import no torch until a decode runs."""
+    """The executor, the streaming decoder, the server and the CLI's batch
+    and server routes import no JAX and nothing of pymodem_tpu; the CLI
+    and server modules import no torch until a decode runs."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _FRONT_DOORS], cwd=REPO,
                           env=env, capture_output=True, text=True,
