@@ -6,7 +6,7 @@
 Drives the port's four main paths on the default route, the device codecs,
 through ``run_plan_banked`` and through its CLI, holds the device codecs'
 packets against the host codecs' on the same arrays, and holds every
-hand-written kernel (K1-K9) against its plain PyTorch twin:
+hand-written kernel (K1-K12) against its plain PyTorch twin:
 
 * the AFSK path: the banked AFSK-300 IL2P+CRC decode of 600 s of 8 kHz
   int16 audio (kernels K1 binary slicer, K2 AFSK PLL + AGC);
@@ -26,7 +26,11 @@ hand-written kernel (K1-K9) against its plain PyTorch twin:
   ``resilient=False`` but the retry phase;
 * the streaming decoder (``runtime/stream.StreamDecoder``): the 64-chain
   sweep over an hour in 2-minute chunks, the PLL sweep and the mixed
-  AX.25/IL2P bank over 600 s, and a checkpoint (kernels K1, K2, K9 again).
+  AX.25/IL2P bank over 600 s, and a checkpoint (kernels K1, K2, K9 again);
+* the float64 parity mode (``PYMODEM_TPU_TORCH_X64``) on the card: the
+  executor and ``run_plan_banked`` at float64 (kernels K10 binary slicer,
+  K11 AGC + AFSK PLL / BPSK Costas loop, K12 four-level slicer), its CLI,
+  and the synthesizer's round trip.
 
 Phases, each printing one line with its seconds:
 
@@ -152,6 +156,29 @@ Phases, each printing one line with its seconds:
     printed); ``mixed_afsk300_ax25_il2p`` over 600 s with the device
     codecs (K9) equal to the host codec packet for packet.
 
+25. K10, K11 (kinds ``afsk_pll`` and ``bpsk``) and K12 against their
+    float64 twins, bitwise, on the first 4101 samples at the full lane
+    count of the executor's one lane over 60 s of the PLL, BPSK-1200 and
+    4FSK recordings and of the f64 banks ``pll_sweep8``,
+    ``bpsk1200_sweep8`` and ``fsk4_9600_sweep8`` (their own inputs:
+    shared rows and ``row_of_lane``, basebands, windows); each kernel
+    timed at full shape, the twins at 4101 samples on the banks;
+26. the float64 mode end to end, the launch counters set to 0 before each
+    run and read after: the executor (the mode's default route) on 60 s
+    of the PLL pair (``afsk_300_pll``), the AFSK-300 correlator,
+    BPSK-1200, FSK-9600 and 4FSK chains, and ``run_plan_banked`` at f64
+    on ``pll_pair``, ``pll_sweep8`` and an 8-chain space-gain sweep
+    (``F64_SWEEP_GAINS``, no scale row at f64) over 600 s: every frame, 0
+    rejected, K10-K12 launched as each family needs and no f32 loop or
+    slicer kernel (K1-K8); walls beside the same plans at f32, the
+    packets that differ between the two, peak device memory;
+27. the CLI as a subprocess with ``PYMODEM_TPU_TORCH_X64=1`` on the PLL
+    pair's config and a few seconds of audio (2 frames): exit 0 and the report of the same
+    decode on the CPU twins (``run_decode`` with
+    ``PYMODEM_TPU_TORCH_DEVICE=cpu``); then ``python -m
+    pymodem_tpu_torch.synth`` on that config and the CLI on the card
+    decoding every frame it printed.
+
 Phases 17-22 and the CLI phases fail if any output holds "banked runtime
 failed" or "skipped chain" (the retry's messages), but phase 21's own.
 
@@ -164,7 +191,7 @@ result.  The last three lines are the card's ``nvidia-smi`` name and power
 limit, one JSON object describing each kernel (launches on the main paths,
 max abs error against the twin, kernel milliseconds at the full main-path
 shape, the twin's on a time slice, the bound; K1 also at the BPSK and
-FSK-9600 sweeps' shapes) and
+FSK-9600 sweeps' shapes, K10-K12 at their other phase 25 shapes) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -239,7 +266,14 @@ WARM_RUNS = 3
 # HBM bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# and float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+F64_OPS_PER_S = 34e12
 FULL_POWER_W = 700.0
+# the float64 phases (25-27): the twins' time slice (4101 samples, as the
+# other twin timings) and the space-gain bank's gains (around unity, which
+# decodes every frame)
+F64_CUT = SLICE + 5
+F64_SWEEP_GAINS = [0.97 + 0.01 * i for i in range(8)]
 
 
 def _phase(n: int, what: str, t0: float) -> None:
@@ -620,18 +654,19 @@ def _power_limit_w(smi: str) -> float:
 
 
 def _kernel(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
-            shape, plain_shape, smi) -> dict:
+            shape, plain_shape, smi, ops_per_s=F32_OPS_PER_S) -> dict:
     """One entry of the kernels line.  ``bound_ms`` is the least time the
     card could take for the same work: the larger of the bytes the
     function must move (each input read once, each output written once)
-    over the HBM rate and its float32 operations over the card's rate
-    outside the tensor cores, both scaled down by the power limit when the
+    over the HBM rate and its float operations over the card's rate for
+    their type outside the tensor cores (float32, or ``F64_OPS_PER_S`` for
+    the float64 kernels), both scaled down by the power limit when the
     card is set below 700 W.  The lanes' sequential dependency chain is not
     in the bound.  No single PyTorch call computes any of these
     recurrences, so ``library_ms`` is null."""
     scale = min(1.0, _power_limit_w(smi) / FULL_POWER_W)
     t_bytes = n_bytes / (HBM_BYTES_PER_S * scale)
-    t_ops = n_ops / (F32_OPS_PER_S * scale)
+    t_ops = n_ops / (ops_per_s * scale)
     return dict(
         name=name, route="cuda", source=f"pymodem_tpu_torch/csrc/{source}",
         replaces=replaces, launches=0, max_abs_err=err, ms=ms,
@@ -1721,6 +1756,404 @@ def _stream_phases(dev, smi, banks, afsk, ax_chains, ax_audio, ax_mps,
     return [launches_23, launches_24]
 
 
+def _packet_keys(result) -> list:
+    """Every chain's packets as (payload, stream address) tuples."""
+    return [(ci, bytes(p.data), int(p.streamaddress))
+            for ci, ch in enumerate(result.aggregate.chains) for p in ch]
+
+
+def _cli_report(cfg, wav, env_extra) -> str:
+    """Run the CLI as a subprocess with ``env_extra``; raises unless it
+    exits 0; returns its report text (from "Generating" to "Elapsed")."""
+    env = dict(os.environ, PYTHONPATH=ROOT, **env_extra)
+    proc = subprocess.run(
+        [sys.executable, "-m", "pymodem_tpu_torch", cfg, wav], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI ({env_extra}) exited {proc.returncode}:"
+                             f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    _no_retry("CLI", proc.stdout)
+    out = proc.stdout
+    return out[out.index("Generating"):out.index("Elapsed time")]
+
+
+def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
+                fsk_audio, wrappers) -> tuple[dict, dict]:
+    """Phases 25-27, the float64 parity mode on the card: K10, K11 (both
+    kinds) and K12 against their f64 twins; the mode end to end on the
+    executor (its default route) and on ``run_plan_banked``; the CLI under
+    PYMODEM_TPU_TORCH_X64 against the CPU twins, and the synthesizer's
+    round trip.  ``wrappers``: every kernel wrapper by key (K1-K12), whose
+    launch counts each run sets to 0 before it and reads after.  Returns
+    the kernels-line entries of K10-K12 and their launches on phase 26's
+    runs (the mode's main path)."""
+    import numpy as np
+    import torch
+
+    from pymodem_tpu_torch import modems
+    from pymodem_tpu_torch.config import ReportSpec, RunPlan, build_chain_spec
+    from pymodem_tpu_torch.dsp.loops import (
+        afsk_pll,
+        bpsk_costas,
+        coherent_loop_f64_lanes,
+    )
+    from pymodem_tpu_torch.ops.slicers import (
+        binary_slice,
+        binary_slice_f64_lanes,
+        four_level_slice,
+        four_level_slice_f64_lanes,
+    )
+    from pymodem_tpu_torch.runtime import bank as tbank
+    from pymodem_tpu_torch.runtime import executor
+    from pymodem_tpu_torch.runtime.executor import slicer_lane_params
+    from pymodem_tpu_torch.wav_io import write_wav
+
+    F64 = torch.float64
+    expected, audio = afsk
+    reports = (ReportSpec("decoded", style="decoded_headers"),)
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in wrappers.items()
+                if fn.launches}
+
+    # 25. K10, K11 and K12 against their f64 twins
+    t0 = time.time()
+    sources = {
+        "K10": ("binary_slicer_f64", "binary_slicer_f64.cu",
+                "pymodem_tpu/ops/slicers.py:151"),
+        "K11": ("coherent_loop_f64", "coherent_loop_f64.cu",
+                "pymodem_tpu/dsp/loops.py:123"),
+        "K12": ("four_level_slicer_f64", "four_level_slicer_f64.cu",
+                "pymodem_tpu/ops/slicers.py:244"),
+    }
+    held = {}  # key -> [(where, entry)]
+
+    def hold(key, where, kernel, twin, x, n_lanes, n_bytes, ops_a_step):
+        """``kernel`` against ``twin`` on the first F64_CUT samples of the
+        rows ``x`` at the full lane count: bitwise; the kernel timed at
+        full shape (3 runs a bank's lanes, 1 the executor's lane), the
+        twin's call on the cut."""
+        xs = x[:, :F64_CUT].contiguous()
+        got = kernel(xs)
+        # the twin's one call, timed by CUDA events (4101 steps of its
+        # launches, no warm-up worth a second call)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = twin(xs)
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end)
+        err = _same(f"{key} on {where}", got, want)
+        ms = _time_ms(lambda: kernel(x), 3 if n_lanes > 1 else 1)
+        T = x.shape[1]
+        name, source, replaces = sources[key]
+        k = _kernel(name, source, replaces, err, ms, plain, n_bytes,
+                    ops_a_step * n_lanes * T, (n_lanes, T),
+                    (n_lanes, F64_CUT), smi, ops_per_s=F64_OPS_PER_S)
+        held.setdefault(key, []).append((where, k))
+        print(f"{key} on {where}: lanes {n_lanes} T {T}: bitwise equal to "
+              f"its f64 twin on {n_lanes}x{F64_CUT}; twin {plain:.1f} ms at "
+              f"{n_lanes}x{F64_CUT}; kernel {ms:.3f} ms at full "
+              f"{n_lanes}x{T}, {ms * 1e6 / T:.1f} ns a step, one thread a "
+              f"lane, 32 lanes a block; bound {k['bound_ms']:.3f} ms "
+              f"({k['bound_by']}) [{smi}]")
+
+    def loop_at(where, kind, x, rows, tables, row_of_lane=None):
+        twin = afsk_pll if kind == "afsk_pll" else bpsk_costas
+        twin_tables = tables[:1] if kind == "afsk_pll" else tables
+        L = rows.shape[1]
+        R, T = x.shape
+        hold("K11", f"{where} ({kind})",
+             lambda t: coherent_loop_f64_lanes(kind, t, rows, *tables[:2],
+                                               row_of_lane),
+             lambda t: twin(t, rows, *twin_tables, row_of_lane), x, L,
+             8 * (R * T + L * T + 15 * L + 256 * len(twin_tables)) + 4 * L,
+             40 if kind == "afsk_pll" else 45)
+
+    def slicer_at(key, where, x, lp, window, demap=None):
+        L, T = x.shape
+        if key == "K10":
+            kernel = lambda t: binary_slice_f64_lanes(t, lp, window)
+            twin = lambda t: binary_slice(t, lp, window)
+        else:
+            kernel = lambda t: four_level_slice_f64_lanes(t, lp, demap,
+                                                          window)
+            twin = lambda t: four_level_slice(t, lp, demap, window)
+        hold(key, f"{where} window {window}", kernel, twin, x, L,
+             8 * (L * T + 2 * L) + 4 * L * -(-T // window),
+             15 if key == "K10" else 35)
+
+    # the executor's one lane over 60 s of each family's recording
+    afsk60 = _whole_segments(expected, audio, len(audio) // (SECONDS // 30),
+                             RATE, EXECUTOR_SECONDS)
+    lane_cases = {
+        "afsk300_pll": (build_chain_spec(float(RATE), _chain_line(
+            "AFSK 300 Il2Pc PLL", "afsk_pll")), afsk60[1]),
+        "bpsk1200": (psk_chains["bpsk1200_sweep8"][0], _whole_segments(
+            *psk_audio["bpsk1200_sweep8"][:3], PSK_RATE,
+            EXECUTOR_SECONDS)[1]),
+        "fsk4_9600": (fsk_chains["fsk4_9600_sweep8"][0], _whole_segments(
+            *fsk_audio["fsk4_9600_sweep8"][:3], FSK4_RATE,
+            EXECUTOR_SECONDS)[1]),
+    }
+    for fam, (chain, wave) in lane_cases.items():
+        m, sl = chain.modem, chain.slicer
+        params = modems.build_params(m)
+        a64 = torch.from_numpy(wave).to(dev).to(F64)
+        where = f"the executor's lane ({fam}, {len(wave) / sl.sample_rate:.0f} s)"
+        if m.kind in ("afsk_pll", "bpsk"):
+            x, rows = modems.coherent_loop_inputs(m, params, a64)
+            loop_at(where, m.kind, x, rows, modems.nco_tables(dev, F64))
+        base = modems.demod(m, params, a64)[None]
+        lp = slicer_lane_params(sl, dev, F64)
+        if sl.kind == "4level":
+            slicer_at("K12", where, base, lp, 1, sl.demap)
+        else:
+            slicer_at("K10", where, base, lp, 1)
+
+    # the banks' lanes, at f64
+    def bank_frames(chains, wave, mps):
+        bank_ = tbank.group_chains(chains, dev, dtype=F64)[0]
+        w = torch.from_numpy(wave).to(dev)
+        plan_ = tbank.bank_plan(bank_, len(w), max_packet_seconds=mps)
+        return bank_, tbank.frame_blocks(w, plan_).to(F64)
+
+    bank_cases = (
+        ("pll_sweep8", banks["pll_sweep8"], audio, MAX_PACKET_SECONDS),
+        ("bpsk1200_sweep8", psk_chains["bpsk1200_sweep8"],
+         psk_audio["bpsk1200_sweep8"][1], psk_audio["bpsk1200_sweep8"][3]),
+        ("fsk4_9600_sweep8", fsk_chains["fsk4_9600_sweep8"],
+         fsk_audio["fsk4_9600_sweep8"][1], fsk_audio["fsk4_9600_sweep8"][3]))
+    for name, chains, wave, mps in bank_cases:
+        bank_, frames = bank_frames(chains, wave, mps)
+        if bank_.kind in ("afsk_pll", "bpsk"):
+            x, rows, rol = tbank.coherent_loop_inputs(bank_.params, frames)
+            loop_at(f"{name} ({x.shape[0]} shared rows)", bank_.kind, x,
+                    rows, (bank_.params["sine_table"],
+                           bank_.params["cos_table"]), rol)
+            del x
+        bb = tbank.bank_basebands(bank_, frames)
+        C, B, L2 = bb.shape
+        lp = tbank.slicer_lane_params(bank_, B)
+        key = "K12" if bank_.slicer_kind == "4level" else "K10"
+        slicer_at(key, name, bb.reshape(C * B, L2), lp,
+                  tbank.slicer_window(bank_), bank_.specs[0].slicer.demap
+                  if key == "K12" else None)
+        del frames, bb
+    _phase(25, "K10, K11, K12 == f64 twins", t0)
+
+    # 26. the f64 mode end to end: the executor (its default route) and
+    # run_plan_banked at f64, with the f32 runs of the same plans beside
+    t0 = time.time()
+    f32_keys = {f"K{i}" for i in range(1, 9)}
+    f64_launches: dict = {}
+
+    def f64_run(what, fn, need):
+        """One f64 run with the counters set to 0 before and read after:
+        fails unless it launched each of ``need`` and no f32 loop or
+        slicer kernel (K1-K8)."""
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+        launched = read_counts()
+        if f32_keys & set(launched) or not set(need) <= set(launched):
+            raise AssertionError(f"{what} at f64 launched {launched}, "
+                                 f"expected {sorted(need)} and no K1-K8")
+        for k, v in launched.items():
+            f64_launches[k] = f64_launches.get(k, 0) + v
+        return result, wall, torch.cuda.max_memory_allocated(), launched
+
+    psk60 = _whole_segments(*psk_audio["bpsk1200_sweep8"][:3], PSK_RATE,
+                            EXECUTOR_SECONDS)
+    fsk60 = _whole_segments(*fsk_audio["fsk9600_sweep8"][:3], FSK_RATE,
+                            EXECUTOR_SECONDS)
+    fsk4_60 = _whole_segments(*fsk_audio["fsk4_9600_sweep8"][:3], FSK4_RATE,
+                              EXECUTOR_SECONDS)
+    pll_pair_lines = (_chain_line("AFSK 300 Il2Pc PLL", "afsk_pll"),
+                      _chain_line("AFSK 300 Il2Pc PLL inverted", "afsk_pll",
+                                  "yes"))
+    exec_cases = {
+        "afsk_300_pll": ([build_chain_spec(float(RATE), ln)
+                          for ln in pll_pair_lines], RATE, afsk60,
+                         {"K10", "K11"}),
+        "afsk300": ([build_chain_spec(float(RATE), _chain_line(
+            "AFSK 300 Il2Pc Correlator", "afsk"))], RATE, afsk60, {"K10"}),
+        "bpsk1200": ([psk_chains["bpsk1200_sweep8"][0]], PSK_RATE, psk60,
+                     {"K10", "K11"}),
+        "fsk9600": ([fsk_chains["fsk9600_sweep8"][0]], FSK_RATE, fsk60,
+                    {"K10"}),
+        "fsk4_9600": ([fsk_chains["fsk4_9600_sweep8"][0]], FSK4_RATE,
+                      fsk4_60, {"K12"}),
+    }
+    walls = {}
+    for name, (chains, rate, (sent, wave), need) in exec_cases.items():
+        plan_ = RunPlan(chains=tuple(chains), reports=reports)
+
+        def run64():
+            return executor.run_plan(plan_, wave, rate, resilient=False,
+                                     device=dev, dtype=F64)
+
+        run64()  # the kernels' first launches
+        result, wall, peak, launched = f64_run(name, run64, need)
+        _check_bank(f"{name} (executor, f64)", result, sent)
+        t1 = time.time()
+        r32 = executor.run_plan(plan_, wave, rate, resilient=False,
+                                device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall32 = time.time() - t1
+        a, b = set(_packet_keys(result)), set(_packet_keys(r32))
+        walls[f"executor {name}"] = (wall, wall32)
+        print(f"f64 executor {name}: {len(chains)} chain(s) x "
+              f"{len(wave) / rate:.0f} s, {len(sent)} frames decoded, 0 "
+              f"rejected; launches {launched}; wall {wall:.3f} s at f64, "
+              f"{wall32:.3f} s at f32; packets differing between f64 and "
+              f"f32: {len(a ^ b)} of {len(a | b)}; peak device memory "
+              f"{peak / 2**30:.2f} GiB [{smi}]")
+    base = build_chain_spec(float(RATE), _chain_line(
+        "AFSK 300 Il2Pc Correlator", "afsk"))
+    bank_plans = {
+        "pll_pair": banks["pll_pair"],
+        "pll_sweep8": banks["pll_sweep8"],
+        "space_gain_sweep8": [_variant(base, f"g{i}", space_gain=g)
+                              for i, g in enumerate(F64_SWEEP_GAINS)],
+    }
+    for name, chains in bank_plans.items():
+        plan_ = RunPlan(chains=tuple(chains), reports=reports)
+        (bank_,) = tbank.group_chains(chains, "cpu", dtype=F64)
+        if "space_scale" in bank_.params:
+            raise AssertionError(f"{name}: an f64 bank with a scale row")
+        need = {"K10", "K11"} if bank_.kind == "afsk_pll" else {"K10"}
+
+        def run64(dtype=F64):
+            return tbank.run_plan_banked(
+                plan_, audio, RATE, max_packet_seconds=MAX_PACKET_SECONDS,
+                resilient=False, device=dev, dtype=dtype)
+
+        run64()  # budgets and first launches
+        result, wall, peak, launched = f64_run(name, run64, need)
+        _check_bank(f"{name} (banked, f64)", result, expected)
+        run64(torch.float32)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        r32 = run64(torch.float32)
+        torch.cuda.synchronize()
+        wall32 = time.time() - t1
+        peak32 = torch.cuda.max_memory_allocated()
+        a, b = set(_packet_keys(result)), set(_packet_keys(r32))
+        pa, pb = ({k[:2] for k in keys} for keys in (a, b))
+        walls[f"banked {name}"] = (wall, wall32)
+        plan_b = tbank.bank_plan(bank_, len(audio),
+                                 max_packet_seconds=MAX_PACKET_SECONDS)
+        print(f"f64 run_plan_banked {name}: {len(chains)} chains x "
+              f"{SECONDS} s ({plan_b.n_blocks} blocks of "
+              f"{plan_b.block_input_len} samples at f64), {len(expected)} "
+              f"frames decoded, 0 rejected; launches {launched}; warm wall "
+              f"{wall:.3f} s at f64, {wall32:.3f} s at f32; packets "
+              f"differing between f64 and f32: {len(a ^ b)} of "
+              f"{len(a | b)} by (chain, bytes, stream address), "
+              f"{len(pa ^ pb)} of {len(pa | pb)} by (chain, bytes) (the "
+              f"f64 bank's blocks are shorter: its lane budget counts 8 "
+              f"bytes a sample); peak device memory {peak / 2**30:.2f} GiB at "
+              f"f64, {peak32 / 2**30:.2f} GiB at f32 [{smi}]")
+    print(f"f64 mode: launches {f64_launches}; walls (f64, f32) s "
+          f"{ {k: (round(a, 3), round(b, 3)) for k, (a, b) in walls.items()} }")
+    _phase(26, "f64 mode end to end (executor, run_plan_banked)", t0)
+
+    # 27. the CLI under PYMODEM_TPU_TORCH_X64 on the card against the same
+    # decode on the CPU twins, and the synthesizer's round trip
+    t0 = time.time()
+    import io
+
+    from pymodem_tpu_torch import cli
+    from pymodem_tpu_torch.synth import fixtures as fx
+    from pymodem_tpu_torch.synth import modulate as mod
+
+    tmp = tempfile.mkdtemp()
+    cfg = os.path.join(tmp, "afsk_300_pll.json")
+    with open(cfg, "w") as fh:
+        for line in (*pll_pair_lines, {"object_name": "report",
+                                       "object_type": "report",
+                                       "options": {"style":
+                                                   "decoded_headers"}}):
+            fh.write(json.dumps(line) + "\n")
+    # short audio (the CPU twins step in Python): 2 frames of 10 bytes
+    sent, short = fx.synthesize_for_chain(
+        build_chain_spec(float(RATE), pll_pair_lines[0]), float(RATE),
+        np.random.default_rng(SEED), n_frames=2, size=10, gap_bits=300)
+    wav = os.path.join(tmp, "pll.wav")
+    write_wav(wav, RATE, mod.to_int16(short))
+    card = _cli_report(cfg, wav, {"PYMODEM_TPU_TORCH_X64": "1",
+                                  "PYMODEM_TPU_TORCH_DEVICE": "cuda"})
+    # the same decode through the CLI's run_decode on the CPU twins, in
+    # this process
+    saved = {k: os.environ.get(k) for k in ("PYMODEM_TPU_TORCH_X64",
+                                            "PYMODEM_TPU_TORCH_DEVICE",
+                                            "PYMODEM_TPU_TORCH_RUNTIME")}
+    os.environ.update(PYMODEM_TPU_TORCH_X64="1",
+                      PYMODEM_TPU_TORCH_DEVICE="cpu")
+    os.environ.pop("PYMODEM_TPU_TORCH_RUNTIME", None)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = cli.run_decode(cfg, wav)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = buf.getvalue()
+    cpu = out[out.index("Generating"):out.index("Elapsed time")]
+    want = f"Unique, valid packets:  {len(sent)}\n"
+    if code != 0 or card != cpu or want not in card:
+        raise AssertionError(f"f64 CLI on the card:\n{card}\non the CPU "
+                             f"twins (exit {code}):\n{cpu}")
+    print(f"f64 CLI subprocess (PYMODEM_TPU_TORCH_X64=1, the sequential "
+          f"executor) on {len(short) / RATE:.1f} s of the PLL pair's "
+          f"config: exit 0, report equal to the same decode on the CPU "
+          f"twins, {len(sent)} of {len(sent)} frames")
+    out_wav = os.path.join(tmp, "synth.wav")
+    proc = subprocess.run(
+        [sys.executable, "-m", "pymodem_tpu_torch.synth", cfg, out_wav,
+         "--seconds", "20", "--seed", str(SEED)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"synth exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr[-3000:]}")
+    n_frames = proc.stdout.count("  frame ")
+    want = f"Unique, valid packets:  {n_frames}\n"
+    text = _cli_report(cfg, out_wav, {"PYMODEM_TPU_TORCH_DEVICE": "cuda"})
+    if not n_frames or want not in text:
+        raise AssertionError(f"synth round trip: expected {want!r}:\n"
+                             f"{text}")
+    print(f"synth round trip: python -m pymodem_tpu_torch.synth wrote "
+          f"{n_frames} frames for the PLL pair's config; the CLI on the "
+          f"card decoded all {n_frames}")
+    _phase(27, "f64 CLI == CPU twins; synth round trip", t0)
+
+    # each kernel's entry at its main bank's shape, the others beside it
+    entries = {}
+    for key, main_where in (("K10", "pll_sweep8"), ("K11", "pll_sweep8"),
+                            ("K12", "fsk4_9600_sweep8")):
+        main = next(k for where, k in held[key]
+                    if where.startswith(main_where))
+        entries[key] = dict(main, launches=f64_launches.get(key, 0),
+                            other_shapes={
+            where: {f: k[f] for f in ("shape", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms")}
+            for where, k in held[key] if k is not main})
+    return entries, f64_launches
+
+
 def main() -> int:
     import torch
 
@@ -1741,6 +2174,7 @@ def main() -> int:
         afsk_pll_lanes,
         bpsk_costas,
         bpsk_costas_lanes,
+        coherent_loop_f64_lanes,
         mpsk_loop,
         mpsk_loop_lanes,
         mpsk_tables_staged,
@@ -1749,8 +2183,10 @@ def main() -> int:
     )
     from pymodem_tpu_torch.ops.slicers import (
         binary_slice,
+        binary_slice_f64_lanes,
         binary_slice_lanes,
         four_level_slice,
+        four_level_slice_f64_lanes,
         four_level_slice_lanes,
         quadrature_slice,
         quadrature_slice_lanes,
@@ -2516,6 +2952,17 @@ def main() -> int:
         dev, smi, banks, (expected, audio), ax_chains, ax_audio, ax_mps,
         {"K1": binary_slice_lanes, "K2": afsk_pll_lanes,
          "K9": ax25_deframe_rows})
+    # 25-27. the float64 parity mode
+    f64_entries, _ = _f64_phases(
+        dev, smi, banks, (expected, audio), psk, psk_audio, fsk_chains,
+        fsk_audio,
+        {"K1": binary_slice_lanes, "K2": afsk_pll_lanes,
+         "K3": bpsk_costas_lanes, "K4": agc_lanes,
+         "K5": qpsk_costas_lanes, "K6": mpsk_loop_lanes,
+         "K7": quadrature_slice_lanes, "K8": four_level_slice_lanes,
+         "K9": ax25_deframe_rows, "K10": binary_slice_f64_lanes,
+         "K11": coherent_loop_f64_lanes, "K12": four_level_slice_f64_lanes})
+    kernels.update(f64_entries)
 
     for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]
                            + fsk_launches["K1"] + ax_launches["K1"]),

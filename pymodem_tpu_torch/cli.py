@@ -9,9 +9,14 @@ JAX package's environment variables, read under the
 
 * ``PYMODEM_TPU_TORCH_DEVICE``: the device (default ``cuda``); a CUDA
   request without a GPU fails, it does not fall back to the CPU;
-* ``PYMODEM_TPU_TORCH_RUNTIME``: ``auto`` (the default) and ``banked`` run
-  the banked runtime (``runtime/bank.py``), with its resilient retry;
-  ``sequential`` the sequential executor (``runtime/executor.py``);
+* ``PYMODEM_TPU_TORCH_X64``: the float64 parity mode (set and not ``0``,
+  empty or ``false``, ``mode.x64``): the decode runs float64, on the
+  device ``PYMODEM_TPU_TORCH_DEVICE`` names (the H100 has native float64;
+  the JAX package moves its f64 runs to the CPU because a TPU has none);
+* ``PYMODEM_TPU_TORCH_RUNTIME``: ``auto`` (the default) runs the banked
+  runtime (``runtime/bank.py``, with its resilient retry), or under the
+  float64 mode the sequential executor (``runtime/executor.py``), as the
+  JAX package resolves it; ``banked`` and ``sequential`` name one;
 * ``PYMODEM_TPU_TORCH_SERVER``: the socket of a running decode server
   (``python -m pymodem_tpu_torch.serve <socket>``); the request goes
   there, and this process imports no torch;
@@ -59,10 +64,15 @@ def main(argv=None) -> int:
 
 def runtime_name() -> str:
     """The runtime PYMODEM_TPU_TORCH_RUNTIME names: ``auto`` resolves to
-    ``banked``; any other name than ``banked`` is the sequential
-    executor, as in the JAX package."""
+    ``banked``, or to ``sequential`` in the float64 parity mode; any other
+    name than ``banked`` is the sequential executor, as in the JAX
+    package."""
+    from .mode import x64
+
     runtime = _env("RUNTIME", "auto")
-    return "banked" if runtime == "auto" else runtime
+    if runtime == "auto":
+        return "sequential" if x64() else "banked"
+    return runtime
 
 
 def run_decode_many(config_path: str, wav_paths: list[str]
@@ -78,10 +88,13 @@ def run_decode_batch(requests: list[tuple[str, str]]
     is queued before earlier requests' readbacks
     (``bank.run_plans_banked_pipelined``), across different configs too.
     Returns (exit code, captured output) per request, the output equal to
-    ``run_decode``'s.  The sequential runtime, a single request, any
-    diagnostic and any exception take one-at-a-time runs instead."""
+    ``run_decode``'s.  The sequential runtime, the float64 mode (whose
+    pipelined route is not yet ported), a single request, any diagnostic
+    and any exception take one-at-a-time runs instead."""
     import contextlib
     import io
+
+    from .mode import x64
 
     def _one(config, wav):
         buf = io.StringIO()
@@ -89,7 +102,7 @@ def run_decode_batch(requests: list[tuple[str, str]]
             code = run_decode(config, wav)
         return code, buf.getvalue()
 
-    if runtime_name() != "banked" or len(requests) == 1:
+    if runtime_name() != "banked" or x64() or len(requests) == 1:
         return [_one(c, w) for c, w in requests]
 
     from .config import load_plan

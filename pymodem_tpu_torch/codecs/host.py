@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops import rs as rs_ops
+from ..ops import rs_host as rs_ops
 from ..ops.crc import np_append_crc
 from ..ops.hamming import hamming74_decode
 from ..ops.lfsr import np_descramble_bytes

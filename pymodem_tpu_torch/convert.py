@@ -24,7 +24,13 @@ import numpy as np
 import torch
 
 from .device import upload
-from .dsp.loops import nco_cos_table, nco_sine_table, pd_error_table
+from .dsp.loops import (
+    f64_nco_tables,
+    nco_cos_table,
+    nco_sine_table,
+    pd_error_table,
+)
+from .dsp.window_design import qpsk_error_table
 
 
 def _leaf(v, device) -> torch.Tensor:
@@ -43,26 +49,40 @@ def bank_params_from_jax(jax_bank_params: dict, sine_table=None,
                          device: str | torch.device = "cpu") -> dict:
     """The port's bank parameters from a JAX-package bank pytree.
 
-    Leaves keep their dtype (float32 for the f32 bank).  Coherent banks
-    (those with ``loop`` leaves) also get ``sine_table`` and ``cos_table``:
-    the NCO's 256-entry f32 tables, ``nco_sine_table()`` (unless a sine
-    table is given, for instance XLA's own ``sin`` of the same angles) and
-    ``nco_cos_table()``.  ``mpsk`` banks get ``pd_error_table``, (C, g*g)
-    int32, from each chain's ``pd_granularity`` and ``pd_gain``, in place
-    of the JAX package's f64 ``modem.pd_table``, which no kernel reads.
+    Leaves keep their dtype (float32 for the f32 bank, float64 for the
+    f64 bank of the parity mode).  Coherent banks (those with ``loop``
+    leaves) also get ``sine_table`` and ``cos_table``: at float32 the NCO's
+    256-entry f32 tables, ``nco_sine_table()`` (unless a sine table is
+    given, for instance XLA's own ``sin`` of the same angles) and
+    ``nco_cos_table()``; at float64 the bank's reference wavetable as the
+    JAX package's f64 NCO gathers it (``f64_nco_tables``).  ``mpsk`` banks
+    get ``pd_error_table``, (C, g*g) int32, from each chain's
+    ``pd_granularity`` and ``pd_gain``, in place of the JAX package's
+    ``modem.pd_table``, which no kernel reads: at float32 the f32 formula's
+    table (``pd_error_table``), at float64 the reference's own table
+    (``qpsk_error_table``), as the JAX package's f64 detector gathers it.
     """
     params = _tree(dict(jax_bank_params), device)
+    f64 = np.asarray(jax_bank_params["sps"]).dtype == np.float64
     if "loop" in params:
-        sine = nco_sine_table() if sine_table is None else sine_table
-        params["sine_table"] = _leaf(np.asarray(sine, np.float32), device)
-        params["cos_table"] = _leaf(nco_cos_table(), device)
+        if f64:
+            sine, cosine = f64_nco_tables(
+                np.asarray(jax_bank_params["loop"]["wavetable"])[0])
+        else:
+            sine = np.asarray(nco_sine_table() if sine_table is None
+                              else sine_table, np.float32)
+            cosine = nco_cos_table()
+        params["sine_table"] = _leaf(sine, device)
+        params["cos_table"] = _leaf(cosine, device)
     if "pd_gain" in jax_bank_params:
         params["modem"].pop("pd_table", None)
+        table = ((lambda g, k: qpsk_error_table(g, k).reshape(-1)) if f64
+                 else pd_error_table)
         params["pd_error_table"] = _leaf(np.stack([
-            pd_error_table(int(g), float(k)) for g, k in zip(
+            table(int(g), float(k)) for g, k in zip(
                 np.asarray(jax_bank_params["pd_granularity"]),
                 np.asarray(jax_bank_params["pd_gain"]))
-        ]), device)
+        ]).astype(np.int32), device)
     return params
 
 

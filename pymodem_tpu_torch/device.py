@@ -63,6 +63,23 @@ def lost(device: str | torch.device) -> str | None:
     return None
 
 
+def resolve_dtype(dtype=None) -> torch.dtype:
+    """The float dtype of a decode: ``dtype`` (float32 or float64, as a
+    torch or numpy dtype or its name), or for None the mode's
+    (``mode.x64``: float64 under ``PYMODEM_TPU_TORCH_X64``, else
+    float32)."""
+    from .mode import x64
+
+    if dtype is None:
+        return torch.float64 if x64() else torch.float32
+    name = str(dtype).replace("torch.", "")
+    if "float64" in name or name in ("double", "<class 'float'>"):
+        return torch.float64
+    if "float32" in name:
+        return torch.float32
+    raise ValueError(f"dtype {dtype!r}: the decode runs float32 or float64")
+
+
 def from_env() -> torch.device:
     """The device named by PYMODEM_TPU_TORCH_DEVICE (default ``cuda``)."""
     import os

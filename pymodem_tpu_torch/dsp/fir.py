@@ -17,8 +17,14 @@ chooses them:
   Every output is a plain f32 dot product of its t terms, as in JAX.
   (cuDNN's ``conv1d`` chooses its algorithm per shape, FFT ones included,
   so its rounding is not pinned; the correlator's decisions are marginal.)
-* ``direct`` (f64): ``conv1d`` with the taps flipped, as the JAX package's
-  ``conv_general_dilated``.
+* ``direct`` (f64 on the CPU): ``conv1d`` with the taps flipped, as the
+  JAX package's ``conv_general_dilated``.
+* f64 on the card (the float64 parity mode): the ``matmul`` engine in
+  float64, a DGEMM on cuBLAS, which has no reduced-precision path.  cuDNN's
+  ``conv1d`` would pick its algorithm per shape, so its rounding would
+  turn on the shape; the banded product pins the engine.  Each output is
+  then an f64 dot product of its t terms in cuBLAS's order, within a few
+  f64 ulps of the summed terms of the CPU's ``direct`` engine.
 
 Results agree with the JAX package to a few f32 ulps of the summed terms
 (another summation order; XLA:CPU also contracts multiply-adds into FMAs).
@@ -34,7 +40,7 @@ _MM_TILE = 128
 
 def _method(x: torch.Tensor, t: int) -> str:
     if x.dtype == torch.float64:
-        return "direct"
+        return "direct" if x.device.type == "cpu" else "matmul"
     return "shift" if t <= 8 else "matmul"
 
 

@@ -1,4 +1,4 @@
-"""Carrier loops: kernels K2, K3, K5 and K6 and their plain twins.
+"""Carrier loops: kernels K2, K3, K5, K6 and K11 and their plain twins.
 
 Port of the ``pymodem_tpu.dsp.loops`` scans ``afsk_pll``, ``bpsk_costas``,
 ``qpsk_costas`` and ``mpsk_loop`` and of the Pallas kernels that replace
@@ -40,8 +40,15 @@ phase detector is a pure function of the folded integer pair ``(a, b)`` in
 ``[0, g)^2`` and the chain's gain: ``pd_error_table`` evaluates the JAX
 package's f32 formula once per pair on the host, and kernel and twin look
 the error up (in place of the Pallas kernel's minimax atan and of CUDA's
-``atan2f``, whose rounding is not XLA's).  At f64 (twins only) the tables
-are the reference's own wavetable and table, as the JAX f64 path gathers.
+``atan2f``, whose rounding is not XLA's).  At f64 the tables
+are the reference's own wavetable and table, as the JAX f64 path gathers
+(``f64_nco_tables``).
+
+Float64 lanes on the card run kernel K11 (``coherent_loop_f64_lanes``),
+the AGC fused with the AFSK PLL or the BPSK Costas loop: one thread a
+lane in the twins' op order, the JAX package's f64 scans having no Pallas
+kernel to port.  ``afsk_pll_lanes`` and ``bpsk_costas_lanes`` route a
+float64 CUDA tensor to it; K5 and K6 take float32 only and refuse float64.
 """
 
 from __future__ import annotations
@@ -96,6 +103,15 @@ def nco_cos_table() -> np.ndarray:
     """(256,) float32: cos of the same quantised angles, built the same
     way as ``nco_sine_table``."""
     return np.cos(_nco_angles()).astype(np.float32)
+
+
+def f64_nco_tables(wavetable: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The NCO's (256,) float64 sine and cosine tables at f64: the
+    reference wavetable, and the same table read at (index + 64) mod 256,
+    as the JAX package's f64 NCO gathers them
+    (``pymodem_tpu.dsp.loops._nco_step``)."""
+    table = np.asarray(wavetable, np.float64)
+    return table, np.roll(table, -(WAVETABLE_SIZE // 4))
 
 
 def pd_error_table(granularity: int, gain: float) -> np.ndarray:
@@ -420,7 +436,11 @@ def afsk_pll_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     padded rows when T is not a multiple of 4.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
-    only a CPU tensor takes the plain twin ``afsk_pll``."""
+    only a CPU tensor takes the plain twin ``afsk_pll``.  A float64 CUDA
+    tensor goes to K11 (``coherent_loop_f64_lanes``)."""
+    if x.dtype == torch.float64 and x.device.type != "cpu":
+        return coherent_loop_f64_lanes("afsk_pll", x, lane_params,
+                                       sine_table, None, row_of_lane)
     _check_lanes("afsk_pll_lanes", x, lane_params, _COHERENT_ROWS,
                  row_of_lane, sine_table)
     if x.device.type == "cpu":
@@ -438,7 +458,11 @@ def bpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     input rows, as ``afsk_pll_lanes``; returns the (L, T) I-mixer stream.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
-    only a CPU tensor takes the plain twin ``bpsk_costas``."""
+    only a CPU tensor takes the plain twin ``bpsk_costas``.  A float64
+    CUDA tensor goes to K11 (``coherent_loop_f64_lanes``)."""
+    if x.dtype == torch.float64 and x.device.type != "cpu":
+        return coherent_loop_f64_lanes("bpsk", x, lane_params, sine_table,
+                                       cos_table, row_of_lane)
     _check_lanes("bpsk_costas_lanes", x, lane_params, _COHERENT_ROWS,
                  row_of_lane, sine_table, cos_table)
     if x.device.type == "cpu":
@@ -446,6 +470,51 @@ def bpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     out = _coherent_lanes("bpsk_costas_lanes", x, lane_params, sine_table,
                           cos_table, row_of_lane)
     bpsk_costas_lanes.launches += 1
+    return out
+
+
+def coherent_loop_f64_lanes(kind: str, x: torch.Tensor,
+                            lane_params: torch.Tensor,
+                            sine_table: torch.Tensor,
+                            cos_table: torch.Tensor | None,
+                            row_of_lane: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Kernel K11 (``csrc/coherent_loop_f64.cu``): the AGC fused with the
+    AFSK PLL (``kind="afsk_pll"``, twin ``afsk_pll``) or the BPSK Costas
+    loop (``"bpsk"``, twin ``bpsk_costas``) at float64, over L lanes on
+    (R, T) float64 input rows of unit stride (``row_of_lane`` as
+    ``afsk_pll_lanes``); the tables are the reference wavetable and, for
+    ``bpsk``, the same table at index + 64 (``f64_nco_tables``).
+    ``afsk_pll_lanes`` and ``bpsk_costas_lanes`` route float64 CUDA
+    tensors here.  Returns (L, T) float64.
+
+    Only a CPU tensor takes the plain twins."""
+    if kind not in ("afsk_pll", "bpsk"):
+        raise ValueError(f"coherent_loop_f64_lanes: no kind {kind!r}")
+    tables = (sine_table,) if kind == "afsk_pll" else (sine_table, cos_table)
+    L = _check_lanes("coherent_loop_f64_lanes", x, lane_params,
+                     _COHERENT_ROWS, row_of_lane, *tables)
+    if x.device.type == "cpu":
+        return _coherent_loop(x, lane_params, sine_table, cos_table, kind,
+                              row_of_lane)
+    from .. import _ext
+
+    named = dict(zip(("sine_table", "cos_table"), tables))
+    _ext.require_rows(x.device, torch.float64, x=x)
+    _ext.require(x.device, torch.float64, lane_params=lane_params, **named)
+    R, T = x.shape
+    if row_of_lane is None:
+        row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
+    _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
+    out = torch.empty((L, T), dtype=torch.float64, device=x.device)
+    _ext.launch("coherent_loop_f64_lanes", x.device,
+                (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int) + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4,
+                x.data_ptr(), x.stride(0), row_of_lane.data_ptr(), R,
+                lane_params.data_ptr(), sine_table.data_ptr(),
+                None if kind == "afsk_pll" else cos_table.data_ptr(),
+                out.data_ptr(), out.stride(0), L, T, int(kind == "bpsk"))
+    coherent_loop_f64_lanes.launches += 1
     return out
 
 
@@ -564,5 +633,6 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
 
 afsk_pll_lanes.launches = 0
 bpsk_costas_lanes.launches = 0
+coherent_loop_f64_lanes.launches = 0
 qpsk_costas_lanes.launches = 0
 mpsk_loop_lanes.launches = 0

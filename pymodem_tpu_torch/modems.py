@@ -17,6 +17,12 @@ over the whole recording (agc.py:67).  On a CPU tensor the kernels' plain
 twins run.  The JAX package's f32 FIRs are FFT convolutions by default,
 which round differently: float stages agree with its ``method="direct"``
 to a few ulps, and decisions and packets agree with its default run.
+
+At float64 (the parity mode) every stage runs at the audio's dtype: the
+loop and AGC rows at f64, the NCO on the reference wavetable, the MPSK
+detector on the reference's table, as the JAX package's f64 path; on the
+card ``afsk_pll`` and ``bpsk`` run K11, and ``qpsk`` and ``mpsk`` are
+refused (``check_f64_kernels``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from .dsp.loops import (
     afsk_pll_lanes,
     agc_lane_params,
     bpsk_costas_lanes,
+    f64_nco_tables,
     lane_params_from_loop,
     mpsk_loop_lanes,
     nco_cos_table,
@@ -264,18 +271,44 @@ def build_params(spec):
 # ---------------------------------------------------------------------------
 
 
-def _f32(values, device) -> torch.Tensor:
-    """(1,) float32 tensor of a host scalar, rounded once from float64 as
-    the JAX package's ``jnp.asarray(v, float32)``."""
-    return torch.tensor([np.float32(values)], device=device)
+# the float dtypes of a demod and their numpy counterparts
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+# the kernels that a family's float64 demod still lacks on the card (its
+# float32 kernels take float32 only): the QPSK Costas loop with its AGC
+# (K5), the standalone AGC (K4), the MPSK loop (K6) and the quadrature
+# slicer (K7)
+F64_UNPORTED = {"qpsk": ("K5", "K7"), "mpsk": ("K4", "K6", "K7")}
+
+
+def check_f64_kernels(family: str, dtype, device_type: str,
+                      chain: str = "") -> None:
+    """Raise ValueError when a chain of modem ``family`` cannot run at
+    ``dtype`` on a device of ``device_type``: float64 on the card needs
+    the family's f64 kernels, and ``F64_UNPORTED`` lists the families
+    whose kernels are not yet ported at float64.  (On the CPU every
+    family runs at float64 through the plain twins.)"""
+    if (device_type == "cuda" and dtype == torch.float64
+            and family in F64_UNPORTED):
+        raise ValueError(
+            f"chain {chain!r} ({family}): the float64 parity mode is not "
+            f"yet ported for {family} on the card (kernels "
+            f"{', '.join(F64_UNPORTED[family])} not yet ported at float64)")
+
+
+def _scalar(value, device, dtype=torch.float32) -> torch.Tensor:
+    """(1,) ``dtype`` tensor of a host scalar, rounded once from float64 as
+    the JAX package's ``jnp.asarray(v, dtype)``."""
+    return torch.tensor([_NP_DTYPE[dtype](value)], device=device)
 
 
 def agc_rows(agc: AGCParams, x: torch.Tensor) -> torch.Tensor:
-    """(5, 1) AGC lane rows (kernel K4's, or the fused AGC's of K2, K3 and
-    K5) for the whole recording ``x``: the steps scaled by its signed max
-    (agc.py:67)."""
-    leaves = {k: _f32(v, x.device) for k, v in agc._asdict().items()}
-    return agc_lane_params(leaves, x.max().reshape(1), 1, 1)
+    """(5, 1) AGC lane rows (kernel K4's, or the fused AGC's of K2, K3, K5
+    and K11) at ``x``'s dtype for the whole recording ``x``: the steps
+    scaled by its signed max (agc.py:67)."""
+    leaves = {k: _scalar(v, x.device, x.dtype)
+              for k, v in agc._asdict().items()}
+    return agc_lane_params(leaves, x.max().reshape(1), 1, 1, x.dtype)
 
 
 def _apply_agc(audio: torch.Tensor, agc: AGCParams) -> torch.Tensor:
@@ -284,48 +317,64 @@ def _apply_agc(audio: torch.Tensor, agc: AGCParams) -> torch.Tensor:
     return agc_lanes(audio[None], agc_rows(agc, audio).contiguous())[0]
 
 
-def _loop_rows(spec) -> torch.Tensor:
-    """(10, 1) loop lane rows of a coherent modem (``PLL_PARAMS``)."""
-    loop = {k: np.float32(v) for k, v in _loop_params_host(spec)._asdict()
-            .items() if k != "wavetable"}
+def _loop_rows(spec, dtype=torch.float32) -> torch.Tensor:
+    """(10, 1) ``dtype`` loop lane rows of a coherent modem
+    (``PLL_PARAMS``)."""
+    loop = {k: _NP_DTYPE[dtype](v) for k, v in _loop_params_host(spec)
+            ._asdict().items() if k != "wavetable"}
     return lane_params_from_loop({k: torch.tensor([v]) for k, v in
-                                  loop.items()}, 1, 1)
+                                  loop.items()}, 1, 1, dtype)
 
 
 def coherent_loop_inputs(spec, params, audio: torch.Tensor):
-    """(band-passed (1, n) row, its lane rows) of kernel K2, K3 or K5 over
-    a whole recording: the loop's 10 rows, for ``qpsk`` the branch IIR's
-    2, then the fused AGC's 5 (normal over the whole recording)."""
+    """(band-passed (1, n) row, its lane rows) of kernel K2, K3, K5 or K11
+    over a whole recording, at the audio's dtype: the loop's 10 rows, for
+    ``qpsk`` the branch IIR's 2, then the fused AGC's 5 (normal over the
+    whole recording)."""
     x = fir_valid_nd(audio, params.input_bpf)
-    rows = [_loop_rows(spec).to(x.device)]
+    rows = [_loop_rows(spec, x.dtype).to(x.device)]
     if spec.kind == "qpsk":
         b0, a1 = wd.iir1_lpf_coefs(spec.sample_rate, spec.branch_lpf_cutoff,
                                    1.0)
-        rows += [_f32(b0, x.device)[None], _f32(a1, x.device)[None]]
+        rows += [_scalar(b0, x.device, x.dtype)[None],
+                 _scalar(a1, x.device, x.dtype)[None]]
     rows.append(agc_rows(params.agc, x))
     return x[None], torch.cat(rows).contiguous()
 
 
-def nco_tables(device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The NCO's (256,) float32 sine and cosine tables on ``device``."""
-    return (torch.from_numpy(nco_sine_table()).to(device),
-            torch.from_numpy(nco_cos_table()).to(device))
+def nco_tables(device, dtype=torch.float32
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The NCO's (256,) sine and cosine tables on ``device``: at float32
+    the quantised angles' (``nco_sine_table``), at float64 the reference
+    wavetable gathered as the JAX package's f64 NCO does
+    (``f64_nco_tables``)."""
+    if dtype == torch.float64:
+        tables = f64_nco_tables(wd.nco_wavetable(256, 1.0))
+    else:
+        tables = (nco_sine_table(), nco_cos_table())
+    return tuple(torch.from_numpy(t).to(device) for t in tables)
 
 
 def mpsk_loop_inputs(spec, params, audio: torch.Tensor):
     """The inputs of kernel K6 over a whole recording: the analytic (real,
     imag) rows (1, n) -- band-pass FIR, the AGC (K4), the Hilbert FIR and
     its delay (psk.py:714-716) -- the (12, 1) lane rows, the (1, g*g)
-    phase-detector table and the lane's table index (1,)."""
+    phase-detector table (at float64 the reference's table, as the JAX
+    package's f64 detector gathers it) and the lane's table index (1,)."""
     leveled = _apply_agc(fir_valid_nd(audio, params.input_bpf), params.agc)
     imag = fir_valid_nd(leveled, params.hilbert)
     d = params.hilbert_delay
     real = leveled[d:-d] if d else leveled
     dev = leveled.device
-    rows = torch.cat([_loop_rows(spec).to(dev), _f32(spec.pd_gain, dev)[None],
-                      _f32(spec.pd_granularity, dev)[None]]).contiguous()
-    table = torch.from_numpy(pd_error_table(int(spec.pd_granularity),
-                                            float(spec.pd_gain)))
+    dtype = leveled.dtype
+    rows = torch.cat([_loop_rows(spec, dtype).to(dev),
+                      _scalar(spec.pd_gain, dev, dtype)[None],
+                      _scalar(spec.pd_granularity, dev, dtype)[None]]
+                     ).contiguous()
+    g, gain = int(spec.pd_granularity), float(spec.pd_gain)
+    table = torch.from_numpy(
+        wd.qpsk_error_table(g, gain).astype(np.int32).reshape(-1)
+        if dtype == torch.float64 else pd_error_table(g, gain))
     return (real[None].contiguous(), imag[None].contiguous(), rows,
             table[None].to(dev), torch.zeros(1, dtype=torch.int32,
                                              device=dev))
@@ -357,20 +406,20 @@ def afsk_demod(params: AFSKParams, audio: torch.Tensor) -> torch.Tensor:
 
 def afsk_pll_demod(spec: AFSKPLLModemSpec, params: PLLParams,
                    audio: torch.Tensor) -> torch.Tensor:
-    """Band-pass FIR, the AGC and PLL as kernel K2 at one lane, the output
-    LPF."""
+    """Band-pass FIR, the AGC and PLL as kernel K2 (K11 at float64) at one
+    lane, the output LPF."""
     x, rows = coherent_loop_inputs(spec, params, audio)
-    sine, _ = nco_tables(audio.device)
+    sine, _ = nco_tables(audio.device, audio.dtype)
     return fir_valid_nd(afsk_pll_lanes(x, rows, sine)[0], params.output_lpf)
 
 
 def bpsk_demod(spec: BPSKModemSpec, params: PSKParams,
                audio: torch.Tensor) -> torch.Tensor:
-    """Band-pass FIR, the AGC and Costas loop as kernel K3 at one lane, the
-    RRC."""
+    """Band-pass FIR, the AGC and Costas loop as kernel K3 (K11 at float64)
+    at one lane, the RRC."""
     x, rows = coherent_loop_inputs(spec, params, audio)
-    return fir_valid_nd(
-        bpsk_costas_lanes(x, rows, *nco_tables(audio.device))[0], params.rrc)
+    return fir_valid_nd(bpsk_costas_lanes(
+        x, rows, *nco_tables(audio.device, audio.dtype))[0], params.rrc)
 
 
 def qpsk_demod(spec: QPSKModemSpec, params: PSKParams,
@@ -378,7 +427,8 @@ def qpsk_demod(spec: QPSKModemSpec, params: PSKParams,
     """Band-pass FIR, the AGC and Costas loop with branch IIRs as kernel K5
     at one lane, the RRC on both rails; returns (i, q)."""
     x, rows = coherent_loop_inputs(spec, params, audio)
-    i_d, q_d = qpsk_costas_lanes(x, rows, *nco_tables(audio.device))
+    i_d, q_d = qpsk_costas_lanes(x, rows,
+                                 *nco_tables(audio.device, audio.dtype))
     return fir_valid_nd(i_d[0], params.rrc), fir_valid_nd(q_d[0], params.rrc)
 
 
@@ -387,7 +437,8 @@ def mpsk_demod(spec: MPSKModemSpec, params: MPSKParams,
     """The analytic signal (``mpsk_loop_inputs``), the loop as kernel K6 at
     one lane, the RRC on both rails; returns (i, q)."""
     re, im, rows, table, index = mpsk_loop_inputs(spec, params, audio)
-    i_d, q_d = mpsk_loop_lanes(re, im, rows, *nco_tables(audio.device),
+    i_d, q_d = mpsk_loop_lanes(re, im, rows,
+                               *nco_tables(audio.device, audio.dtype),
                                table, index)
     return fir_valid_nd(i_d[0], params.rrc), fir_valid_nd(q_d[0], params.rrc)
 
@@ -399,7 +450,8 @@ def fsk_demod(params: FSKParams, audio: torch.Tensor) -> torch.Tensor:
 
 def demod(spec, params, audio: torch.Tensor):
     """A whole-recording baseband (n,), or an (i, q) pair for ``qpsk`` and
-    ``mpsk``, from float32 audio (n,)."""
+    ``mpsk``, from float32 or float64 audio (n,); every stage runs at the
+    audio's dtype (float64 on the card: ``check_f64_kernels``)."""
     kind = spec.kind
     if kind == "afsk":
         return afsk_demod(params, audio)

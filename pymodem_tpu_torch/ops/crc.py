@@ -2,7 +2,8 @@
 device.
 
 Port of ``pymodem_tpu.ops.crc``: numpy copies of its host functions, and
-its masked device CRC (``crc16_masked``) on torch tensors.  The reference
+its masked device CRC (``crc16_masked``) on torch tensors, which imports
+torch when called (the host half serves the torch-free synthesizer).  The reference
 computes the
 CRC bit-serially per packet (crc_functions.py:44-55, init 0xFFFF, final xor
 0xFFFF, LSB-first) and declares a packet valid when the carried CRC --
@@ -13,9 +14,6 @@ The byte-at-a-time table form here is algebraically identical.
 from __future__ import annotations
 
 import numpy as np
-import torch
-
-from ..device import constant
 
 _POLY = 0x8408
 
@@ -159,6 +157,10 @@ def crc16_masked(data: torch.Tensor, length: torch.Tensor,
     table lookups.  The state is held in int64 (torch has no usable
     uint16/uint32 on CUDA).  Returns (...) int64 CRC values.
     """
+    import torch
+
+    from ..device import constant
+
     max_len = data.shape[-1]
     batch_shape = data.shape[:-1]
     dev = data.device

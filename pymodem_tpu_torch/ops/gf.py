@@ -1,7 +1,8 @@
 """GF(2^m) arithmetic via log/antilog tables, on the host and the device.
 
 Port of ``pymodem_tpu.ops.gf``: numpy copies of its host functions, and
-its device tables and table multiply on torch tensors.  The
+its device tables and table multiply on torch tensors (which import torch
+when called: the host half serves the torch-free synthesizer).  The
 reference builds its field tables with a downward-stepping Galois LFSR
 (gf_functions.py:47-66), which is exactly the standard antilog table for the
 field generated by x over the primitive polynomial.  Two reference quirks
@@ -17,9 +18,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
-
-from ..device import upload
 
 
 @dataclass(frozen=True)
@@ -72,11 +70,15 @@ def torch_tables(gf: GFTables, device="cpu"):
     """The (antilog, log, inverse) tables as int64 tensors on ``device``
     (the counterpart of the JAX package's ``jnp_tables``; int64, torch's
     index type, holds the same values)."""
+    from ..device import upload
+
     return tuple(upload(t.astype(np.int64), device)
                  for t in (gf.antilog, gf.log, gf.inverse))
 
 
 def gf_mul(antilog, log, a, b, order: int = 256):
     """Elementwise GF multiply on integer tensors (table lookups)."""
+    import torch
+
     prod = antilog[(log[a] + log[b]) % (order - 1)]
     return torch.where((a == 0) | (b == 0), 0, prod)

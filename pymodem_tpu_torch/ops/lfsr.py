@@ -8,15 +8,14 @@ XOR convolution of the input bit stream:
 
 so the whole stream descrambles as a handful of shifted XORs with no
 sequential dependence.  Integer stage: bitwise equal to the JAX package.
+The tensor functions import torch when called; the host half
+(``np_descramble_bytes``, ``poly_tap_positions``) serves the torch-free
+host codecs and synthesizer.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
-import torch.nn.functional as F
-
-from ..device import upload
 
 
 def poly_tap_positions(polynomial: int) -> tuple[int, ...]:
@@ -28,6 +27,9 @@ def _byte_shift_right(d: torch.Tensor, j: int) -> torch.Tensor:
     """The MSB-first bit stream of ``d`` (uint8, last axis) shifted right by
     j bits with zero fill, re-packed per byte: whole-byte shifts plus one
     sub-byte shift, no 8x bit expansion."""
+    import torch
+    import torch.nn.functional as F
+
     bs, rs = divmod(j, 8)
     n = d.shape[-1]
 
@@ -62,6 +64,10 @@ def descramble_bytes(data: torch.Tensor, polynomial: int,
     (lfsr.py:22-52): MSB-first bit order, shift register initialised to
     ``seed`` (0x1F0 for IL2P block unscrambling, il2p.py:161), optional
     output invert."""
+    import torch
+
+    from ..device import upload
+
     d = data.to(torch.uint8)
     out = torch.zeros_like(d)
     for j in poly_tap_positions(polynomial):
@@ -90,6 +96,10 @@ def descramble_bytes_multi(data: torch.Tensor, polys: tuple[int, ...],
     eff = tuple((p if p else 1) for p in polys)
     if all(p == 1 for p in eff) and not any(inverts):
         return data
+    import torch
+
+    from ..device import upload
+
     d = data.to(torch.uint8)
     extra = (1,) * (d.ndim - 1)
 

@@ -1,4 +1,5 @@
-"""Symbol-timing slicers: kernels K1, K7 and K8, their twins, compaction.
+"""Symbol-timing slicers: kernels K1, K7, K8, K10 and K12, their twins,
+compaction.
 
 Port of ``pymodem_tpu.ops.slicers`` (``binary_slice``,
 ``quadrature_slice``, ``four_level_slice``, ``compact_bytes``,
@@ -7,7 +8,11 @@ that replace the scans on the TPU,
 ``pymodem_tpu.ops.pallas_slicers._binary_kernel``
 (``binary_slice_lanes_pallas``, ``decode_emissions``), ``_quad_kernel``
 (``quadrature_slice_lanes_pallas``) and ``_four_level_kernel``
-(``four_level_slice_lanes_pallas``).
+(``four_level_slice_lanes_pallas``).  At float64, the JAX package's
+parity mode, it runs the scans; their counterparts on the card are K10
+(``binary_slice_f64_lanes``) and K12 (``four_level_slice_f64_lanes``),
+to which ``binary_slice_lanes`` and ``four_level_slice_lanes`` route a
+float64 CUDA tensor; K7 takes float32 only.
 
 The slicer is a per-sample FSM (reference slicer.py:59-107): a phase clock
 advances by 1.0 per sample, a bit decision fires when it crosses
@@ -251,7 +256,10 @@ def binary_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     through padded copies (``_ext.lane_rows``).
 
     A CUDA tensor launches the kernel on the current stream (or raises);
-    only a CPU tensor takes the plain twin ``binary_slice``."""
+    only a CPU tensor takes the plain twin ``binary_slice``.  A float64
+    CUDA tensor goes to K10 (``binary_slice_f64_lanes``)."""
+    if x.dtype == torch.float64 and x.device.type != "cpu":
+        return binary_slice_f64_lanes(x, lane_params, window)
     if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
         raise ValueError(f"bad shapes x {tuple(x.shape)} "
                          f"lane_params {tuple(lane_params.shape)}")
@@ -338,7 +346,10 @@ def four_level_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor, demap,
     for ``binary_slice_lanes``.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
-    only a CPU tensor takes the plain twin ``four_level_slice``."""
+    only a CPU tensor takes the plain twin ``four_level_slice``.  A
+    float64 CUDA tensor goes to K12 (``four_level_slice_f64_lanes``)."""
+    if x.dtype == torch.float64 and x.device.type != "cpu":
+        return four_level_slice_f64_lanes(x, lane_params, demap, window)
     demap = tuple(int(v) for v in demap)
     if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
         raise ValueError(f"bad shapes x {tuple(x.shape)} "
@@ -366,9 +377,70 @@ def four_level_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor, demap,
     return out
 
 
+def _f64_slicer(entry, x, lane_params, window, *args):
+    """Launch K10 or K12 (``entry``) over the (L, T) float64 rows of ``x``
+    (unit stride, any row stride >= T: taken as they lie); returns the
+    (L, ceil(T/window)) int32 emission stream."""
+    from .. import _ext
+
+    _ext.require(x.device, torch.float64, lane_params=lane_params)
+    _ext.require_rows(x.device, torch.float64, x=x)
+    L, T = x.shape
+    out = torch.empty((L, -(-T // window)), dtype=torch.int32,
+                      device=x.device)
+    _ext.launch(entry, x.device,
+                (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 2
+                + (ctypes.c_int,) * (len(args) + 3),
+                x.data_ptr(), x.stride(0), lane_params.data_ptr(),
+                out.data_ptr(), *args, L, T, window)
+    return out
+
+
+def binary_slice_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
+                           window: int = 1) -> torch.Tensor:
+    """Kernel K10 (``csrc/binary_slicer_f64.cu``), the float64 binary
+    slicer, over (L, T) float64 lanes with (2, L) float64 rows (sps,
+    lock_rate); ``binary_slice_lanes`` routes float64 CUDA tensors here.
+    Its emissions are K1's.  Only a CPU tensor takes the plain twin
+    ``binary_slice``."""
+    if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} "
+                         f"lane_params {tuple(lane_params.shape)}")
+    _check_window(window)
+    if x.device.type == "cpu":
+        return binary_slice(x, lane_params, window)
+    out = _f64_slicer("binary_slice_f64_lanes", x, lane_params, window)
+    binary_slice_f64_lanes.launches += 1
+    return out
+
+
+def four_level_slice_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
+                               demap, window: int = 1) -> torch.Tensor:
+    """Kernel K12 (``csrc/four_level_slicer_f64.cu``), the float64
+    four-level slicer, over (L, T) float64 lanes; ``four_level_slice_lanes``
+    routes float64 CUDA tensors here.  Its emissions are K8's.  Only a CPU
+    tensor takes the plain twin ``four_level_slice``."""
+    demap = tuple(int(v) for v in demap)
+    if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} "
+                         f"lane_params {tuple(lane_params.shape)}")
+    _check_window(window)
+    if len(demap) != 4 or not all(0 <= v <= 3 for v in demap):
+        raise ValueError(f"demap {demap}: the four-level slicer takes 4 "
+                         "entries of 0-3")
+    if x.device.type == "cpu":
+        return four_level_slice(x, lane_params, demap, window)
+    out = _f64_slicer("four_level_slice_f64_lanes", x, lane_params, window,
+                      *demap)
+    four_level_slice_f64_lanes.launches += 1
+    return out
+
+
 binary_slice_lanes.launches = 0
 quadrature_slice_lanes.launches = 0
 four_level_slice_lanes.launches = 0
+binary_slice_f64_lanes.launches = 0
+four_level_slice_f64_lanes.launches = 0
 
 
 def decode_emissions(enc: torch.Tensor) -> SlicerOut:

@@ -46,9 +46,26 @@ recordings in one dispatch per bank, their blocks stacked), and over a
 sequential executor (``runtime/executor.py``), on the same device and
 kernels, and chains that still fail are skipped with a message.
 
-Deliberate differences from the JAX package: float32 only; block geometry
-drops the TPU lane-tile snapping of ``plan_bank_run``, and the device codec
-route drops its TPU tiling and per-group pipelining.
+Float64, the JAX package's parity mode: ``run_banked`` and
+``run_plan_banked`` take ``dtype`` (None: the mode's,
+``device.resolve_dtype``), as the JAX package's do.  At float64 the bank's
+leaves, frames, basebands and slicer rows are float64; an AFSK space-gain
+sweep demods per chain (no ``space_scale`` row, as the JAX package keeps
+the reference operand order at f64), a coherent carrier sweep keeps
+``pre_shared`` (bitwise equal to the per-chain form at any dtype); on the
+card ``afsk_pll`` and ``bpsk`` banks run kernel K11 and the binary and
+four-level slicers K10 and K12, the FIRs float64 DGEMMs.  ``qpsk`` and
+``mpsk`` banks are refused at float64 on the card (their f64 kernels are
+not yet ported: ``modems.check_f64_kernels``); on the CPU every family
+runs at float64 through the twins.  The integer stages (compaction,
+descramble, sync, the device codecs, K9) are the same at both dtypes.
+``run_banked_many``, ``run_banked_files``, ``run_plan_banked_many`` and
+``run_plans_banked_pipelined`` run float32 only so far, and raise at
+float64 (``_float32_only``).
+
+Deliberate differences from the JAX package: block geometry drops the TPU
+lane-tile snapping of ``plan_bank_run``, and the device codec route drops
+its TPU tiling and per-group pipelining.
 """
 
 from __future__ import annotations
@@ -66,7 +83,7 @@ import torch.nn.functional as F
 from .. import modems
 from ..config import ChainSpec
 from ..convert import bank_params_from_jax
-from ..device import constant, resolve, upload
+from ..device import constant, resolve, resolve_dtype, upload
 from ..dsp import window_design as wd
 from ..dsp.agc import agc_lanes
 from ..dsp.fir import fir_valid_multi, fir_valid_nd, fir_valid_per_chain
@@ -192,6 +209,7 @@ class Bank:
     stream_inverts: tuple[bool, ...] = ()
     up: int = 1
     trim_post: int = 0
+    dtype: torch.dtype = torch.float32  # of the leaves, frames, basebands
 
 
 def _modem_geometry(kind: str, p) -> tuple[int, int, int]:
@@ -213,13 +231,15 @@ def _modem_geometry(kind: str, p) -> tuple[int, int, int]:
     return sum(t.shape[-1] - 1 for t in taps), 0, 1
 
 
-def _chain_device_params(chain: ChainSpec) -> dict:
-    """Per-chain numpy float32 leaves: modem + loop + slicer constants, in
-    the JAX package's pytree layout."""
+def _chain_device_params(chain: ChainSpec, np_dtype=np.float32) -> dict:
+    """Per-chain numpy leaves, floats at ``np_dtype`` (float32, or float64
+    in the parity mode): modem + loop + slicer constants, in the JAX
+    package's pytree layout."""
+    f = np.dtype(np_dtype).type
 
     def to_host(a):
         a = np.asarray(a)
-        return a.astype(np.float32) if a.dtype.kind == "f" else a
+        return a.astype(np_dtype) if a.dtype.kind == "f" else a
 
     spec = chain.modem
     mp = modems.build_params(spec)
@@ -232,18 +252,18 @@ def _chain_device_params(chain: ChainSpec) -> dict:
     if spec.kind == "qpsk":
         b0, a1 = wd.iir1_lpf_coefs(spec.sample_rate, spec.branch_lpf_cutoff,
                                    1.0)
-        d["branch_b0"] = np.float32(b0)
-        d["branch_a1"] = np.float32(a1)
+        d["branch_b0"] = f(b0)
+        d["branch_a1"] = f(a1)
     if spec.kind == "mpsk":
         d["pd_granularity"] = np.int32(spec.pd_granularity)
-        d["pd_gain"] = np.float32(spec.pd_gain)
+        d["pd_gain"] = f(spec.pd_gain)
     if spec.kind == "fsk":
         # invert as a sign multiplier, so that banks mix inverted chains
-        modem["sign"] = np.float32(-1.0 if spec.invert else 1.0)
+        modem["sign"] = f(-1.0 if spec.invert else 1.0)
         del modem["invert"]
     sl = chain.slicer
-    d["sps"] = np.float32(sl.sample_rate / sl.symbol_rate)
-    d["lock_rate"] = np.float32(sl.lock_rate)
+    d["sps"] = f(sl.sample_rate / sl.symbol_rate)
+    d["lock_rate"] = f(sl.lock_rate)
     if sl.kind in ("quadrature", "4level"):
         d["demap"] = np.asarray(sl.demap, dtype=np.int32)
     return d
@@ -286,12 +306,13 @@ def _afsk_shared_scales(specs: list[ChainSpec]):
     return np.asarray([g / g0 for g in gains])
 
 
-def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
+def group_chains_host(chains: list[ChainSpec],
+                      np_dtype=np.float32) -> list[tuple]:
     """[(kind, specs, numpy pytree, trim, trim_post, up)] per bank, in the
-    JAX package's grouping and leaf layout (float32)."""
+    JAX package's grouping and leaf layout, floats at ``np_dtype``."""
     banks: dict[tuple, list] = {}
     for chain in chains:
-        params = _chain_device_params(chain)
+        params = _chain_device_params(chain, np_dtype)
         sl = chain.slicer
         shapes = tuple((np.shape(v), str(np.asarray(v).dtype))
                        for v in _leaves(params))
@@ -309,10 +330,12 @@ def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
         specs = [c for c, _ in members]
         kind = specs[0].modem.kind
         tree = _stack([p for _, p in members])
-        if kind == "afsk":
+        if kind == "afsk" and np.dtype(np_dtype) != np.float64:
+            # f64 keeps the per-chain operand order of the reference, as
+            # the JAX package's f64 bank does (no scale row)
             scales = _afsk_shared_scales(specs)
             if scales is not None:
-                tree["space_scale"] = scales.astype(np.float32)
+                tree["space_scale"] = scales.astype(np_dtype)
         elif kind in _COHERENT_KINDS and len(specs) >= 2 and all(
             bool(np.all(leaf == leaf[:1])) for leaf in _leaves(tree["modem"])
         ):
@@ -322,7 +345,7 @@ def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
             # form.  The mpsk detector gain is not a modem leaf, so a gain
             # sweep shares too (the JAX package's pd_table leaf keeps such
             # a sweep per chain there)
-            tree["pre_shared"] = np.ones(len(specs), np.float32)
+            tree["pre_shared"] = np.ones(len(specs), np_dtype)
         trim, trim_post, up = _modem_geometry(
             kind, modems.build_params(specs[0].modem))
         out.append((kind, specs, tree, trim, trim_post, up))
@@ -330,10 +353,14 @@ def group_chains_host(chains: list[ChainSpec]) -> list[tuple]:
 
 
 def group_chains(chains: list[ChainSpec],
-                 device: str | torch.device = "cuda") -> list[Bank]:
+                 device: str | torch.device = "cuda",
+                 dtype=torch.float32) -> list[Bank]:
     """Group chains into banks keyed by their static structure; parameters
-    become tensors on ``device`` (convert.bank_params_from_jax)."""
+    become ``dtype`` (float32 or float64) tensors on ``device``
+    (convert.bank_params_from_jax)."""
     dev = resolve(device)
+    dtype = resolve_dtype(dtype)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return [
         Bank(
             kind=kind, specs=specs,
@@ -343,9 +370,10 @@ def group_chains(chains: list[ChainSpec],
                                for c in specs),
             stream_inverts=tuple(bool(c.stream.invert) if c.stream else False
                                  for c in specs),
-            up=up, trim_post=trim_post,
+            up=up, trim_post=trim_post, dtype=dtype,
         )
-        for kind, specs, tree, trim, trim_post, up in group_chains_host(chains)
+        for kind, specs, tree, trim, trim_post, up
+        in group_chains_host(chains, np_dtype)
     ]
 
 
@@ -418,15 +446,16 @@ def _input_bpf(params: dict, blocks: torch.Tensor):
 
 def _coherent_lane_params(params: dict, normals: torch.Tensor, C: int,
                           B: int) -> torch.Tensor:
-    """The (n, C*B) lane rows of kernels K2, K3 and K5: the loop's 10, for
-    ``qpsk`` the branch IIR's ``branch_b0`` and ``branch_a1``, then the
-    fused AGC's 5."""
-    branch = [params[k].to(torch.float32).reshape(C).repeat_interleave(B)
+    """The (n, C*B) lane rows of kernels K2, K3, K5 and K11, at the
+    normals' dtype: the loop's 10, for ``qpsk`` the branch IIR's
+    ``branch_b0`` and ``branch_a1``, then the fused AGC's 5."""
+    dtype = normals.dtype
+    branch = [params[k].to(dtype).reshape(C).repeat_interleave(B)
               [None] for k in ("branch_b0", "branch_a1") if k in params]
     return torch.cat([
-        lane_params_from_loop(params["loop"], C, B),
+        lane_params_from_loop(params["loop"], C, B, dtype),
         *branch,
-        agc_lane_params(params["modem"]["agc"], normals, C, B),
+        agc_lane_params(params["modem"]["agc"], normals, C, B, dtype),
     ]).contiguous()
 
 
@@ -521,9 +550,9 @@ def mpsk_agc_inputs(params: dict, blocks: torch.Tensor):
     C, B, L1 = x.shape
     if "pre_shared" in params:
         agc0 = {k: v[:1] for k, v in m["agc"].items()}
-        rows = agc_lane_params(agc0, normals[:1], 1, B)
+        rows = agc_lane_params(agc0, normals[:1], 1, B, x.dtype)
         return x[0].contiguous(), rows.contiguous()
-    rows = agc_lane_params(m["agc"], normals, C, B)
+    rows = agc_lane_params(m["agc"], normals, C, B, x.dtype)
     return x.reshape(C * B, L1).contiguous(), rows.contiguous()
 
 
@@ -565,10 +594,10 @@ def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
     imag, _ = _shared_rows(imag, shared)
 
     def rep(leaf):
-        return leaf.to(torch.float32).reshape(C).repeat_interleave(B)
+        return leaf.to(real.dtype).reshape(C).repeat_interleave(B)
 
     lane_params = torch.cat([
-        lane_params_from_loop(params["loop"], C, B),
+        lane_params_from_loop(params["loop"], C, B, real.dtype),
         torch.stack([rep(params["pd_gain"]), rep(params["pd_granularity"])]),
     ]).contiguous()
     tables, chain_table = torch.unique(params["pd_error_table"], dim=0,
@@ -601,18 +630,19 @@ _DEMODS = {"afsk": afsk_bank_demod, "afsk_pll": afsk_pll_bank_demod,
 
 
 def bank_basebands(bank: Bank, blocks: torch.Tensor):
-    """(B, Lin) float32 frames -> (C, B, L2) demodulated basebands, or an
-    (i, q) pair of them for ``qpsk`` and ``mpsk``."""
+    """(B, Lin) frames at the bank's dtype -> (C, B, L2) demodulated
+    basebands, or an (i, q) pair of them for ``qpsk`` and ``mpsk``."""
     return _DEMODS[bank.kind](bank.params, blocks)
 
 
 def slicer_lane_params(bank: Bank, blocks_per_chain: int) -> torch.Tensor:
-    """(2, C*B) float32 rows (sps, lock_rate) for kernels K1, K7 and K8."""
+    """(2, C*B) rows (sps, lock_rate) at the bank's dtype for kernels K1,
+    K7 and K8 (K10 and K12 at float64)."""
     p = bank.params
     return torch.stack([
         p["sps"].repeat_interleave(blocks_per_chain),
         p["lock_rate"].repeat_interleave(blocks_per_chain),
-    ]).to(torch.float32).contiguous()
+    ]).to(bank.dtype).contiguous()
 
 
 def _bits_per_symbol(slicer) -> int:
@@ -654,9 +684,9 @@ def slice_lanes(bank: Bank, basebands, window: int) -> torch.Tensor:
 
 def bank_frames_compute(bank: Bank, blocks: torch.Tensor, capacity: int,
                         window: int, sync_tolerance: int):
-    """(B, Lin) float32 frames -> per-chain (C, B, cap) descrambled bytes
-    (uint8), addresses (int32), counts (C, B) and the packed IL2P sync
-    candidate map (C, B, cap) uint8."""
+    """(B, Lin) frames at the bank's dtype -> per-chain (C, B, cap)
+    descrambled bytes (uint8), addresses (int32), counts (C, B) and the
+    packed IL2P sync candidate map (C, B, cap) uint8."""
     enc = slice_lanes(bank, bank_basebands(bank, blocks), window)
     if window > 1:
         data, addr, count = compact_windowed(enc, window, capacity)
@@ -707,7 +737,8 @@ _COHERENT_KINDS = ("afsk_pll", "bpsk", "qpsk", "mpsk")
 _ACQ_FLOOR_BY_SLICER = {"4level": 1.2}
 # Block length: long enough that the halo tax (block+overlap)/block stays
 # <= 4/3, and otherwise sized so _TARGET_LANES lanes of one bank hold
-# _LANE_BUDGET_BYTES of f32 working set (2.5 live copies per sample).
+# _LANE_BUDGET_BYTES of working set (2.5 live copies per sample, of 4
+# bytes, or 8 at float64).
 _TARGET_LANES = 2048
 _LANE_BUDGET_BYTES = 3e9
 # Block groups: a bank runs all its blocks in one pass unless its working
@@ -716,7 +747,8 @@ _LANE_BUDGET_BYTES = 3e9
 # peak: the f32 streams on the chain axis alive together (4 bytes each) and
 # the banded-matmul FIR's framed copy of its input ((128 + taps - 1)/128
 # streams: ~2 for the 133-tap PLL LPF, ~3 for a 44.1 kHz RRC).  Rounded up
-# from the peaks chip_smoke.py prints per bank (PERF.md).
+# from the peaks chip_smoke.py prints per bank (PERF.md); twice these at
+# float64 (``blocks_per_group``).
 _GROUP_BUDGET_BYTES = 16e9
 _BYTES_PER_CHAIN_SAMPLE = {
     # basebands, a chain's four correlator streams, their magnitudes
@@ -779,7 +811,7 @@ def bank_auto_geometry(bank: Bank, sample_rate: float,
         packet = float(max_packet_seconds)
     overlap = acq + packet
     lane_seconds = _LANE_BUDGET_BYTES / (
-        _TARGET_LANES * sample_rate * bank.up * 4 * 2.5)
+        _TARGET_LANES * sample_rate * bank.up * bank.dtype.itemsize * 2.5)
     return max(3.0 * overlap, lane_seconds - overlap), overlap
 
 
@@ -844,7 +876,8 @@ def blocks_per_group(bank: Bank, plan: BlockPlan,
     run_banked_files stacks several recordings' blocks)."""
     n_blocks = plan.n_blocks if n_blocks is None else n_blocks
     per_block = max(len(bank.specs) * plan.block_input_len * plan.up
-                    * _BYTES_PER_CHAIN_SAMPLE[bank.kind], 1)
+                    * _BYTES_PER_CHAIN_SAMPLE[bank.kind]
+                    * bank.dtype.itemsize // 4, 1)
     g = max(int(_GROUP_BUDGET_BYTES // per_block), 1)
     n_groups = -(-n_blocks // g)
     return -(-n_blocks // n_groups)
@@ -879,10 +912,11 @@ def bank_capacity(bank: Bank, plan: BlockPlan) -> int:
 def _compute_groups(bank: Bank, frames: torch.Tensor, per_group: int,
                     capacity: int, sync_tolerance: int):
     """bank_frames_compute over (N, Lin) wire-dtype frames, ``per_group``
-    blocks a pass, concatenated along the block axis."""
+    blocks a pass (cast to the bank's dtype), concatenated along the block
+    axis."""
     window = slicer_window(bank)
     outs = [
-        bank_frames_compute(bank, frames[s : s + per_group].to(torch.float32),
+        bank_frames_compute(bank, frames[s : s + per_group].to(bank.dtype),
                             capacity, window, sync_tolerance)
         for s in range(0, frames.shape[0], per_group)
     ]
@@ -910,12 +944,15 @@ def sync_tolerance(bank: Bank) -> int:
                 if c.codec.kind == "il2p"), default=0)
 
 
-def _audio_tensor(audio, device: torch.device) -> torch.Tensor:
+def _audio_tensor(audio, device: torch.device,
+                  dtype=torch.float32) -> torch.Tensor:
     """A recording on ``device`` in its wire dtype (int16 or float32; any
-    other dtype becomes float32)."""
+    other dtype becomes ``dtype``, the decode's: float64 audio keeps its
+    precision in the parity mode, as in the JAX package)."""
     wire = np.asarray(audio)
     if wire.dtype not in (np.int16, np.float32):
-        wire = wire.astype(np.float32)
+        wire = wire.astype(np.float64 if dtype == torch.float64
+                           else np.float32)
     return upload(wire, device)
 
 
@@ -924,15 +961,34 @@ def _check_codec(codec: str) -> None:
         raise ValueError(f"codec={codec!r}: expected 'device' or 'host'")
 
 
+def _float32_only(entry: str, dtype) -> None:
+    """Raise ValueError when ``dtype`` (None: the mode's) is float64: the
+    float64 route of ``entry`` is not yet ported."""
+    if resolve_dtype(dtype) == torch.float64:
+        raise ValueError(f"{entry}: the float64 parity mode's route of "
+                         "this entry point is not yet ported; it runs "
+                         "float32 only (run_banked and run_plan_banked run "
+                         "float64)")
+
+
+def _check_f64_chains(chains: list[ChainSpec], dtype,
+                      device: torch.device) -> None:
+    """modems.check_f64_kernels for every chain, before any runs."""
+    for chain in chains:
+        modems.check_f64_kernels(chain.modem.kind, dtype, device.type,
+                                 chain.name)
+
+
 def _submit_banked(chains: list[ChainSpec], audio,
                    block_seconds: float | str = "auto",
                    overlap_seconds: float | str = "auto",
                    codec: str = "device", max_packets_per_block: int = 8,
                    total_candidates: int | None = None,
                    max_packet_seconds: float | None = None,
-                   device: str | torch.device = "cuda") -> list:
-    """Queue every bank's device stages for one recording; return one
-    collect() per bank, each giving {chain_name: [Packet]}.
+                   device: str | torch.device = "cuda",
+                   dtype=torch.float32) -> list:
+    """Queue every bank's device stages for one recording at ``dtype``;
+    return one collect() per bank, each giving {chain_name: [Packet]}.
 
     Launches are asynchronous, so bank i's first readback overlaps the
     device work of banks i+1..n.  On a budget-cache hit the device codec
@@ -945,10 +1001,12 @@ def _submit_banked(chains: list[ChainSpec], audio,
 
     _check_codec(codec)
     dev = resolve(device)
+    dtype = resolve_dtype(dtype)
+    _check_f64_chains(chains, dtype, dev)
     n_audio = len(audio)
-    audio_t = _audio_tensor(audio, dev)
+    audio_t = _audio_tensor(audio, dev, dtype)
     with profiling.timed("group_chains"):
-        banks = group_chains(chains, dev)
+        banks = group_chains(chains, dev, dtype)
     collectors = []
     for bank in banks:
         plan = bank_plan(bank, n_audio, block_seconds, overlap_seconds,
@@ -979,12 +1037,14 @@ def run_banked(chains: list[ChainSpec], audio: np.ndarray,
                max_packets_per_block: int = 8,
                total_candidates: int | None = None,
                max_packet_seconds: float | None = None,
-               device: str | torch.device = "cuda") -> dict[str, list]:
+               device: str | torch.device = "cuda",
+               dtype=None) -> dict[str, list]:
     """Decode a chain list over one recording; returns {chain_name:
     [Packet]}, each packet attributed to exactly one block.
 
-    ``audio`` is int16 (the WAV wire type, framed before the float32 cast)
-    or float.  The device stages run on ``device``.  ``codec="device"``
+    ``audio`` is int16 (the WAV wire type, framed before the cast to
+    ``dtype``) or float; ``dtype`` is float32 or float64 (None: the
+    mode's).  The device stages run on ``device``.  ``codec="device"``
     (the default, as in the JAX package) decodes on the same device
     (``il2p_decode_blocks``, ``ax25_decode_blocks``), reads back one packed
     buffer per codec sub-group and runs the host state machines only for
@@ -996,7 +1056,8 @@ def run_banked(chains: list[ChainSpec], audio: np.ndarray,
     where it has a sync candidate)."""
     return _drain(_submit_banked(
         chains, audio, block_seconds, overlap_seconds, codec,
-        max_packets_per_block, total_candidates, max_packet_seconds, device))
+        max_packets_per_block, total_candidates, max_packet_seconds, device,
+        resolve_dtype(dtype)))
 
 
 def run_banked_many(chains: list[ChainSpec], audios, depth: int = 1,
@@ -1005,14 +1066,17 @@ def run_banked_many(chains: list[ChainSpec], audios, depth: int = 1,
                     codec: str = "device", max_packets_per_block: int = 8,
                     total_candidates: int | None = None,
                     max_packet_seconds: float | None = None,
-                    device: str | torch.device = "cuda") -> list[dict]:
+                    device: str | torch.device = "cuda",
+                    dtype=None) -> list[dict]:
     """Pipelined decode of a stream of recordings (the serving loop):
     recording i+1's device work is queued before recording i's results are
     read back, so each readback and host packet build overlaps the next
     recording's device work.  ``depth`` recordings stay in flight (device
     memory holds depth+1 recordings' block outputs).  Returns one
     {chain: packets} dict per recording, in order, equal to
-    [run_banked(chains, a) for a in audios]."""
+    [run_banked(chains, a) for a in audios].  float32 only so far
+    (``_float32_only``)."""
+    _float32_only("run_banked_many", dtype)
     kw = (block_seconds, overlap_seconds, codec, max_packets_per_block,
           total_candidates, max_packet_seconds, device)
     out = []
@@ -1031,7 +1095,8 @@ def run_banked_files(chains: list[ChainSpec], audios,
                      overlap_seconds: float | str = "auto",
                      codec: str = "device", max_packets_per_block: int = 8,
                      max_packet_seconds: float | None = None,
-                     device: str | torch.device = "cuda") -> list[dict]:
+                     device: str | torch.device = "cuda",
+                     dtype=None) -> list[dict]:
     """Decode several recordings in one device dispatch per bank: every
     file's blocks stack along the block axis, so a corpus fills the lanes
     of one pass.  Returns one {chain_name: packets} dict per file, with the
@@ -1050,7 +1115,9 @@ def run_banked_files(chains: list[ChainSpec], audios,
     the same file decoded alone, in both packages, but equals the JAX
     package's batched result.  A corpus whose working set does not fit the
     card must be split by the caller.  The other banks' blocks are
-    independent, so they keep the group budget (``blocks_per_group``)."""
+    independent, so they keep the group budget (``blocks_per_group``).
+    float32 only so far (``_float32_only``)."""
+    _float32_only("run_banked_files", dtype)
     _check_codec(codec)
     dev = resolve(device)
     audios = [np.asarray(a) for a in audios]
@@ -1810,8 +1877,11 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
                     codec: str = "device", verbose: bool = False,
                     resilient: bool = True,
                     max_packet_seconds: float | None = None,
-                    device: str | torch.device = "cuda") -> RunResult:
-    """Full plan -> aggregated report (chains in config order).
+                    device: str | torch.device = "cuda",
+                    dtype=None) -> RunResult:
+    """Full plan -> aggregated report (chains in config order), at
+    ``dtype`` (None: the mode's).  A chain that cannot run at float64 on
+    the card (``modems.check_f64_kernels``) raises ValueError first.
 
     ``resilient`` is the reference's skip-and-continue (chain_execute.py:
     8-27): if the banked run fails, every chain is retried alone through
@@ -1823,6 +1893,8 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
     from ..device import DeviceLostError, lost
     from .executor import run_chain
 
+    dtype = resolve_dtype(dtype)
+    _check_f64_chains(plan.chains, dtype, torch.device(device))
     if verbose:
         print(f"banked runtime: {len(plan.chains)} chains")
     seq_chains = []
@@ -1831,6 +1903,7 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
             plan.chains, audio, block_seconds=block_seconds,
             overlap_seconds=overlap_seconds, codec=codec,
             max_packet_seconds=max_packet_seconds, device=device,
+            dtype=dtype,
         )
     except Exception as exc:  # noqa: BLE001 - skip-and-continue contract
         if not resilient:
@@ -1846,7 +1919,7 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
         seq_chains = list(plan.chains)
     for c in seq_chains:
         try:
-            by_name[c.name] = run_chain(c, audio, device=device)
+            by_name[c.name] = run_chain(c, audio, device=device, dtype=dtype)
         except Exception as exc:  # noqa: BLE001
             print(f"skipped chain {c.name}: {type(exc).__name__}: {exc}")
             by_name[c.name] = []
@@ -1858,14 +1931,16 @@ def run_plans_banked_pipelined(jobs, depth: int = 1,
                                overlap_seconds: float | str = "auto",
                                codec: str = "device",
                                max_packet_seconds: float | None = None,
-                               device: str | torch.device = "cuda"
-                               ) -> list[RunResult]:
+                               device: str | torch.device = "cuda",
+                               dtype=None) -> list[RunResult]:
     """Pipelined decode of (plan, audio, sample_rate) jobs that may use
     different configs: every job's device work is queued before earlier
     jobs' readbacks (up to ``depth`` jobs in flight), so a mixed queue (a
     decode server's batch across config files) overlaps each readback and
     report build with the next job's device work.  Returns one RunResult
-    per job, equal to per-job run_plan_banked."""
+    per job, equal to per-job run_plan_banked.  float32 only so far
+    (``_float32_only``)."""
+    _float32_only("run_plans_banked_pipelined", dtype)
     out = []
     queue: deque = deque()
     for plan, audio, rate in jobs:
@@ -1886,12 +1961,14 @@ def run_plan_banked_many(plan, audios, sample_rate: float, depth: int = 1,
                          overlap_seconds: float | str = "auto",
                          codec: str = "device", resilient: bool = True,
                          max_packet_seconds: float | None = None,
-                         device: str | torch.device = "cuda"
-                         ) -> list[RunResult]:
+                         device: str | torch.device = "cuda",
+                         dtype=None) -> list[RunResult]:
     """Pipelined run_plan_banked over several recordings (the serving warm
     path, run_banked_many).  Returns one RunResult per recording, equal to
     per-recording run_plan_banked; with ``resilient`` a failure retries
-    each recording through run_plan_banked."""
+    each recording through run_plan_banked.  float32 only so far
+    (``_float32_only``)."""
+    _float32_only("run_plan_banked_many", dtype)
     try:
         per_rec = run_banked_many(
             plan.chains, audios, depth=depth, block_seconds=block_seconds,

@@ -24,8 +24,11 @@ AGC: a one-shot run normalises a coherent bank over the whole recording
 package's stream does.  Coherent chains' byte phase may then shift by up
 to one byte period against the one-shot run; payloads do not change.
 
-Deliberate differences from the JAX package: float32 only (no ``method``
-or ``unroll``, as ``run_banked`` has none); the stream runs on ``device``
+Deliberate differences from the JAX package: float32 only so far -- the
+float64 parity mode's stream is not yet ported, so a float64 ``dtype``
+(or None in that mode) raises, while ``run_banked`` and ``run_plan_banked``
+already run float64 -- and no ``method`` or ``unroll``, as ``run_banked``
+has none; the stream runs on ``device``
 (``"cuda"`` by default, which raises without a GPU); float feeds go up as
 float32, the dtype the frames are cast to, so they take the warm path
 too.
@@ -43,7 +46,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
-from ..device import resolve, upload
+from ..device import resolve, resolve_dtype, upload
 from ..packets import Packet
 from . import bank as bank_mod
 from .bank import (
@@ -80,15 +83,16 @@ class _BankState:
 
 
 def _check_dtype(dtype) -> None:
-    """float32 (or None) only; float64 names the parity mode."""
-    if dtype is None:
-        return
-    name = str(dtype).replace("torch.", "")
-    if "float64" in name or name in ("double", "<class 'float'>"):
-        raise ValueError("dtype float64: the float64 parity mode is not yet "
-                         "ported; the stream runs float32 only")
-    if "float32" not in name:
+    """float32 only (None: the mode's, ``device.resolve_dtype``); float64
+    names the parity mode, whose stream is not yet ported."""
+    try:
+        dtype = resolve_dtype(dtype)
+    except ValueError:
         raise ValueError(f"dtype {dtype!r}: the stream runs float32 only")
+    if dtype == torch.float64:
+        raise ValueError("dtype float64: the float64 parity mode's route of "
+                         "the stream is not yet ported; the stream runs "
+                         "float32 only")
 
 
 class StreamDecoder:

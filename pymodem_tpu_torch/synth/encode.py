@@ -26,7 +26,7 @@ from ..codecs.host import (
     block_layout,
     synthesize_ax25_header,
 )
-from ..ops import rs as rs_ops
+from ..ops import rs_host as rs_ops
 from ..ops.crc import np_crc16
 from ..ops.hamming import HAMMING74_CODEWORDS
 from ..ops.lfsr import poly_tap_positions

@@ -568,8 +568,11 @@ def test_qpsk_costas_kernel_special_rows(cuda, n_rows):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x, lp = _lanes(2, 8, 100, cuda)
+    # float64 lanes go to K10 and K12, which take float64 rows only
     with pytest.raises(ValueError, match="float32"):
-        tsl.binary_slice_lanes(x.double(), lp.double())
+        tsl.binary_slice_lanes(x, lp.double())
+    with pytest.raises(ValueError, match="float64"):
+        tsl.binary_slice_lanes(x.double(), lp)
     with pytest.raises(ValueError, match="contiguous"):
         tsl.binary_slice_lanes(x.t().contiguous().t(), lp)
     with pytest.raises(ValueError, match="window"):
@@ -600,7 +603,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="window"):
         tsl.four_level_slice_lanes(x, lp, (2, 0, 3, 1), window=512)
     with pytest.raises(ValueError, match="float32"):
-        tsl.four_level_slice_lanes(x.double(), lp.double(), (2, 0, 3, 1))
+        tsl.four_level_slice_lanes(x, lp.double(), (2, 0, 3, 1))
+    with pytest.raises(ValueError, match="float64"):
+        tsl.four_level_slice_lanes(x.double(), lp, (2, 0, 3, 1))
     with pytest.raises(ValueError, match="17"):
         tloops.qpsk_costas_lanes(x, rows15, sine, cosine)
     rows17 = _rows(_QPSK_ROWS + _AGC_ROWS, 8, cuda)
@@ -905,3 +910,140 @@ def test_cli_after_a_device_side_fault(cuda, tmp_path):
     assert out.count("banked runtime failed") == 1, out
     assert "the device is lost, no retry" in out
     assert "skipped chain" not in out and "Generating" not in out
+
+
+# ---------------------------------------------------------------------------
+# the float64 parity mode's kernels K10-K12
+# ---------------------------------------------------------------------------
+
+
+def _f64_rows(lanes, rows, T, device):
+    """(x, lane_params): float64 slicer lanes (``_lanes``' symbols), as
+    they are or as a view of rows 5 doubles longer (a FIR's output)."""
+    x, lp = _lanes(11, lanes, T, device)
+    x, lp = x.double(), lp.double()
+    if rows == "strided":
+        wide = x.new_zeros((lanes, T + 5))
+        wide[:, :T] = x
+        x = wide[:, :T]
+    return x, lp
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+@pytest.mark.parametrize("lanes,rows", [(300, "as_they_are"), (1, "as_they_are"),
+                                        (45, "strided")])
+@pytest.mark.parametrize("window", [1, 8, 256])
+def test_binary_slicer_f64_kernel_matches_twin(cuda, window, lanes, rows, T):
+    """K10 equals the f64 twin bitwise; binary_slice_lanes routes float64
+    to it, never to K1."""
+    x, lp = _f64_rows(lanes, rows, T, cuda)
+    k1 = tsl.binary_slice_lanes.launches
+    k10 = tsl.binary_slice_f64_lanes.launches
+    got = tsl.binary_slice_lanes(x, lp, window)
+    assert tsl.binary_slice_lanes.launches == k1
+    assert tsl.binary_slice_f64_lanes.launches == k10 + 1
+    assert torch.equal(got, tsl.binary_slice(x, lp, window))
+    assert int((got != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+@pytest.mark.parametrize("lanes,rows", [(300, "as_they_are"),
+                                        (45, "strided")])
+@pytest.mark.parametrize("window", [1, 16])
+def test_four_level_slicer_f64_kernel_matches_twin(cuda, window, lanes, rows,
+                                                   T):
+    """K12 equals the f64 twin bitwise (and the twin on the CPU)."""
+    x, lp = _f64_rows(lanes, rows, T, cuda)
+    demap = (2, 0, 3, 1)
+    k8 = tsl.four_level_slice_lanes.launches
+    got = tsl.four_level_slice_lanes(x, lp, demap, window)
+    assert tsl.four_level_slice_lanes.launches == k8
+    want = tsl.four_level_slice(x, lp, demap, window)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), tsl.four_level_slice(
+        x.cpu(), lp.cpu(), demap, window))
+
+
+def _f64_loop_case(device, lanes, n_rows, T, seed=5):
+    """Input rows, 15 lane rows of PLL_PARAMS + AGC_PARAMS around an
+    AFSK-PLL chain at 8 kHz, each lane's row, and the f64 NCO tables."""
+    from pymodem_tpu_torch.dsp import window_design as wd
+
+    g = np.random.default_rng(seed)
+    t = np.arange(T) / 8000.0
+    x = (2e3 * np.sin(2 * np.pi * (1700.0 + 100.0 * np.sign(np.sin(
+        2 * np.pi * 150.0 * t)))[None] * t) + 3e2 * g.standard_normal(
+        (n_rows, T)))
+    rows = np.zeros((15, lanes))
+    rows[0], rows[1] = 2 * np.pi / 8000, 1700.0 + g.random(lanes)
+    rows[2], rows[3], rows[4] = 256 / (2 * np.pi), 0.0147, 0.97
+    rows[5], rows[6], rows[7], rows[8] = 0.03, 0.01, 0.002, 40.0
+    rows[9] = g.random(lanes)
+    rows[10], rows[11] = 30.0, 3.0
+    rows[12], rows[13], rows[14] = 0.5, 1 / 8000, 1.0
+    sine, cos = tloops.f64_nco_tables(wd.nco_wavetable(256, 1.0))
+    rol = g.integers(0, n_rows, lanes).astype(np.int32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return to(x), to(rows), to(rol), to(sine), to(cos)
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+@pytest.mark.parametrize("lanes,n_rows", [(1, 1), (200, 7), (33, 33)])
+@pytest.mark.parametrize("kind", ["afsk_pll", "bpsk"])
+def test_coherent_loop_f64_kernel_matches_twin(cuda, kind, lanes, n_rows, T):
+    """K11, both kinds, on shared rows (``row_of_lane``): bitwise equal to
+    the f64 twin; afsk_pll_lanes and bpsk_costas_lanes route float64 to
+    it, never to K2 or K3."""
+    x, rows, rol, sine, cos = _f64_loop_case(cuda, lanes, n_rows, T)
+    f32 = (tloops.afsk_pll_lanes.launches, tloops.bpsk_costas_lanes.launches)
+    k11 = tloops.coherent_loop_f64_lanes.launches
+    if kind == "afsk_pll":
+        got = tloops.afsk_pll_lanes(x, rows, sine, rol)
+        want = tloops.afsk_pll(x, rows, sine, rol)
+    else:
+        got = tloops.bpsk_costas_lanes(x, rows, sine, cos, rol)
+        want = tloops.bpsk_costas(x, rows, sine, cos, rol)
+    assert (tloops.afsk_pll_lanes.launches,
+            tloops.bpsk_costas_lanes.launches) == f32
+    assert tloops.coherent_loop_f64_lanes.launches == k11 + 1
+    assert got.dtype == torch.float64 and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_f64_wrappers_refuse_what_has_no_f64_kernel(cuda):
+    """Float64 on the card never gives way to an f32 kernel: K4-K7 refuse
+    float64 tensors."""
+    x = torch.zeros(2, 64, dtype=torch.float64, device=cuda)
+    tables = [torch.zeros(256, dtype=torch.float64, device=cuda)] * 2
+    with pytest.raises(ValueError):
+        tagc.agc_lanes(x, torch.zeros(5, 2, dtype=torch.float64,
+                                      device=cuda))
+    with pytest.raises(ValueError):
+        tloops.qpsk_costas_lanes(x, torch.zeros(17, 2, dtype=torch.float64,
+                                                device=cuda), *tables)
+    with pytest.raises(ValueError):
+        tsl.quadrature_slice_lanes(x, x, torch.ones(2, 2, dtype=torch.float64,
+                                                    device=cuda),
+                                   (0, 1, 3, 2), 3, 2)
+
+
+def test_f64_run_plan_on_the_card_matches_cpu(cuda):
+    """A small f64 run_plan on the card (K11, K10, the FIRs as float64
+    DGEMMs) gives the same packets and report as on the CPU (the twins,
+    conv1d); a qpsk chain at f64 on the card is refused."""
+    from pymodem_tpu_torch.config import ReportSpec, RunPlan
+    from pymodem_tpu_torch.runtime import executor
+
+    chains, sent, audio = _pll_stream_case()
+    plan = RunPlan(chains=tuple(chains),
+                   reports=(ReportSpec("decoded", style="decoded_headers"),))
+    k11 = tloops.coherent_loop_f64_lanes.launches
+    out = {dev: executor.run_plan(plan, audio, 8000.0, resilient=False,
+                                  device=dev, dtype=torch.float64)
+           for dev in ("cpu", "cuda")}
+    assert tloops.coherent_loop_f64_lanes.launches > k11
+    assert out["cuda"].reports == out["cpu"].reports
+    keys = {dev: [(list(p.data), p.streamaddress) for ch in
+                  r.aggregate.chains for p in ch] for dev, r in out.items()}
+    assert keys["cuda"] == keys["cpu"]
+    assert f"Unique, valid packets:  {len(sent)}\n" in out["cuda"].reports[0]

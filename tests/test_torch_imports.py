@@ -79,6 +79,50 @@ def _imported_modules(path):
             yield node.module
 
 
+_SYNTH_NO_TORCH = """
+import importlib.abc, runpy, sys
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "pymodem_tpu"):
+            raise ImportError(f"{name} is not here")
+
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["synth", *sys.argv[1:]]
+try:
+    runpy.run_module("pymodem_tpu_torch.synth", run_name="__main__")
+except SystemExit as exc:
+    assert exc.code in (0, None), exc.code
+import pymodem_tpu_torch.debug, pymodem_tpu_torch.mode
+assert "torch" not in sys.modules
+"""
+
+
+def test_synth_cli_and_debug_import_no_torch(tmp_path):
+    """``python -m pymodem_tpu_torch.synth`` writes its WAV with torch,
+    JAX and pymodem_tpu refused (numpy only, as its JAX original); so do
+    ``debug`` and ``mode`` import."""
+    import json
+
+    cfg = tmp_path / "fsk_9600.json"
+    cfg.write_text(json.dumps({
+        "object_name": "fsk", "object_type": "demod_chain",
+        "modem": {"type": "fsk", "config": "9600", "options": {}},
+        "slicer": {"type": "binary", "config": "9600", "options": {}},
+        "stream": {"type": "lfsr", "options": {"poly": "0x63003"}},
+        "codec": {"type": "il2p", "options": {"crc": "yes"}}}) + "\n")
+    wav = tmp_path / "x.wav"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SYNTH_NO_TORCH, str(cfg), str(wav),
+         "--seconds", "1"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert wav.stat().st_size > 1000 and "frame 0: " in proc.stdout
+
+
 def test_port_names_nothing_of_pymodem_tpu():
     """No module of the port, and not chip_smoke.py, imports pymodem_tpu
     or any module under it, at any depth of the file."""
