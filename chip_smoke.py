@@ -6,7 +6,7 @@
 Drives the port's four main paths on the default route, the device codecs,
 through ``run_plan_banked`` and through its CLI, holds the device codecs'
 packets against the host codecs' on the same arrays, and holds every
-hand-written kernel (K1-K12) against its plain PyTorch twin:
+hand-written kernel (K1-K16) against its plain PyTorch twin:
 
 * the AFSK path: the banked AFSK-300 IL2P+CRC decode of 600 s of 8 kHz
   int16 audio (kernels K1 binary slicer, K2 AFSK PLL + AGC);
@@ -28,9 +28,11 @@ hand-written kernel (K1-K12) against its plain PyTorch twin:
   sweep over an hour in 2-minute chunks, the PLL sweep and the mixed
   AX.25/IL2P bank over 600 s, and a checkpoint (kernels K1, K2, K9 again);
 * the float64 parity mode (``PYMODEM_TPU_TORCH_X64``) on the card: the
-  executor and ``run_plan_banked`` at float64 (kernels K10 binary slicer,
-  K11 AGC + AFSK PLL / BPSK Costas loop, K12 four-level slicer), its CLI,
-  and the synthesizer's round trip.
+  executor and ``run_plan_banked`` at float64 for every family (kernels
+  K10 binary slicer, K11 AGC + AFSK PLL / BPSK Costas loop, K12
+  four-level slicer, K13 AGC, K14 QPSK Costas loop, K15 MPSK loop, K16
+  quadrature slicer), its CLI, the synthesizer's round trip, and the
+  multi-recording front doors, the stream and the CLI batch at float64.
 
 Phases, each printing one line with its seconds:
 
@@ -156,28 +158,47 @@ Phases, each printing one line with its seconds:
     printed); ``mixed_afsk300_ax25_il2p`` over 600 s with the device
     codecs (K9) equal to the host codec packet for packet.
 
-25. K10, K11 (kinds ``afsk_pll`` and ``bpsk``) and K12 against their
-    float64 twins, bitwise, on the first 4101 samples at the full lane
-    count of the executor's one lane over 60 s of the PLL, BPSK-1200 and
-    4FSK recordings and of the f64 banks ``pll_sweep8``,
-    ``bpsk1200_sweep8`` and ``fsk4_9600_sweep8`` (their own inputs:
-    shared rows and ``row_of_lane``, basebands, windows); each kernel
-    timed at full shape, the twins at 4101 samples on the banks;
+25. K10, K11 (kinds ``afsk_pll`` and ``bpsk``), K12, K13, K14, K15 and
+    K16 against their float64 twins, bitwise, on the first 4101 samples
+    at the full lane count of the executor's one lane over 60 s of the
+    PLL, BPSK-1200, 4FSK, Costas QPSK-2400, MPSK QPSK-2400 and MPSK
+    BPSK-1200 recordings and of the f64 banks ``pll_sweep8``,
+    ``bpsk1200_sweep8``, ``fsk4_9600_sweep8``, ``qpsk2400_sweep8``,
+    ``mpsk_bpsk1200_pair`` and ``qpsk_costas2400_sweep8`` (their own
+    inputs: shared rows and ``row_of_lane``, analytic rows, detector
+    tables, basebands, windows); each kernel timed at full shape, the
+    twins at 4101 samples on the banks;
 26. the float64 mode end to end, the launch counters set to 0 before each
     run and read after: the executor (the mode's default route) on 60 s
     of the PLL pair (``afsk_300_pll``), the AFSK-300 correlator,
-    BPSK-1200, FSK-9600 and 4FSK chains, and ``run_plan_banked`` at f64
-    on ``pll_pair``, ``pll_sweep8`` and an 8-chain space-gain sweep
-    (``F64_SWEEP_GAINS``, no scale row at f64) over 600 s: every frame, 0
-    rejected, K10-K12 launched as each family needs and no f32 loop or
-    slicer kernel (K1-K8); walls beside the same plans at f32, the
-    packets that differ between the two, peak device memory;
+    BPSK-1200, FSK-9600, 4FSK, Costas QPSK-2400, MPSK QPSK-2400 and MPSK
+    BPSK-1200 chains, and ``run_plan_banked`` at f64 on ``pll_pair``,
+    ``pll_sweep8``, an 8-chain space-gain sweep (``F64_SWEEP_GAINS``, no
+    scale row at f64), ``qpsk2400_sweep8``, ``mpsk_bpsk1200_pair`` and
+    ``qpsk_costas2400_sweep8`` over 600 s: every frame, 0 rejected,
+    K10-K16 launched as each family needs and no f32 loop or slicer
+    kernel (K1-K8); walls beside the same plans at f32, the packets that
+    differ between the two, peak device memory;
 27. the CLI as a subprocess with ``PYMODEM_TPU_TORCH_X64=1`` on the PLL
     pair's config and a few seconds of audio (2 frames): exit 0 and the report of the same
     decode on the CPU twins (``run_decode`` with
     ``PYMODEM_TPU_TORCH_DEVICE=cpu``); then ``python -m
     pymodem_tpu_torch.synth`` on that config and the CLI on the card
-    decoding every frame it printed.
+    decoding every frame it printed;
+28. the float64 mode through the other front doors, counters set to 0
+    before each run and read after (none of K1-K8): ``run_banked_many
+    (depth=1)`` over 3 x 60 s of ``pll_pair`` (two with noise), packets
+    equal to three solo f64 ``run_banked`` calls, 0 stream
+    synchronisations in a warm submit; ``run_banked_files`` on the
+    space-gain sweep (60, 30 and 15 s files), each file equal to its solo
+    run; ``run_plans_banked_pipelined`` over two configs, reports equal
+    to per-job ``run_plan_banked``; ``StreamDecoder`` at f64 over 600 s
+    of ``pll_sweep8`` in 120 s chunks, equal to the one-shot f64 run by
+    the JAX package's rule, a ``state()`` checkpoint halfway restored,
+    peak memory and chain-Msamples/s beside the f32 stream; the CLI's
+    batch route under ``PYMODEM_TPU_TORCH_X64=1`` with
+    ``PYMODEM_TPU_TORCH_RUNTIME=banked``: one pipelined call, outputs
+    equal to one-at-a-time runs.
 
 Phases 17-22 and the CLI phases fail if any output holds "banked runtime
 failed" or "skipped chain" (the retry's messages), but phase 21's own.
@@ -191,7 +212,7 @@ result.  The last three lines are the card's ``nvidia-smi`` name and power
 limit, one JSON object describing each kernel (launches on the main paths,
 max abs error against the twin, kernel milliseconds at the full main-path
 shape, the twin's on a time slice, the bound; K1 also at the BPSK and
-FSK-9600 sweeps' shapes, K10-K12 at their other phase 25 shapes) and
+FSK-9600 sweeps' shapes, K10-K16 at their other phase 25 shapes) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1779,29 +1800,37 @@ def _cli_report(cfg, wav, env_extra) -> str:
 
 def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                 fsk_audio, wrappers) -> tuple[dict, dict]:
-    """Phases 25-27, the float64 parity mode on the card: K10, K11 (both
-    kinds) and K12 against their f64 twins; the mode end to end on the
-    executor (its default route) and on ``run_plan_banked``; the CLI under
+    """Phases 25-27, the float64 parity mode on the card: K10-K16 against
+    their f64 twins; the mode end to end on the executor (its default
+    route) and on ``run_plan_banked``, every family; the CLI under
     PYMODEM_TPU_TORCH_X64 against the CPU twins, and the synthesizer's
-    round trip.  ``wrappers``: every kernel wrapper by key (K1-K12), whose
+    round trip.  ``wrappers``: every kernel wrapper by key (K1-K16), whose
     launch counts each run sets to 0 before it and reads after.  Returns
-    the kernels-line entries of K10-K12 and their launches on phase 26's
-    runs (the mode's main path)."""
+    the kernels-line entries of K10-K16 (launches 0, for the caller to
+    fill) and their launches on phase 26's runs (the mode's main path)."""
     import numpy as np
     import torch
 
     from pymodem_tpu_torch import modems
     from pymodem_tpu_torch.config import ReportSpec, RunPlan, build_chain_spec
+    from pymodem_tpu_torch.dsp.agc import agc_f64_lanes, agc_follower
+    from pymodem_tpu_torch.dsp.fir import fir_valid_nd
     from pymodem_tpu_torch.dsp.loops import (
         afsk_pll,
         bpsk_costas,
         coherent_loop_f64_lanes,
+        mpsk_loop,
+        mpsk_loop_f64_lanes,
+        qpsk_costas,
+        qpsk_costas_f64_lanes,
     )
     from pymodem_tpu_torch.ops.slicers import (
         binary_slice,
         binary_slice_f64_lanes,
         four_level_slice,
         four_level_slice_f64_lanes,
+        quadrature_slice,
+        quadrature_slice_f64_lanes,
     )
     from pymodem_tpu_torch.runtime import bank as tbank
     from pymodem_tpu_torch.runtime import executor
@@ -1820,7 +1849,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         return {k: fn.launches for k, fn in wrappers.items()
                 if fn.launches}
 
-    # 25. K10, K11 and K12 against their f64 twins
+    # 25. K10-K16 against their f64 twins
     t0 = time.time()
     sources = {
         "K10": ("binary_slicer_f64", "binary_slicer_f64.cu",
@@ -1829,28 +1858,37 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                 "pymodem_tpu/dsp/loops.py:123"),
         "K12": ("four_level_slicer_f64", "four_level_slicer_f64.cu",
                 "pymodem_tpu/ops/slicers.py:244"),
+        "K13": ("agc_f64", "coherent_loop_f64.cu",
+                "pymodem_tpu/dsp/agc.py:27"),
+        "K14": ("qpsk_costas_f64", "iq_loop_f64.cu",
+                "pymodem_tpu/dsp/loops.py:179"),
+        "K15": ("mpsk_loop_f64", "iq_loop_f64.cu",
+                "pymodem_tpu/dsp/loops.py:256"),
+        "K16": ("quadrature_slicer_f64", "quadrature_slicer_f64.cu",
+                "pymodem_tpu/ops/slicers.py:189"),
     }
     held = {}  # key -> [(where, entry)]
 
     def hold(key, where, kernel, twin, x, n_lanes, n_bytes, ops_a_step):
         """``kernel`` against ``twin`` on the first F64_CUT samples of the
-        rows ``x`` at the full lane count: bitwise; the kernel timed at
-        full shape (3 runs a bank's lanes, 1 the executor's lane), the
-        twin's call on the cut."""
-        xs = x[:, :F64_CUT].contiguous()
-        got = kernel(xs)
+        rows ``x`` (or of each rail of a tuple of them) at the full lane
+        count: bitwise; the kernel timed at full shape (3 runs a bank's
+        lanes, 1 the executor's lane), the twin's call on the cut."""
+        rails = x if isinstance(x, tuple) else (x,)
+        cut = tuple(r[:, :F64_CUT].contiguous() for r in rails)
+        got = kernel(*cut)
         # the twin's one call, timed by CUDA events (4101 steps of its
         # launches, no warm-up worth a second call)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = twin(xs)
+        want = twin(*cut)
         end.record()
         torch.cuda.synchronize()
         plain = start.elapsed_time(end)
         err = _same(f"{key} on {where}", got, want)
-        ms = _time_ms(lambda: kernel(x), 3 if n_lanes > 1 else 1)
-        T = x.shape[1]
+        ms = _time_ms(lambda: kernel(*rails), 3 if n_lanes > 1 else 1)
+        T = rails[0].shape[1]
         name, source, replaces = sources[key]
         k = _kernel(name, source, replaces, err, ms, plain, n_bytes,
                     ops_a_step * n_lanes * T, (n_lanes, T),
@@ -1888,6 +1926,40 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
              8 * (L * T + 2 * L) + 4 * L * -(-T // window),
              15 if key == "K10" else 35)
 
+    def agc_at(where, x, rows):
+        L, T = x.shape
+        hold("K13", where, lambda t: agc_f64_lanes(t, rows),
+             lambda t: agc_follower(t, rows), x, L,
+             8 * (2 * L * T + 5 * L), 12)
+
+    def qpsk_at(where, x, rows, tables, row_of_lane=None):
+        L = rows.shape[1]
+        R, T = x.shape
+        hold("K14", f"{where} ({rows.shape[0]} rows)",
+             lambda t: qpsk_costas_f64_lanes(t, rows, *tables, row_of_lane),
+             lambda t: qpsk_costas(t, rows, *tables, row_of_lane), x, L,
+             8 * (R * T + 2 * L * T + rows.shape[0] * L + 512) + 4 * L,
+             70 if rows.shape[0] > 12 else 60)
+
+    def mpsk_at(where, re, im, rows, tables, pd, index, row_of_lane=None):
+        L = rows.shape[1]
+        R, T = re.shape
+        hold("K15", where,
+             lambda a, b: mpsk_loop_f64_lanes(a, b, rows, *tables, pd, index,
+                                              row_of_lane),
+             lambda a, b: mpsk_loop(a, b, rows, *tables, pd, index,
+                                    row_of_lane), (re, im), L,
+             8 * (2 * R * T + 2 * L * T + 12 * L + 512)
+             + 4 * (pd.numel() + 2 * L), 50)
+
+    def quad_at(where, i, q, lp, sl, window):
+        L, T = i.shape
+        args = (lp, sl.demap, sl.state_mask, sl.bits_per_symbol, window)
+        hold("K16", f"{where} window {window}",
+             lambda a, b: quadrature_slice_f64_lanes(a, b, *args),
+             lambda a, b: quadrature_slice(a, b, *args), (i, q), L,
+             8 * (2 * L * T + 2 * L) + 4 * L * -(-T // window), 20)
+
     # the executor's one lane over 60 s of each family's recording
     afsk60 = _whole_segments(expected, audio, len(audio) // (SECONDS // 30),
                              RATE, EXECUTOR_SECONDS)
@@ -1900,21 +1972,44 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         "fsk4_9600": (fsk_chains["fsk4_9600_sweep8"][0], _whole_segments(
             *fsk_audio["fsk4_9600_sweep8"][:3], FSK4_RATE,
             EXECUTOR_SECONDS)[1]),
+        "qpsk2400_costas": (fsk_chains["qpsk_costas2400_sweep8"][0],
+                            _whole_segments(
+            *fsk_audio["qpsk_costas2400_sweep8"][:3], PSK_RATE,
+            EXECUTOR_SECONDS)[1]),
+        "mpsk_qpsk2400": (psk_chains["qpsk2400_sweep8"][0], _whole_segments(
+            *psk_audio["qpsk2400_sweep8"][:3], PSK_RATE,
+            EXECUTOR_SECONDS)[1]),
+        "mpsk_bpsk1200": (psk_chains["mpsk_bpsk1200_pair"][0],
+                          _whole_segments(
+            *psk_audio["mpsk_bpsk1200_pair"][:3], PSK_RATE,
+            EXECUTOR_SECONDS)[1]),
     }
     for fam, (chain, wave) in lane_cases.items():
         m, sl = chain.modem, chain.slicer
         params = modems.build_params(m)
         a64 = torch.from_numpy(wave).to(dev).to(F64)
         where = f"the executor's lane ({fam}, {len(wave) / sl.sample_rate:.0f} s)"
+        tables = modems.nco_tables(dev, F64)
         if m.kind in ("afsk_pll", "bpsk"):
             x, rows = modems.coherent_loop_inputs(m, params, a64)
-            loop_at(where, m.kind, x, rows, modems.nco_tables(dev, F64))
-        base = modems.demod(m, params, a64)[None]
+            loop_at(where, m.kind, x, rows, tables)
+        elif m.kind == "qpsk":
+            x, rows = modems.coherent_loop_inputs(m, params, a64)
+            qpsk_at(where, x, rows, tables)
+        elif m.kind == "mpsk":
+            band = fir_valid_nd(a64, params.input_bpf)
+            agc_at(where, band[None], modems.agc_rows(params.agc, band))
+            re, im, rows, pd, index = modems.mpsk_loop_inputs(m, params,
+                                                              a64)
+            mpsk_at(where, re, im, rows, tables, pd, index)
+        base = modems.demod(m, params, a64)
         lp = slicer_lane_params(sl, dev, F64)
-        if sl.kind == "4level":
-            slicer_at("K12", where, base, lp, 1, sl.demap)
+        if sl.kind == "quadrature":
+            quad_at(where, base[0][None], base[1][None], lp, sl, 1)
+        elif sl.kind == "4level":
+            slicer_at("K12", where, base[None], lp, 1, sl.demap)
         else:
-            slicer_at("K10", where, base, lp, 1)
+            slicer_at("K10", where, base[None], lp, 1)
 
     # the banks' lanes, at f64
     def bank_frames(chains, wave, mps):
@@ -1928,24 +2023,51 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         ("bpsk1200_sweep8", psk_chains["bpsk1200_sweep8"],
          psk_audio["bpsk1200_sweep8"][1], psk_audio["bpsk1200_sweep8"][3]),
         ("fsk4_9600_sweep8", fsk_chains["fsk4_9600_sweep8"],
-         fsk_audio["fsk4_9600_sweep8"][1], fsk_audio["fsk4_9600_sweep8"][3]))
+         fsk_audio["fsk4_9600_sweep8"][1], fsk_audio["fsk4_9600_sweep8"][3]),
+        *((name, psk_chains[name], psk_audio[name][1], psk_audio[name][3])
+          for name in ("qpsk2400_sweep8", "mpsk_bpsk1200_pair")),
+        ("qpsk_costas2400_sweep8", fsk_chains["qpsk_costas2400_sweep8"],
+         fsk_audio["qpsk_costas2400_sweep8"][1],
+         fsk_audio["qpsk_costas2400_sweep8"][3]))
     for name, chains, wave, mps in bank_cases:
         bank_, frames = bank_frames(chains, wave, mps)
+        tables = (bank_.params.get("sine_table"),
+                  bank_.params.get("cos_table"))
         if bank_.kind in ("afsk_pll", "bpsk"):
             x, rows, rol = tbank.coherent_loop_inputs(bank_.params, frames)
             loop_at(f"{name} ({x.shape[0]} shared rows)", bank_.kind, x,
-                    rows, (bank_.params["sine_table"],
-                           bank_.params["cos_table"]), rol)
+                    rows, tables, rol)
             del x
+        elif bank_.kind == "qpsk":
+            x, rows, rol = tbank.coherent_loop_inputs(bank_.params, frames)
+            qpsk_at(f"{name} ({x.shape[0]} shared rows)", x, rows, tables,
+                    rol)
+            del x
+        elif bank_.kind == "mpsk":
+            lanes, rows = tbank.mpsk_agc_inputs(bank_.params, frames)
+            agc_at(f"{name} ({lanes.shape[0]} lanes)", lanes, rows)
+            del lanes
+            re, im, rows, pd, index, rol = tbank.mpsk_loop_inputs(
+                bank_.params, frames)
+            mpsk_at(f"{name} ({re.shape[0]} rows)", re, im, rows, tables,
+                    pd, index, rol)
+            del re, im
         bb = tbank.bank_basebands(bank_, frames)
-        C, B, L2 = bb.shape
-        lp = tbank.slicer_lane_params(bank_, B)
-        key = "K12" if bank_.slicer_kind == "4level" else "K10"
-        slicer_at(key, name, bb.reshape(C * B, L2), lp,
-                  tbank.slicer_window(bank_), bank_.specs[0].slicer.demap
-                  if key == "K12" else None)
-        del frames, bb
-    _phase(25, "K10, K11, K12 == f64 twins", t0)
+        del frames
+        window = tbank.slicer_window(bank_)
+        if isinstance(bb, tuple):
+            C, B, L2 = bb[0].shape
+            quad_at(name, *(r.reshape(C * B, L2).contiguous() for r in bb),
+                    tbank.slicer_lane_params(bank_, B),
+                    bank_.specs[0].slicer, window)
+        else:
+            C, B, L2 = bb.shape
+            lp = tbank.slicer_lane_params(bank_, B)
+            key = "K12" if bank_.slicer_kind == "4level" else "K10"
+            slicer_at(key, name, bb.reshape(C * B, L2), lp, window,
+                      bank_.specs[0].slicer.demap if key == "K12" else None)
+        del bb
+    _phase(25, "K10-K16 == f64 twins", t0)
 
     # 26. the f64 mode end to end: the executor (its default route) and
     # run_plan_banked at f64, with the f32 runs of the same plans beside
@@ -1992,6 +2114,18 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                     {"K10"}),
         "fsk4_9600": ([fsk_chains["fsk4_9600_sweep8"][0]], FSK4_RATE,
                       fsk4_60, {"K12"}),
+        "qpsk2400_costas": ([fsk_chains["qpsk_costas2400_sweep8"][0]],
+                            PSK_RATE, _whole_segments(
+            *fsk_audio["qpsk_costas2400_sweep8"][:3], PSK_RATE,
+            EXECUTOR_SECONDS), {"K14", "K16"}),
+        "mpsk_qpsk2400": ([psk_chains["qpsk2400_sweep8"][0]], PSK_RATE,
+                          _whole_segments(*psk_audio["qpsk2400_sweep8"][:3],
+                                          PSK_RATE, EXECUTOR_SECONDS),
+                          {"K13", "K15", "K16"}),
+        "mpsk_bpsk1200": ([psk_chains["mpsk_bpsk1200_pair"][0]], PSK_RATE,
+                          _whole_segments(
+            *psk_audio["mpsk_bpsk1200_pair"][:3], PSK_RATE,
+            EXECUTOR_SECONDS), {"K13", "K15", "K16"}),
     }
     walls = {}
     for name, (chains, rate, (sent, wave), need) in exec_cases.items():
@@ -2019,27 +2153,40 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
               f"{peak / 2**30:.2f} GiB [{smi}]")
     base = build_chain_spec(float(RATE), _chain_line(
         "AFSK 300 Il2Pc Correlator", "afsk"))
+    # each bank: (chains, payloads, audio, rate, max_packet_seconds)
+    afsk_case = (expected, audio, RATE, MAX_PACKET_SECONDS)
     bank_plans = {
-        "pll_pair": banks["pll_pair"],
-        "pll_sweep8": banks["pll_sweep8"],
-        "space_gain_sweep8": [_variant(base, f"g{i}", space_gain=g)
-                              for i, g in enumerate(F64_SWEEP_GAINS)],
+        "pll_pair": (banks["pll_pair"], *afsk_case),
+        "pll_sweep8": (banks["pll_sweep8"], *afsk_case),
+        "space_gain_sweep8": ([_variant(base, f"g{i}", space_gain=g)
+                               for i, g in enumerate(F64_SWEEP_GAINS)],
+                              *afsk_case),
+        **{name: (psk_chains[name], psk_audio[name][0], psk_audio[name][1],
+                  PSK_RATE, psk_audio[name][3])
+           for name in ("qpsk2400_sweep8", "mpsk_bpsk1200_pair")},
+        "qpsk_costas2400_sweep8": (
+            fsk_chains["qpsk_costas2400_sweep8"],
+            fsk_audio["qpsk_costas2400_sweep8"][0],
+            fsk_audio["qpsk_costas2400_sweep8"][1], PSK_RATE,
+            fsk_audio["qpsk_costas2400_sweep8"][3]),
     }
-    for name, chains in bank_plans.items():
+    need_of = {"afsk": {"K10"}, "afsk_pll": {"K10", "K11"},
+               "qpsk": {"K14", "K16"}, "mpsk": {"K13", "K15", "K16"}}
+    for name, (chains, sent, wave, rate, mps) in bank_plans.items():
         plan_ = RunPlan(chains=tuple(chains), reports=reports)
         (bank_,) = tbank.group_chains(chains, "cpu", dtype=F64)
         if "space_scale" in bank_.params:
             raise AssertionError(f"{name}: an f64 bank with a scale row")
-        need = {"K10", "K11"} if bank_.kind == "afsk_pll" else {"K10"}
+        need = need_of[bank_.kind]
 
         def run64(dtype=F64):
             return tbank.run_plan_banked(
-                plan_, audio, RATE, max_packet_seconds=MAX_PACKET_SECONDS,
+                plan_, wave, rate, max_packet_seconds=mps,
                 resilient=False, device=dev, dtype=dtype)
 
         run64()  # budgets and first launches
         result, wall, peak, launched = f64_run(name, run64, need)
-        _check_bank(f"{name} (banked, f64)", result, expected)
+        _check_bank(f"{name} (banked, f64)", result, sent)
         run64(torch.float32)
         torch.cuda.reset_peak_memory_stats()
         t1 = time.time()
@@ -2050,18 +2197,20 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         a, b = set(_packet_keys(result)), set(_packet_keys(r32))
         pa, pb = ({k[:2] for k in keys} for keys in (a, b))
         walls[f"banked {name}"] = (wall, wall32)
-        plan_b = tbank.bank_plan(bank_, len(audio),
-                                 max_packet_seconds=MAX_PACKET_SECONDS)
+        plan_b = tbank.bank_plan(bank_, len(wave), max_packet_seconds=mps)
         print(f"f64 run_plan_banked {name}: {len(chains)} chains x "
-              f"{SECONDS} s ({plan_b.n_blocks} blocks of "
-              f"{plan_b.block_input_len} samples at f64), {len(expected)} "
+              f"{len(wave) / rate:.0f} s ({plan_b.n_blocks} blocks of "
+              f"{plan_b.block_input_len} samples at f64, "
+              f"{-(-plan_b.n_blocks // tbank.blocks_per_group(bank_, plan_b))}"
+              f" group(s)), {len(sent)} "
               f"frames decoded, 0 rejected; launches {launched}; warm wall "
               f"{wall:.3f} s at f64, {wall32:.3f} s at f32; packets "
               f"differing between f64 and f32: {len(a ^ b)} of "
               f"{len(a | b)} by (chain, bytes, stream address), "
-              f"{len(pa ^ pb)} of {len(pa | pb)} by (chain, bytes) (the "
-              f"f64 bank's blocks are shorter: its lane budget counts 8 "
-              f"bytes a sample); peak device memory {peak / 2**30:.2f} GiB at "
+              f"{len(pa ^ pb)} of {len(pa | pb)} by (chain, bytes) (where "
+              f"the f64 bank's blocks are shorter, its lane budget counting "
+              f"8 bytes a sample, an address moves with its block's start); "
+              f"peak device memory {peak / 2**30:.2f} GiB at "
               f"f64, {peak32 / 2**30:.2f} GiB at f32 [{smi}]")
     print(f"f64 mode: launches {f64_launches}; walls (f64, f32) s "
           f"{ {k: (round(a, 3), round(b, 3)) for k, (a, b) in walls.items()} }")
@@ -2143,7 +2292,11 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
     # each kernel's entry at its main bank's shape, the others beside it
     entries = {}
     for key, main_where in (("K10", "pll_sweep8"), ("K11", "pll_sweep8"),
-                            ("K12", "fsk4_9600_sweep8")):
+                            ("K12", "fsk4_9600_sweep8"),
+                            ("K13", "qpsk2400_sweep8"),
+                            ("K14", "qpsk_costas2400_sweep8"),
+                            ("K15", "qpsk2400_sweep8"),
+                            ("K16", "qpsk2400_sweep8")):
         main = next(k for where, k in held[key]
                     if where.startswith(main_where))
         entries[key] = dict(main, launches=f64_launches.get(key, 0),
@@ -2152,6 +2305,268 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                                       "plain_ms", "bound_ms")}
             for where, k in held[key] if k is not main})
     return entries, f64_launches
+
+
+def _f64_front_doors(dev, smi, banks, afsk, wrappers) -> dict:
+    """Phase 28, the float64 mode through the front doors that take more
+    than one recording, and the stream: ``run_banked_many(depth=1)`` over
+    three 60 s recordings of ``pll_pair`` against three solo f64
+    ``run_banked`` calls, with 0 syncs in a warm submit;
+    ``run_banked_files`` on the space-gain sweep (a correlator bank) and
+    ``run_plans_banked_pipelined`` over two configs, each against its solo
+    calls; ``StreamDecoder`` at f64 over 600 s of ``pll_sweep8`` in 120 s
+    chunks against the one-shot f64 run by the JAX package's rule, a
+    ``state()``/``restore()`` round trip, its peak memory and
+    chain-Msamples/s beside the f32 stream's; the CLI's batch route under
+    PYMODEM_TPU_TORCH_X64 with the banked runtime against one-at-a-time
+    runs.  ``wrappers``: every kernel wrapper by key (K1-K16).  Returns
+    the launches of its runs, which launch none of K1-K8."""
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from pymodem_tpu_torch import cli
+    from pymodem_tpu_torch.config import ReportSpec, RunPlan, build_chain_spec
+    from pymodem_tpu_torch.runtime import bank as tbank
+    from pymodem_tpu_torch.runtime.stream import StreamDecoder
+    from pymodem_tpu_torch.wav_io import write_wav
+
+    F64 = torch.float64
+    expected, audio = afsk
+    reports = (ReportSpec("decoded", style="decoded_headers"),)
+    f32_keys = {f"K{i}" for i in range(1, 9)}
+    launches: dict = {}
+
+    def counted(what, fn, need):
+        """``fn()`` with the counters set to 0 before and read after:
+        fails unless it launched each of ``need`` and none of K1-K8."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if f32_keys & set(got) or not set(need) <= set(got):
+            raise AssertionError(f"{what} at f64 launched {got}, expected "
+                                 f"{sorted(need)} and no K1-K8")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    def timed(fn):
+        t1 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t1
+
+    t0 = time.time()
+    pair = banks["pll_pair"]
+    sent60, wave60 = _whole_segments(expected, audio,
+                                     len(audio) // (SECONDS // 30), RATE,
+                                     EXECUTOR_SECONDS)
+    g = np.random.default_rng(SEED + 28)
+    recs = [wave60] + [np.clip(wave60 + g.normal(0.0, NOISE_STD,
+                                                 len(wave60)),
+                               -32768, 32767).astype(np.int16)
+                       for _ in range(2)]
+    kw = dict(max_packet_seconds=MAX_PACKET_SECONDS, device=dev, dtype=F64)
+    # run_banked_many against three solo calls; a warm submit's syncs
+    tbank.run_banked_many(pair, recs, depth=1, **kw)  # budgets, launches
+    many, many_wall = timed(lambda: counted(
+        "run_banked_many", lambda: tbank.run_banked_many(pair, recs, depth=1,
+                                                         **kw),
+        {"K10", "K11"}))
+    solo, solo_wall = timed(lambda: [tbank.run_banked(pair, r, **kw)
+                                     for r in recs])
+    for i, (got, want) in enumerate(zip(many, solo)):
+        _same_packets(f"f64 pll_pair recording {i}", got, want,
+                      ("run_banked_many", "solo run_banked"))
+        decoded = [bytes(p.data[16:-2]) for p in max(got.values(), key=len)]
+        if decoded != sent60:
+            raise AssertionError(f"f64 run_banked_many recording {i}: "
+                                 f"{len(decoded)} of {len(sent60)} frames")
+    syncs = _submit_syncs(tbank, pair, recs[0], kw)
+    if syncs:
+        raise AssertionError(f"a warm f64 submit synchronised the stream: "
+                             f"{dict(syncs)}")
+    print(f"f64 run_banked_many(depth=1) over {len(recs)} x "
+          f"{len(wave60) / RATE:.0f} s of pll_pair (two with noise): packets "
+          f"equal to {len(recs)} solo f64 run_banked calls, every frame "
+          f"({len(sent60)} a recording); walls {many_wall:.3f} s pipelined, "
+          f"{solo_wall:.3f} s solo; stream synchronisations in one warm "
+          f"submit: 0 [{smi}]")
+
+    # run_banked_files on a correlator bank, each file against its solo run
+    base = build_chain_spec(float(RATE), _chain_line(
+        "AFSK 300 Il2Pc Correlator", "afsk"))
+    sweep = [_variant(base, f"g{i}", space_gain=gain)
+             for i, gain in enumerate(F64_SWEEP_GAINS)]
+    files = [audio[:60 * RATE], audio[60 * RATE: 90 * RATE],
+             audio[90 * RATE: 105 * RATE]]
+    tbank.run_banked_files(sweep, files, **kw)
+    batched, files_wall = timed(lambda: counted(
+        "run_banked_files", lambda: tbank.run_banked_files(sweep, files,
+                                                           **kw), {"K10"}))
+    for i, (f, got) in enumerate(zip(files, batched)):
+        _same_packets(f"f64 run_banked_files file {i}", got,
+                      tbank.run_banked(sweep, f, **kw),
+                      ("run_banked_files", "solo run_banked"))
+    print(f"f64 run_banked_files over 60, 30 and 15 s files of "
+          f"space_gain_sweep8 (8 chains): each file's packets equal to its "
+          f"solo f64 run_banked; wall {files_wall:.3f} s [{smi}]")
+
+    # run_plans_banked_pipelined over two configs against per-job runs
+    pkw = dict(max_packet_seconds=MAX_PACKET_SECONDS, device=dev, dtype=F64)
+    jobs = [(RunPlan(chains=tuple(pair), reports=reports), recs[0], RATE),
+            (RunPlan(chains=tuple(sweep), reports=reports), recs[1], RATE),
+            (RunPlan(chains=tuple(pair), reports=reports), recs[2], RATE)]
+    tbank.run_plans_banked_pipelined(jobs, depth=1, **pkw)
+    piped, piped_wall = timed(lambda: counted(
+        "run_plans_banked_pipelined",
+        lambda: tbank.run_plans_banked_pipelined(jobs, depth=1, **pkw),
+        {"K10", "K11"}))
+    per_job, job_wall = timed(lambda: [
+        tbank.run_plan_banked(p, a, r, resilient=False, **pkw)
+        for p, a, r in jobs])
+    for i, (got, want) in enumerate(zip(piped, per_job)):
+        if got.reports != want.reports:
+            raise AssertionError(f"f64 run_plans_banked_pipelined job {i}: "
+                                 "reports differ from run_plan_banked's")
+    print(f"f64 run_plans_banked_pipelined over {len(jobs)} jobs of two "
+          f"configs (pll_pair, space_gain_sweep8; 60 s each): reports equal "
+          f"to per-job f64 run_plan_banked; walls {piped_wall:.3f} s "
+          f"pipelined, {job_wall:.3f} s per job [{smi}]")
+    _phase(28, "f64 run_banked_many, run_banked_files, pipelined plans",
+           t0)
+
+    # StreamDecoder at f64 over 600 s of pll_sweep8 in 120 s chunks
+    t0 = time.time()
+    pll = banks["pll_sweep8"]
+    skw = dict(max_packet_seconds=MAX_PACKET_SECONDS, device=dev)
+    chunk = STREAM_CHUNK_SECONDS * RATE
+    oneshot = tbank.run_banked(pll, audio, dtype=F64, **skw)
+    _stream(pll, audio, RATE, chunk, dtype=F64, **skw)  # budgets
+    torch.cuda.reset_peak_memory_stats()
+    (dec, out), wall64 = timed(lambda: counted(
+        "StreamDecoder", lambda: _stream(pll, audio, RATE, chunk, dtype=F64,
+                                         **skw), {"K10", "K11"}))
+    peak64 = torch.cuda.max_memory_allocated()
+    if dec.dtype != F64 or any(st.bank.dtype != F64 for st in dec._banks):
+        raise AssertionError("the f64 stream's banks are not float64")
+    by = _by_chain(pll, out)
+    _check_bank("f64 pll_sweep8 stream", tbank._finish_plan(
+        RunPlan(chains=tuple(pll), reports=reports), by, RATE), expected)
+    _same_by_jax_rule("f64 pll_sweep8 stream", by, oneshot, RATE,
+                      pll[0].slicer.symbol_rate)
+    chunks = [audio[s: s + chunk] for s in range(0, len(audio), chunk)]
+    half = len(chunks) // 2
+    first = StreamDecoder(pll, RATE, dtype=F64, **skw)
+    got = []
+    for c in chunks[:half]:
+        got += first.feed(c)
+    blob = json.dumps(first.state())
+    del first
+    resumed = StreamDecoder(pll, RATE, dtype=F64, **skw)
+    resumed.restore(json.loads(blob))
+    for c in chunks[half:]:
+        got += resumed.feed(c)
+    got += resumed.flush()
+    _same_packets("f64 pll_sweep8 resumed from a checkpoint",
+                  _by_chain(pll, got), by, ("resumed stream", "uninterrupted"))
+    _stream(pll, audio, RATE, chunk, **skw)  # f32 budgets
+    torch.cuda.reset_peak_memory_stats()
+    _, wall32 = timed(lambda: _stream(pll, audio, RATE, chunk, **skw))
+    peak32 = torch.cuda.max_memory_allocated()
+    samples = len(pll) * len(audio)
+    print(f"f64 stream pll_sweep8 over {SECONDS} s in "
+          f"{STREAM_CHUNK_SECONDS} s chunks: every frame ({len(expected)}), "
+          f"0 rejected, the one-shot f64 run's payloads chain for chain with "
+          f"addresses within rate/40 + 9 symbol periods; a checkpoint after "
+          f"{half} of {len(chunks)} chunks ({len(blob)} bytes of JSON) "
+          f"restored: the uninterrupted stream's packets; warm wall "
+          f"{wall64:.3f} s = {samples / wall64 / 1e6:.1f} chain-Msamples/s "
+          f"at f64, {wall32:.3f} s = {samples / wall32 / 1e6:.1f} at f32; "
+          f"peak device memory {peak64 / 2**30:.3f} GiB at f64, "
+          f"{peak32 / 2**30:.3f} GiB at f32 [{smi}]")
+    _phase(28, "f64 stream: pll_sweep8, a checkpoint", t0)
+
+    # the CLI's batch route under the mode with the banked runtime
+    t0 = time.time()
+    tmp = tempfile.mkdtemp()
+    requests = []
+    for name, lines in (
+            ("afsk_300_pll", (_chain_line("AFSK 300 Il2Pc PLL", "afsk_pll"),
+                              _chain_line("AFSK 300 Il2Pc PLL inverted",
+                                          "afsk_pll", "yes"))),
+            ("afsk_300", (_chain_line("AFSK 300 Il2Pc Correlator",
+                                      "afsk"),))):
+        cfg = os.path.join(tmp, f"{name}.json")
+        with open(cfg, "w") as fh:
+            for line in (*lines, {"object_name": "report",
+                                  "object_type": "report",
+                                  "options": {"style": "decoded_headers"}}):
+                fh.write(json.dumps(line) + "\n")
+        for i, rec in enumerate(recs[:2]):
+            wav = os.path.join(tmp, f"{name}_{i}.wav")
+            write_wav(wav, RATE, rec)
+            requests.append((cfg, wav))
+    env = {"PYMODEM_TPU_TORCH_X64": "1", "PYMODEM_TPU_TORCH_RUNTIME": "banked",
+           "PYMODEM_TPU_TORCH_DEVICE": "cuda"}
+    saved = {k: os.environ.get(k) for k in env}
+    pipelined = tbank.run_plans_banked_pipelined
+    calls = []
+
+    def spy(jobs_, **kw_):
+        calls.append(len(jobs_))
+        return pipelined(jobs_, **kw_)
+
+    os.environ.update(env)
+    tbank.run_plans_banked_pipelined = spy
+    try:
+        cli.run_decode_batch(requests)  # budgets
+        calls.clear()
+        batch, batch_wall = timed(lambda: counted(
+            "the CLI's batch route", lambda: cli.run_decode_batch(requests),
+            {"K10", "K11"}))
+        one = []
+        t1 = time.time()
+        for cfg, wav in requests:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = cli.run_decode(cfg, wav)
+            one.append((code, buf.getvalue()))
+        one_wall = time.time() - t1
+    finally:
+        tbank.run_plans_banked_pipelined = pipelined
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def strip(text):
+        return re.sub(r"Elapsed time.*\n?", "", text)
+
+    if calls != [len(requests)] or [(c, strip(o)) for c, o in batch] != \
+            [(c, strip(o)) for c, o in one]:
+        raise AssertionError(f"the f64 CLI batch: pipelined calls {calls}; "
+                             f"outputs equal to one-at-a-time runs: "
+                             f"{batch == one}")
+    for code, text in batch:
+        _no_retry("f64 CLI batch", text)
+        if code != 0 or f"Unique, valid packets:  {len(sent60)}\n" \
+                not in text:
+            raise AssertionError(f"f64 CLI batch request: exit {code}\n"
+                                 f"{text[-2000:]}")
+    print(f"f64 CLI batch (PYMODEM_TPU_TORCH_X64=1, "
+          f"PYMODEM_TPU_TORCH_RUNTIME=banked): {len(requests)} requests of "
+          f"two configs through one run_plans_banked_pipelined call, outputs "
+          f"equal to one-at-a-time runs, every frame; walls {batch_wall:.3f} "
+          f"s batched, {one_wall:.3f} s one at a time [{smi}]")
+    print(f"phase 28 launches {launches}")
+    _phase(28, "f64 CLI batch route", t0)
+    return launches
 
 
 def main() -> int:
@@ -2168,7 +2583,11 @@ def main() -> int:
     )
     from pymodem_tpu_torch.config import ReportSpec, RunPlan
     from pymodem_tpu_torch.device import resolve
-    from pymodem_tpu_torch.dsp.agc import agc_follower, agc_lanes
+    from pymodem_tpu_torch.dsp.agc import (
+        agc_f64_lanes,
+        agc_follower,
+        agc_lanes,
+    )
     from pymodem_tpu_torch.dsp.loops import (
         afsk_pll,
         afsk_pll_lanes,
@@ -2176,9 +2595,11 @@ def main() -> int:
         bpsk_costas_lanes,
         coherent_loop_f64_lanes,
         mpsk_loop,
+        mpsk_loop_f64_lanes,
         mpsk_loop_lanes,
         mpsk_tables_staged,
         qpsk_costas,
+        qpsk_costas_f64_lanes,
         qpsk_costas_lanes,
     )
     from pymodem_tpu_torch.ops.slicers import (
@@ -2189,6 +2610,7 @@ def main() -> int:
         four_level_slice_f64_lanes,
         four_level_slice_lanes,
         quadrature_slice,
+        quadrature_slice_f64_lanes,
         quadrature_slice_lanes,
     )
     from pymodem_tpu_torch.runtime import bank as tbank
@@ -2953,15 +3375,24 @@ def main() -> int:
         {"K1": binary_slice_lanes, "K2": afsk_pll_lanes,
          "K9": ax25_deframe_rows})
     # 25-27. the float64 parity mode
+    every_wrapper = {
+        "K1": binary_slice_lanes, "K2": afsk_pll_lanes,
+        "K3": bpsk_costas_lanes, "K4": agc_lanes, "K5": qpsk_costas_lanes,
+        "K6": mpsk_loop_lanes, "K7": quadrature_slice_lanes,
+        "K8": four_level_slice_lanes, "K9": ax25_deframe_rows,
+        "K10": binary_slice_f64_lanes, "K11": coherent_loop_f64_lanes,
+        "K12": four_level_slice_f64_lanes, "K13": agc_f64_lanes,
+        "K14": qpsk_costas_f64_lanes, "K15": mpsk_loop_f64_lanes,
+        "K16": quadrature_slice_f64_lanes}
     f64_entries, _ = _f64_phases(
         dev, smi, banks, (expected, audio), psk, psk_audio, fsk_chains,
-        fsk_audio,
-        {"K1": binary_slice_lanes, "K2": afsk_pll_lanes,
-         "K3": bpsk_costas_lanes, "K4": agc_lanes,
-         "K5": qpsk_costas_lanes, "K6": mpsk_loop_lanes,
-         "K7": quadrature_slice_lanes, "K8": four_level_slice_lanes,
-         "K9": ax25_deframe_rows, "K10": binary_slice_f64_lanes,
-         "K11": coherent_loop_f64_lanes, "K12": four_level_slice_f64_lanes})
+        fsk_audio, every_wrapper)
+    # 28. the float64 mode through the multi-recording front doors and
+    # the stream
+    f64_doors = _f64_front_doors(dev, smi, banks, (expected, audio),
+                                 every_wrapper)
+    for key, entry in f64_entries.items():
+        entry["launches"] += f64_doors.get(key, 0)
     kernels.update(f64_entries)
 
     for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]

@@ -4,7 +4,7 @@ The package mirrors ``pymodem_tpu``'s layout module for module, so each
 function's counterpart sits at the same path.  Plain tensor code is
 PyTorch; every Pallas kernel of the JAX package (K1-K8), and the scans
 that the JAX package runs without one on the main paths (K9, the AX.25
-bit deframer; K10-K12, the float64 slicers and coherent loops), is a
+bit deframer; K10-K16, the float64 AGC, carrier loops and slicers), is a
 hand-written CUDA kernel for Hopper (``csrc/``), built at first use, with
 a plain PyTorch twin beside its wrapper.  The package imports no JAX.
 
@@ -20,11 +20,9 @@ the sequential executor (``runtime/executor.py``), the CLI (``python -m
 pymodem_tpu_torch``) and the decode server (``python -m
 pymodem_tpu_torch.serve``); the synthesizer CLI (``python -m
 pymodem_tpu_torch.synth``) and ``debug``.  The float64 parity mode
-(``PYMODEM_TPU_TORCH_X64``, ``mode.py``) runs on the card for the
-``afsk``, ``afsk_pll``, ``bpsk`` and ``fsk`` families through the
-executor, ``run_banked`` and ``run_plan_banked``, and on the CPU for every
-family.  Not yet ported: ``qpsk`` and ``mpsk`` at float64 on the card,
-the multi-recording entry points and the stream at float64, multi-GPU.
+(``PYMODEM_TPU_TORCH_X64``, ``mode.py``) runs every family through every
+one of those front doors, on the card and on the CPU.  Not yet ported:
+multi-GPU.
 """
 
 __version__ = "0.1.0"

@@ -88,13 +88,13 @@ def run_decode_batch(requests: list[tuple[str, str]]
     is queued before earlier requests' readbacks
     (``bank.run_plans_banked_pipelined``), across different configs too.
     Returns (exit code, captured output) per request, the output equal to
-    ``run_decode``'s.  The sequential runtime, the float64 mode (whose
-    pipelined route is not yet ported), a single request, any diagnostic
-    and any exception take one-at-a-time runs instead."""
+    ``run_decode``'s.  In the float64 mode the banked runtime pipelines at
+    float64, as the JAX package's does; ``auto`` resolves to the
+    sequential runtime there (``runtime_name``).  The sequential runtime, a
+    single request, any diagnostic and any exception take one-at-a-time
+    runs instead."""
     import contextlib
     import io
-
-    from .mode import x64
 
     def _one(config, wav):
         buf = io.StringIO()
@@ -102,7 +102,7 @@ def run_decode_batch(requests: list[tuple[str, str]]
             code = run_decode(config, wav)
         return code, buf.getvalue()
 
-    if runtime_name() != "banked" or x64() or len(requests) == 1:
+    if runtime_name() != "banked" or len(requests) == 1:
         return [_one(c, w) for c, w in requests]
 
     from .config import load_plan

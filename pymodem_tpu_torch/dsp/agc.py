@@ -1,4 +1,5 @@
-"""Automatic gain control: the envelope follower, kernel K4 and its twin.
+"""Automatic gain control: the envelope follower, kernels K4 and K13 and
+their twin.
 
 Port of ``pymodem_tpu.dsp.agc.agc_apply`` (reference agc.py:26-80) and of
 the Pallas kernel that runs it over lanes on the TPU,
@@ -14,9 +15,11 @@ the Pallas kernel that runs it over lanes on the TPU,
 
 The follower runs fused inside the AFSK-PLL and BPSK loop kernels
 (``dsp/loops.py``) and on its own, as kernel K4, ahead of the MPSK Hilbert
-FIR.  ``agc_step`` is the one copy of its op order, shared by
-``agc_follower`` (K4's twin, the port's ``agc_apply`` over lanes) and the
-loops' twins.
+FIR; at float64, the JAX package's parity mode, as kernel K13
+(``agc_f64_lanes``, the JAX package's f64 ``agc_apply`` scan having no
+Pallas kernel).  ``agc_step`` is the one copy of its op order, shared by
+``agc_follower`` (the twin of K4 and K13, the port's ``agc_apply`` over
+lanes) and the loops' twins.
 """
 
 from __future__ import annotations
@@ -47,10 +50,10 @@ def agc_step(x, env, sustain, attack_step, decay_step, sustain_time,
 
 
 def agc_follower(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of kernel K4: the follower over (L, T) lanes,
-    vectorised over lanes with a loop over time.  lane_params: (5, L) rows
-    in ``AGC_PARAMS`` order, the steps already scaled by each lane's
-    ``normal`` (``dsp/loops.agc_lane_params``)."""
+    """Plain PyTorch twin of kernels K4 and K13: the follower over (L, T)
+    lanes, vectorised over lanes with a loop over time.  lane_params:
+    (5, L) rows in ``AGC_PARAMS`` order, the steps already scaled by each
+    lane's ``normal`` (``dsp/loops.agc_lane_params``)."""
     att, dec, sus_t, sus_inc, target = lane_params.to(x.dtype)
     zero = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
     env, sustain = zero, zero
@@ -69,10 +72,11 @@ def agc_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
     then a view of padded rows.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
-    only a CPU tensor takes the plain twin ``agc_follower``."""
-    if x.ndim != 2 or lane_params.shape != (len(AGC_PARAMS), x.shape[0]):
-        raise ValueError(f"bad shapes x {tuple(x.shape)} "
-                         f"lane_params {tuple(lane_params.shape)}")
+    only a CPU tensor takes the plain twin ``agc_follower``.  A float64
+    CUDA tensor goes to K13 (``agc_f64_lanes``)."""
+    if x.dtype == torch.float64 and x.device.type != "cpu":
+        return agc_f64_lanes(x, lane_params)
+    _check_shapes(x, lane_params)
     if x.device.type == "cpu":
         return agc_follower(x, lane_params)
     from .. import _ext
@@ -90,4 +94,35 @@ def agc_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
     return out[:, :T]
 
 
+def agc_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
+    """Kernel K13 (``csrc/coherent_loop_f64.cu``), the follower alone at
+    float64, over (L, T) float64 lanes of unit stride (any row stride,
+    taken as they lie) with (5, L) float64 rows; ``agc_lanes`` routes
+    float64 CUDA tensors here.  Returns (L, T) float64.  Only a CPU tensor
+    takes the plain twin ``agc_follower``."""
+    _check_shapes(x, lane_params)
+    if x.device.type == "cpu":
+        return agc_follower(x, lane_params)
+    from .. import _ext
+
+    _ext.require_rows(x.device, torch.float64, x=x)
+    _ext.require(x.device, torch.float64, lane_params=lane_params)
+    L, T = x.shape
+    out = torch.empty((L, T), dtype=torch.float64, device=x.device)
+    _ext.launch("agc_f64_lanes", x.device,
+                (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p) + (ctypes.c_int,) * 3,
+                x.data_ptr(), x.stride(0), lane_params.data_ptr(),
+                out.data_ptr(), out.stride(0), L, T)
+    agc_f64_lanes.launches += 1
+    return out
+
+
+def _check_shapes(x, lane_params) -> None:
+    if x.ndim != 2 or lane_params.shape != (len(AGC_PARAMS), x.shape[0]):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} "
+                         f"lane_params {tuple(lane_params.shape)}")
+
+
 agc_lanes.launches = 0
+agc_f64_lanes.launches = 0

@@ -1,4 +1,5 @@
-"""Carrier loops: kernels K2, K3, K5, K6 and K11 and their plain twins.
+"""Carrier loops: kernels K2, K3, K5, K6, K11, K14 and K15 and their plain
+twins.
 
 Port of the ``pymodem_tpu.dsp.loops`` scans ``afsk_pll``, ``bpsk_costas``,
 ``qpsk_costas`` and ``mpsk_loop`` and of the Pallas kernels that replace
@@ -44,11 +45,14 @@ the error up (in place of the Pallas kernel's minimax atan and of CUDA's
 are the reference's own wavetable and table, as the JAX f64 path gathers
 (``f64_nco_tables``).
 
-Float64 lanes on the card run kernel K11 (``coherent_loop_f64_lanes``),
-the AGC fused with the AFSK PLL or the BPSK Costas loop: one thread a
-lane in the twins' op order, the JAX package's f64 scans having no Pallas
-kernel to port.  ``afsk_pll_lanes`` and ``bpsk_costas_lanes`` route a
-float64 CUDA tensor to it; K5 and K6 take float32 only and refuse float64.
+Float64 lanes on the card run the f64 kernels, one thread a lane in the
+twins' op order, the JAX package's f64 scans having no Pallas kernel to
+port: K11 (``coherent_loop_f64_lanes``), the AGC fused with the AFSK PLL
+or the BPSK Costas loop; K14 (``qpsk_costas_f64_lanes``), the QPSK Costas
+loop with 17 rows or 12; K15 (``mpsk_loop_f64_lanes``), the MPSK loop on
+the reference's detector table.  ``afsk_pll_lanes``,
+``bpsk_costas_lanes``, ``qpsk_costas_lanes`` and ``mpsk_loop_lanes``
+route a float64 CUDA tensor to them.
 """
 
 from __future__ import annotations
@@ -374,7 +378,7 @@ def _check_lanes(name, x, lane_params, n_rows, row_of_lane, *tables):
             raise ValueError(f"{name}: row_of_lane must be ({L},) int32, "
                              f"got {tuple(row_of_lane.shape)} "
                              f"{row_of_lane.dtype}")
-        if L and row_of_lane.device.type == "cuda":
+        if L and row_of_lane.device.type != "cpu":
             torch._assert_async(((row_of_lane >= 0)
                                  & (row_of_lane < x.shape[0])).all())
         elif L and not (0 <= int(row_of_lane.min())
@@ -397,6 +401,9 @@ def _staged_rows(x, L, row_of_lane):
 
 
 _COHERENT_ROWS = (len(PLL_PARAMS) + len(AGC_PARAMS),)
+# K5 and K14: the loop and branch IIR rows, then optionally the AGC's
+_QPSK_ROWS = (len(PLL_PARAMS) + len(BRANCH_PARAMS),
+              len(PLL_PARAMS) + len(BRANCH_PARAMS) + len(AGC_PARAMS))
 
 
 def _coherent_lanes(entry, x, lane_params, sine_table, cos_table,
@@ -503,9 +510,7 @@ def coherent_loop_f64_lanes(kind: str, x: torch.Tensor,
     _ext.require_rows(x.device, torch.float64, x=x)
     _ext.require(x.device, torch.float64, lane_params=lane_params, **named)
     R, T = x.shape
-    if row_of_lane is None:
-        row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
-    _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
+    row_of_lane = _lane_rows_f64(x, L, row_of_lane)
     out = torch.empty((L, T), dtype=torch.float64, device=x.device)
     _ext.launch("coherent_loop_f64_lanes", x.device,
                 (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -530,11 +535,13 @@ def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     views of padded rows.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
-    only a CPU tensor takes the plain twin ``qpsk_costas``."""
-    n_loop = len(PLL_PARAMS) + len(BRANCH_PARAMS)
-    L = _check_lanes("qpsk_costas_lanes", x, lane_params,
-                     (n_loop, n_loop + len(AGC_PARAMS)), row_of_lane,
-                     sine_table, cos_table)
+    only a CPU tensor takes the plain twin ``qpsk_costas``.  A float64
+    CUDA tensor goes to K14 (``qpsk_costas_f64_lanes``)."""
+    if x.dtype == torch.float64 and x.device.type != "cpu":
+        return qpsk_costas_f64_lanes(x, lane_params, sine_table, cos_table,
+                                     row_of_lane)
+    L = _check_lanes("qpsk_costas_lanes", x, lane_params, _QPSK_ROWS,
+                     row_of_lane, sine_table, cos_table)
     if x.device.type == "cpu":
         return qpsk_costas(x, lane_params, sine_table, cos_table,
                            row_of_lane)
@@ -553,9 +560,60 @@ def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
                 x.data_ptr(), x.stride(0), row_of_lane.data_ptr(), R,
                 lane_params.data_ptr(), sine_table.data_ptr(),
                 cos_table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(),
-                out_i.stride(0), L, T, int(lane_params.shape[0] > n_loop))
+                out_i.stride(0), L, T,
+                int(lane_params.shape[0] > _QPSK_ROWS[0]))
     qpsk_costas_lanes.launches += 1
     return out_i[:, :T], out_q[:, :T]
+
+
+def qpsk_costas_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
+                          sine_table: torch.Tensor, cos_table: torch.Tensor,
+                          row_of_lane: torch.Tensor | None = None):
+    """Kernel K14 (``csrc/iq_loop_f64.cu``): the QPSK Costas loop with its
+    branch IIRs at float64 over L lanes on (R, T) float64 input rows of
+    unit stride (``row_of_lane`` as ``qpsk_costas_lanes``), 17 rows with
+    the AGC fused or 12 without; the tables are the reference wavetable
+    and its quarter-turn shift (``f64_nco_tables``).
+    ``qpsk_costas_lanes`` routes float64 CUDA tensors here.  Returns (i,
+    q), each (L, T) float64.
+
+    Only a CPU tensor takes the plain twin ``qpsk_costas``."""
+    L = _check_lanes("qpsk_costas_f64_lanes", x, lane_params, _QPSK_ROWS,
+                     row_of_lane, sine_table, cos_table)
+    if x.device.type == "cpu":
+        return qpsk_costas(x, lane_params, sine_table, cos_table,
+                           row_of_lane)
+    from .. import _ext
+
+    _ext.require_rows(x.device, torch.float64, x=x)
+    _ext.require(x.device, torch.float64, lane_params=lane_params,
+                 sine_table=sine_table, cos_table=cos_table)
+    R, T = x.shape
+    row_of_lane = _lane_rows_f64(x, L, row_of_lane)
+    out_i = torch.empty((L, T), dtype=torch.float64, device=x.device)
+    out_q = torch.empty_like(out_i)
+    _ext.launch("qpsk_costas_f64_lanes", x.device,
+                (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_int) + (ctypes.c_void_p,) * 5
+                + (ctypes.c_int,) * 4,
+                x.data_ptr(), x.stride(0), row_of_lane.data_ptr(), R,
+                lane_params.data_ptr(), sine_table.data_ptr(),
+                cos_table.data_ptr(), out_i.data_ptr(), out_q.data_ptr(),
+                out_i.stride(0), L, T,
+                int(lane_params.shape[0] > _QPSK_ROWS[0]))
+    qpsk_costas_f64_lanes.launches += 1
+    return out_i, out_q
+
+
+def _lane_rows_f64(x, L, row_of_lane):
+    """Each lane's input row for the f64 loop kernels (K11, K14, K15),
+    which read rows as they lie: ``row_of_lane``, or the identity."""
+    from .. import _ext
+
+    if row_of_lane is None:
+        row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
+    _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
+    return row_of_lane
 
 
 # K6's dynamic shared memory left for its detector tables on Hopper (227 KB
@@ -587,15 +645,14 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``mpsk_loop``.  ``pd_tables``
     (U, g*g) may hold any number of tables; each lane's granularity must be
-    the tables' g."""
-    L = _check_lanes("mpsk_loop_lanes", re, lane_params,
-                     (len(PLL_PARAMS) + len(PD_PARAMS),), row_of_lane,
-                     sine_table, cos_table)
-    if im.shape != re.shape or pd_tables.ndim != 2 or pd_index.shape != (L,):
-        raise ValueError(f"mpsk_loop_lanes: bad shapes re {tuple(re.shape)}"
-                         f" im {tuple(im.shape)} pd_tables "
-                         f"{tuple(pd_tables.shape)} pd_index "
-                         f"{tuple(pd_index.shape)} for {L} lanes")
+    the tables' g.  A float64 CUDA tensor goes to K15
+    (``mpsk_loop_f64_lanes``)."""
+    if re.dtype == torch.float64 and re.device.type != "cpu":
+        return mpsk_loop_f64_lanes(re, im, lane_params, sine_table,
+                                   cos_table, pd_tables, pd_index,
+                                   row_of_lane)
+    L = _check_mpsk("mpsk_loop_lanes", re, im, lane_params, sine_table,
+                    cos_table, pd_tables, pd_index, row_of_lane)
     if re.device.type == "cpu":
         return mpsk_loop(re, im, lane_params, sine_table, cos_table,
                          pd_tables, pd_index, row_of_lane)
@@ -604,13 +661,8 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
     _ext.require(re.device, torch.float32, re=re, im=im,
                  lane_params=lane_params, sine_table=sine_table,
                  cos_table=cos_table)
-    _ext.require(re.device, torch.int32, pd_tables=pd_tables,
-                 pd_index=pd_index)
-    n_tab, gg = pd_tables.shape
-    g = int(round(gg ** 0.5))
-    if g * g != gg or n_tab == 0:
-        raise ValueError(f"mpsk_loop_lanes: pd_tables "
-                         f"{tuple(pd_tables.shape)} must be (U, g*g)")
+    n_tab, g = _pd_geometry("mpsk_loop_lanes", re.device, pd_tables,
+                            pd_index)
     R, T = re.shape
     re, row_of_lane = _staged_rows(re, L, row_of_lane)
     im = _ext.lane_rows(im)
@@ -631,8 +683,86 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
     return out_re[:, :T], out_im[:, :T]
 
 
+def _check_mpsk(name, re, im, lane_params, sine_table, cos_table, pd_tables,
+                pd_index, row_of_lane) -> int:
+    """``_check_lanes`` for the MPSK loop's inputs, and the shapes of its
+    second rail and detector tables; returns L."""
+    L = _check_lanes(name, re, lane_params,
+                     (len(PLL_PARAMS) + len(PD_PARAMS),), row_of_lane,
+                     sine_table, cos_table)
+    if im.shape != re.shape or pd_tables.ndim != 2 or pd_index.shape != (L,):
+        raise ValueError(f"{name}: bad shapes re {tuple(re.shape)}"
+                         f" im {tuple(im.shape)} pd_tables "
+                         f"{tuple(pd_tables.shape)} pd_index "
+                         f"{tuple(pd_index.shape)} for {L} lanes")
+    return L
+
+
+def _pd_geometry(name, device, pd_tables, pd_index) -> tuple[int, int]:
+    """The (U, g*g) detector tables' U and g, int32 on ``device``."""
+    from .. import _ext
+
+    _ext.require(device, torch.int32, pd_tables=pd_tables,
+                 pd_index=pd_index)
+    n_tab, gg = pd_tables.shape
+    g = int(round(gg ** 0.5))
+    if g * g != gg or n_tab == 0:
+        raise ValueError(f"{name}: pd_tables {tuple(pd_tables.shape)} must "
+                         "be (U, g*g)")
+    return n_tab, g
+
+
+def mpsk_loop_f64_lanes(re: torch.Tensor, im: torch.Tensor,
+                        lane_params: torch.Tensor, sine_table: torch.Tensor,
+                        cos_table: torch.Tensor, pd_tables: torch.Tensor,
+                        pd_index: torch.Tensor,
+                        row_of_lane: torch.Tensor | None = None):
+    """Kernel K15 (``csrc/iq_loop_f64.cu``): the MPSK loop at float64 over
+    L lanes on (R, T) float64 re and im rows of unit stride, the same row
+    stride (``row_of_lane`` as ``mpsk_loop_lanes``); the NCO tables the
+    reference wavetable and its quarter-turn shift; pd_tables (U, g*g)
+    int32, the reference's ``qpsk_error_table`` at f64.
+    ``mpsk_loop_lanes`` routes float64 CUDA tensors here.  Returns
+    (out_re, out_im), each (L, T) float64.
+
+    Only a CPU tensor takes the plain twin ``mpsk_loop``."""
+    L = _check_mpsk("mpsk_loop_f64_lanes", re, im, lane_params, sine_table,
+                    cos_table, pd_tables, pd_index, row_of_lane)
+    if re.device.type == "cpu":
+        return mpsk_loop(re, im, lane_params, sine_table, cos_table,
+                         pd_tables, pd_index, row_of_lane)
+    from .. import _ext
+
+    _ext.require_rows(re.device, torch.float64, re=re, im=im)
+    _ext.require(re.device, torch.float64, lane_params=lane_params,
+                 sine_table=sine_table, cos_table=cos_table)
+    if im.stride(0) != re.stride(0):
+        raise ValueError(f"mpsk_loop_f64_lanes: re and im rows "
+                         f"{re.stride(0)} and {im.stride(0)} apart; the "
+                         "kernel takes one row stride")
+    n_tab, g = _pd_geometry("mpsk_loop_f64_lanes", re.device, pd_tables,
+                            pd_index)
+    R, T = re.shape
+    row_of_lane = _lane_rows_f64(re, L, row_of_lane)
+    out_re = torch.empty((L, T), dtype=torch.float64, device=re.device)
+    out_im = torch.empty_like(out_re)
+    _ext.launch("mpsk_loop_f64_lanes", re.device,
+                (ctypes.c_void_p,) * 2 + (ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_int)
+                + (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5,
+                re.data_ptr(), im.data_ptr(), re.stride(0),
+                row_of_lane.data_ptr(), R, lane_params.data_ptr(),
+                sine_table.data_ptr(), cos_table.data_ptr(),
+                pd_tables.data_ptr(), pd_index.data_ptr(), out_re.data_ptr(),
+                out_im.data_ptr(), out_re.stride(0), L, T, g, n_tab)
+    mpsk_loop_f64_lanes.launches += 1
+    return out_re, out_im
+
+
 afsk_pll_lanes.launches = 0
 bpsk_costas_lanes.launches = 0
 coherent_loop_f64_lanes.launches = 0
 qpsk_costas_lanes.launches = 0
+qpsk_costas_f64_lanes.launches = 0
 mpsk_loop_lanes.launches = 0
+mpsk_loop_f64_lanes.launches = 0

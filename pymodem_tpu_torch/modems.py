@@ -21,8 +21,8 @@ to a few ulps, and decisions and packets agree with its default run.
 At float64 (the parity mode) every stage runs at the audio's dtype: the
 loop and AGC rows at f64, the NCO on the reference wavetable, the MPSK
 detector on the reference's table, as the JAX package's f64 path; on the
-card ``afsk_pll`` and ``bpsk`` run K11, and ``qpsk`` and ``mpsk`` are
-refused (``check_f64_kernels``).
+card ``afsk_pll`` and ``bpsk`` run K11, ``qpsk`` K14, and ``mpsk`` K13
+(its AGC) then K15.
 """
 
 from __future__ import annotations
@@ -274,28 +274,6 @@ def build_params(spec):
 # the float dtypes of a demod and their numpy counterparts
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
-# the kernels that a family's float64 demod still lacks on the card (its
-# float32 kernels take float32 only): the QPSK Costas loop with its AGC
-# (K5), the standalone AGC (K4), the MPSK loop (K6) and the quadrature
-# slicer (K7)
-F64_UNPORTED = {"qpsk": ("K5", "K7"), "mpsk": ("K4", "K6", "K7")}
-
-
-def check_f64_kernels(family: str, dtype, device_type: str,
-                      chain: str = "") -> None:
-    """Raise ValueError when a chain of modem ``family`` cannot run at
-    ``dtype`` on a device of ``device_type``: float64 on the card needs
-    the family's f64 kernels, and ``F64_UNPORTED`` lists the families
-    whose kernels are not yet ported at float64.  (On the CPU every
-    family runs at float64 through the plain twins.)"""
-    if (device_type == "cuda" and dtype == torch.float64
-            and family in F64_UNPORTED):
-        raise ValueError(
-            f"chain {chain!r} ({family}): the float64 parity mode is not "
-            f"yet ported for {family} on the card (kernels "
-            f"{', '.join(F64_UNPORTED[family])} not yet ported at float64)")
-
-
 def _scalar(value, device, dtype=torch.float32) -> torch.Tensor:
     """(1,) ``dtype`` tensor of a host scalar, rounded once from float64 as
     the JAX package's ``jnp.asarray(v, dtype)``."""
@@ -451,7 +429,7 @@ def fsk_demod(params: FSKParams, audio: torch.Tensor) -> torch.Tensor:
 def demod(spec, params, audio: torch.Tensor):
     """A whole-recording baseband (n,), or an (i, q) pair for ``qpsk`` and
     ``mpsk``, from float32 or float64 audio (n,); every stage runs at the
-    audio's dtype (float64 on the card: ``check_f64_kernels``)."""
+    audio's dtype (float64 on the card: the f64 kernels K11, K13-K15)."""
     kind = spec.kind
     if kind == "afsk":
         return afsk_demod(params, audio)

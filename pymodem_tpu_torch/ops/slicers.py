@@ -1,5 +1,5 @@
-"""Symbol-timing slicers: kernels K1, K7, K8, K10 and K12, their twins,
-compaction.
+"""Symbol-timing slicers: kernels K1, K7, K8, K10, K12 and K16, their
+twins, compaction.
 
 Port of ``pymodem_tpu.ops.slicers`` (``binary_slice``,
 ``quadrature_slice``, ``four_level_slice``, ``compact_bytes``,
@@ -10,9 +10,10 @@ that replace the scans on the TPU,
 (``quadrature_slice_lanes_pallas``) and ``_four_level_kernel``
 (``four_level_slice_lanes_pallas``).  At float64, the JAX package's
 parity mode, it runs the scans; their counterparts on the card are K10
-(``binary_slice_f64_lanes``) and K12 (``four_level_slice_f64_lanes``),
-to which ``binary_slice_lanes`` and ``four_level_slice_lanes`` route a
-float64 CUDA tensor; K7 takes float32 only.
+(``binary_slice_f64_lanes``), K16 (``quadrature_slice_f64_lanes``) and
+K12 (``four_level_slice_f64_lanes``), to which ``binary_slice_lanes``,
+``quadrature_slice_lanes`` and ``four_level_slice_lanes`` route a float64
+CUDA tensor.
 
 The slicer is a per-sample FSM (reference slicer.py:59-107): a phase clock
 advances by 1.0 per sample, a bit decision fires when it crosses
@@ -299,7 +300,33 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
     (``_ext.lane_rows``).
 
     A CUDA tensor launches the kernel on the current stream (or raises);
-    only a CPU tensor takes the plain twin ``quadrature_slice``."""
+    only a CPU tensor takes the plain twin ``quadrature_slice``.  A float64
+    CUDA tensor goes to K16 (``quadrature_slice_f64_lanes``)."""
+    if i_lanes.dtype == torch.float64 and i_lanes.device.type != "cpu":
+        return quadrature_slice_f64_lanes(i_lanes, q_lanes, lane_params,
+                                          demap, state_mask, bits_per_symbol,
+                                          window)
+    demap = _check_quadrature(i_lanes, q_lanes, lane_params, demap,
+                              state_mask, bits_per_symbol, window)
+    if i_lanes.device.type == "cpu":
+        return quadrature_slice(i_lanes, q_lanes, lane_params, demap,
+                                state_mask, bits_per_symbol, window)
+    from .. import _ext
+
+    _ext.require(i_lanes.device, torch.float32, i_lanes=i_lanes,
+                 q_lanes=q_lanes, lane_params=lane_params)
+    i_rows, q_rows = _ext.lane_rows(i_lanes), _ext.lane_rows(q_lanes)
+    out = _launch_quadrature("quadrature_slice_lanes", i_rows, q_rows,
+                             lane_params, demap, i_lanes.shape[1], state_mask,
+                             bits_per_symbol, window)
+    quadrature_slice_lanes.launches += 1
+    return out
+
+
+def _check_quadrature(i_lanes, q_lanes, lane_params, demap, state_mask: int,
+                      bits_per_symbol: int, window: int) -> tuple:
+    """Raise ValueError on what K7 and K16 do not take; returns the demap
+    as a tuple of ints."""
     demap = tuple(int(v) for v in demap)
     if (i_lanes.ndim != 2 or q_lanes.shape != i_lanes.shape
             or lane_params.shape != (2, i_lanes.shape[0])):
@@ -315,26 +342,57 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
                          f"takes a demap of at most {DEMAP_MAX} entries of "
                          "0-3 covering the state mask and 1 or 2 bits per "
                          "decision")
-    if i_lanes.device.type == "cpu":
-        return quadrature_slice(i_lanes, q_lanes, lane_params, demap,
-                                state_mask, bits_per_symbol, window)
+    return demap
+
+
+def _launch_quadrature(entry, i_rows, q_rows, lane_params, demap, T: int,
+                       state_mask: int, bits_per_symbol: int, window: int):
+    """Launch K7 or K16 (``entry``) over I and Q rows of one row stride;
+    returns the (L, ceil(T/window)) int32 emission stream."""
     from .. import _ext
 
-    _ext.require(i_lanes.device, torch.float32, i_lanes=i_lanes,
-                 q_lanes=q_lanes, lane_params=lane_params)
-    L, T = i_lanes.shape
-    i_rows, q_rows = _ext.lane_rows(i_lanes), _ext.lane_rows(q_lanes)
+    L = i_rows.shape[0]
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
-                      device=i_lanes.device)
+                      device=i_rows.device)
     packed = sum(v << (2 * s) for s, v in enumerate(demap))  # 2 bits each
-    _ext.launch("quadrature_slice_lanes", i_lanes.device,
+    _ext.launch(entry, i_rows.device,
                 (ctypes.c_void_p,) * 2 + (ctypes.c_int,)
                 + (ctypes.c_void_p,) * 2 + (ctypes.c_uint,)
                 + (ctypes.c_int,) * 5,
                 i_rows.data_ptr(), q_rows.data_ptr(), i_rows.stride(0),
                 lane_params.data_ptr(), out.data_ptr(), packed, L, T,
                 window, state_mask, bits_per_symbol)
-    quadrature_slice_lanes.launches += 1
+    return out
+
+
+def quadrature_slice_f64_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
+                               lane_params: torch.Tensor, demap,
+                               state_mask: int, bits_per_symbol: int,
+                               window: int = 1) -> torch.Tensor:
+    """Kernel K16 (``csrc/quadrature_slicer_f64.cu``), the float64
+    quadrature slicer, over (L, T) float64 I/Q lane pairs of unit stride,
+    one row stride for both (taken as they lie), with (2, L) float64 rows
+    (sps, lock_rate); ``quadrature_slice_lanes`` routes float64 CUDA
+    tensors here.  Its emissions are K7's.  Only a CPU tensor takes the
+    plain twin ``quadrature_slice``."""
+    demap = _check_quadrature(i_lanes, q_lanes, lane_params, demap,
+                              state_mask, bits_per_symbol, window)
+    if i_lanes.device.type == "cpu":
+        return quadrature_slice(i_lanes, q_lanes, lane_params, demap,
+                                state_mask, bits_per_symbol, window)
+    from .. import _ext
+
+    _ext.require(i_lanes.device, torch.float64, lane_params=lane_params)
+    _ext.require_rows(i_lanes.device, torch.float64, i_lanes=i_lanes,
+                      q_lanes=q_lanes)
+    if q_lanes.stride(0) != i_lanes.stride(0):
+        raise ValueError(f"quadrature_slice_f64_lanes: I and Q rows "
+                         f"{i_lanes.stride(0)} and {q_lanes.stride(0)} apart;"
+                         " the kernel takes one row stride")
+    out = _launch_quadrature("quadrature_slice_f64_lanes", i_lanes, q_lanes,
+                             lane_params, demap, i_lanes.shape[1],
+                             state_mask, bits_per_symbol, window)
+    quadrature_slice_f64_lanes.launches += 1
     return out
 
 
@@ -438,6 +496,7 @@ def four_level_slice_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
 
 binary_slice_lanes.launches = 0
 quadrature_slice_lanes.launches = 0
+quadrature_slice_f64_lanes.launches = 0
 four_level_slice_lanes.launches = 0
 binary_slice_f64_lanes.launches = 0
 four_level_slice_f64_lanes.launches = 0

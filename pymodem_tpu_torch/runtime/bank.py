@@ -46,22 +46,17 @@ recordings in one dispatch per bank, their blocks stacked), and over a
 sequential executor (``runtime/executor.py``), on the same device and
 kernels, and chains that still fail are skipped with a message.
 
-Float64, the JAX package's parity mode: ``run_banked`` and
-``run_plan_banked`` take ``dtype`` (None: the mode's,
-``device.resolve_dtype``), as the JAX package's do.  At float64 the bank's
-leaves, frames, basebands and slicer rows are float64; an AFSK space-gain
-sweep demods per chain (no ``space_scale`` row, as the JAX package keeps
-the reference operand order at f64), a coherent carrier sweep keeps
-``pre_shared`` (bitwise equal to the per-chain form at any dtype); on the
-card ``afsk_pll`` and ``bpsk`` banks run kernel K11 and the binary and
-four-level slicers K10 and K12, the FIRs float64 DGEMMs.  ``qpsk`` and
-``mpsk`` banks are refused at float64 on the card (their f64 kernels are
-not yet ported: ``modems.check_f64_kernels``); on the CPU every family
-runs at float64 through the twins.  The integer stages (compaction,
-descramble, sync, the device codecs, K9) are the same at both dtypes.
-``run_banked_many``, ``run_banked_files``, ``run_plan_banked_many`` and
-``run_plans_banked_pipelined`` run float32 only so far, and raise at
-float64 (``_float32_only``).
+Float64, the JAX package's parity mode: every entry point takes
+``dtype`` (None: the mode's, ``device.resolve_dtype``), as the JAX
+package's do.  At float64 the bank's leaves, frames, basebands and slicer
+rows are float64; an AFSK space-gain sweep demods per chain (no
+``space_scale`` row, as the JAX package keeps the reference operand order
+at f64), a coherent carrier sweep keeps ``pre_shared`` (bitwise equal to
+the per-chain form at any dtype); on the card every family runs its f64
+kernels (K11 for ``afsk_pll`` and ``bpsk``, K14 for ``qpsk``, K13 and
+K15 for ``mpsk``; the slicers K10, K16 and K12), the FIRs float64 DGEMMs;
+on the CPU the twins.  The integer stages (compaction, descramble, sync,
+the device codecs, K9) are the same at both dtypes.
 
 Deliberate differences from the JAX package: block geometry drops the TPU
 lane-tile snapping of ``plan_bank_run``, and the device codec route drops
@@ -710,12 +705,12 @@ def bank_device_step_stream(bank: Bank, tail: torch.Tensor,
     stride`` new input samples, so in steady state only new samples cross
     to the card, in their wire dtype.  The window is framed into
     ``n_blocks`` overlapped frames (``overlapped_frames``) that go through
-    ``bank_frames_compute`` as float32.  Returns its (data, addr, count,
-    sync) and the next step's tail, the window's last ``ext`` samples,
-    still on the device."""
+    ``bank_frames_compute`` at the bank's dtype.  Returns its (data, addr,
+    count, sync) and the next step's tail, the window's last ``ext``
+    samples, still on the device."""
     win = torch.cat((tail, fresh))
     frames = overlapped_frames(win, n_blocks, stride, ext)
-    out = bank_frames_compute(bank, frames.to(torch.float32), capacity,
+    out = bank_frames_compute(bank, frames.to(bank.dtype), capacity,
                               window, sync_tolerance)
     return out + (win[n_blocks * stride:].clone(),)
 
@@ -961,24 +956,6 @@ def _check_codec(codec: str) -> None:
         raise ValueError(f"codec={codec!r}: expected 'device' or 'host'")
 
 
-def _float32_only(entry: str, dtype) -> None:
-    """Raise ValueError when ``dtype`` (None: the mode's) is float64: the
-    float64 route of ``entry`` is not yet ported."""
-    if resolve_dtype(dtype) == torch.float64:
-        raise ValueError(f"{entry}: the float64 parity mode's route of "
-                         "this entry point is not yet ported; it runs "
-                         "float32 only (run_banked and run_plan_banked run "
-                         "float64)")
-
-
-def _check_f64_chains(chains: list[ChainSpec], dtype,
-                      device: torch.device) -> None:
-    """modems.check_f64_kernels for every chain, before any runs."""
-    for chain in chains:
-        modems.check_f64_kernels(chain.modem.kind, dtype, device.type,
-                                 chain.name)
-
-
 def _submit_banked(chains: list[ChainSpec], audio,
                    block_seconds: float | str = "auto",
                    overlap_seconds: float | str = "auto",
@@ -1002,7 +979,6 @@ def _submit_banked(chains: list[ChainSpec], audio,
     _check_codec(codec)
     dev = resolve(device)
     dtype = resolve_dtype(dtype)
-    _check_f64_chains(chains, dtype, dev)
     n_audio = len(audio)
     audio_t = _audio_tensor(audio, dev, dtype)
     with profiling.timed("group_chains"):
@@ -1074,11 +1050,10 @@ def run_banked_many(chains: list[ChainSpec], audios, depth: int = 1,
     recording's device work.  ``depth`` recordings stay in flight (device
     memory holds depth+1 recordings' block outputs).  Returns one
     {chain: packets} dict per recording, in order, equal to
-    [run_banked(chains, a) for a in audios].  float32 only so far
-    (``_float32_only``)."""
-    _float32_only("run_banked_many", dtype)
+    [run_banked(chains, a) for a in audios], at ``dtype`` (None: the
+    mode's)."""
     kw = (block_seconds, overlap_seconds, codec, max_packets_per_block,
-          total_candidates, max_packet_seconds, device)
+          total_candidates, max_packet_seconds, device, resolve_dtype(dtype))
     out = []
     queue: deque = deque()
     for audio in audios:
@@ -1116,14 +1091,14 @@ def run_banked_files(chains: list[ChainSpec], audios,
     package's batched result.  A corpus whose working set does not fit the
     card must be split by the caller.  The other banks' blocks are
     independent, so they keep the group budget (``blocks_per_group``).
-    float32 only so far (``_float32_only``)."""
-    _float32_only("run_banked_files", dtype)
+    ``dtype``: as ``run_banked``'s."""
     _check_codec(codec)
     dev = resolve(device)
+    dtype = resolve_dtype(dtype)
     audios = [np.asarray(a) for a in audios]
     results: list[dict[str, list]] = [dict() for _ in audios]
-    waves = [_audio_tensor(a, dev) for a in audios]
-    for bank in group_chains(chains, dev):
+    waves = [_audio_tensor(a, dev, dtype) for a in audios]
+    for bank in group_chains(chains, dev, dtype):
         rate = bank.specs[0].modem.sample_rate
         bank_block, bank_overlap = resolve_bank_geometry(
             bank, rate, block_seconds, overlap_seconds, max_packet_seconds)
@@ -1880,8 +1855,7 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
                     device: str | torch.device = "cuda",
                     dtype=None) -> RunResult:
     """Full plan -> aggregated report (chains in config order), at
-    ``dtype`` (None: the mode's).  A chain that cannot run at float64 on
-    the card (``modems.check_f64_kernels``) raises ValueError first.
+    ``dtype`` (None: the mode's).
 
     ``resilient`` is the reference's skip-and-continue (chain_execute.py:
     8-27): if the banked run fails, every chain is retried alone through
@@ -1894,7 +1868,6 @@ def run_plan_banked(plan, audio: np.ndarray, sample_rate: float,
     from .executor import run_chain
 
     dtype = resolve_dtype(dtype)
-    _check_f64_chains(plan.chains, dtype, torch.device(device))
     if verbose:
         print(f"banked runtime: {len(plan.chains)} chains")
     seq_chains = []
@@ -1938,15 +1911,16 @@ def run_plans_banked_pipelined(jobs, depth: int = 1,
     jobs' readbacks (up to ``depth`` jobs in flight), so a mixed queue (a
     decode server's batch across config files) overlaps each readback and
     report build with the next job's device work.  Returns one RunResult
-    per job, equal to per-job run_plan_banked.  float32 only so far
-    (``_float32_only``)."""
-    _float32_only("run_plans_banked_pipelined", dtype)
+    per job, equal to per-job run_plan_banked, at ``dtype`` (None: the
+    mode's)."""
+    dtype = resolve_dtype(dtype)
     out = []
     queue: deque = deque()
     for plan, audio, rate in jobs:
         queue.append((plan, rate, _submit_banked(
             plan.chains, audio, block_seconds, overlap_seconds, codec,
-            max_packet_seconds=max_packet_seconds, device=device)))
+            max_packet_seconds=max_packet_seconds, device=device,
+            dtype=dtype)))
         if len(queue) > depth:
             plan_, rate_, collectors = queue.popleft()
             out.append(_finish_plan(plan_, _drain(collectors), rate_))
@@ -1966,14 +1940,15 @@ def run_plan_banked_many(plan, audios, sample_rate: float, depth: int = 1,
     """Pipelined run_plan_banked over several recordings (the serving warm
     path, run_banked_many).  Returns one RunResult per recording, equal to
     per-recording run_plan_banked; with ``resilient`` a failure retries
-    each recording through run_plan_banked.  float32 only so far
-    (``_float32_only``)."""
-    _float32_only("run_plan_banked_many", dtype)
+    each recording through run_plan_banked.  At ``dtype`` (None: the
+    mode's)."""
+    dtype = resolve_dtype(dtype)
     try:
         per_rec = run_banked_many(
             plan.chains, audios, depth=depth, block_seconds=block_seconds,
             overlap_seconds=overlap_seconds, codec=codec,
             max_packet_seconds=max_packet_seconds, device=device,
+            dtype=dtype,
         )
     except Exception as exc:  # noqa: BLE001 - skip-and-continue contract
         if not resilient:
@@ -1985,7 +1960,7 @@ def run_plan_banked_many(plan, audios, sample_rate: float, depth: int = 1,
                             block_seconds=block_seconds,
                             overlap_seconds=overlap_seconds, codec=codec,
                             max_packet_seconds=max_packet_seconds,
-                            device=device)
+                            device=device, dtype=dtype)
             for a in audios
         ]
     return [_finish_plan(plan, by_name, sample_rate) for by_name in per_rec]

@@ -14,11 +14,10 @@ fallback); on the CPU the kernels' plain twins run.
 ``dtype`` (None: the mode's, ``device.resolve_dtype``) is float32 or, in
 the float64 parity mode, float64 -- the JAX package's reference-parity
 mode and its CLI's default route there.  At float64 the demods and
-slicers run their f64 kernels on the card (K11 for ``afsk_pll`` and
-``bpsk``, K10 and K12 for the binary and four-level slicers, the FIRs as
-float64 DGEMMs); ``qpsk`` and ``mpsk`` chains, whose f64 kernels are not
-yet ported, are refused on the card (``modems.check_f64_kernels``) and run
-on the CPU through the twins.
+slicers run their f64 kernels on the card: K11 for ``afsk_pll`` and
+``bpsk``, K14 for ``qpsk``, K13 and K15 for ``mpsk``, K10, K16 and K12
+for the binary, quadrature and four-level slicers, the FIRs as float64
+DGEMMs.
 """
 
 from __future__ import annotations
@@ -98,7 +97,6 @@ def run_chain(spec, audio: np.ndarray, device: str | torch.device = "cuda",
     mode's); returns its decoded packets."""
     dev = resolve(device)
     dtype = resolve_dtype(dtype)
-    modems.check_f64_kernels(spec.modem.kind, dtype, dev.type, spec.name)
     params = modems.build_params(spec.modem)
     wire = torch.from_numpy(np.ascontiguousarray(np.asarray(audio)))
     baseband = modems.demod(spec.modem, params, wire.to(dev).to(dtype))
@@ -131,9 +129,7 @@ def run_plan(plan, audio: np.ndarray, sample_rate: float,
              verbose: bool = False, resilient: bool = True,
              device: str | torch.device = "cuda", dtype=None) -> RunResult:
     """Run every chain at ``dtype`` (None: the mode's), then aggregate,
-    correlate and report (pymodem.py:134-183).  A chain that cannot run at
-    float64 on the card (``modems.check_f64_kernels``) raises ValueError
-    before any chain runs.
+    correlate and report (pymodem.py:134-183).
 
     ``resilient`` is the reference's skip-and-continue (chain_execute.py:
     8-27): a chain that raises is reported and skipped and the others
@@ -144,9 +140,6 @@ def run_plan(plan, audio: np.ndarray, sample_rate: float,
     from ..packets import PacketAggregate
 
     dtype = resolve_dtype(dtype)
-    for chain in plan.chains:
-        modems.check_f64_kernels(chain.modem.kind, dtype,
-                                 torch.device(device).type, chain.name)
     aggregate = PacketAggregate()
     for chain in plan.chains:
         if verbose:

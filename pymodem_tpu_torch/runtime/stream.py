@@ -24,14 +24,14 @@ AGC: a one-shot run normalises a coherent bank over the whole recording
 package's stream does.  Coherent chains' byte phase may then shift by up
 to one byte period against the one-shot run; payloads do not change.
 
-Deliberate differences from the JAX package: float32 only so far -- the
-float64 parity mode's stream is not yet ported, so a float64 ``dtype``
-(or None in that mode) raises, while ``run_banked`` and ``run_plan_banked``
-already run float64 -- and no ``method`` or ``unroll``, as ``run_banked``
-has none; the stream runs on ``device``
-(``"cuda"`` by default, which raises without a GPU); float feeds go up as
-float32, the dtype the frames are cast to, so they take the warm path
-too.
+``dtype`` is float32 or float64 (None: the mode's,
+``device.resolve_dtype``), as the JAX package's: at float64 the banks,
+frames and kernels run float64 (the parity mode's, ``runtime/bank.py``).
+Deliberate differences from the JAX package: no ``method`` or ``unroll``,
+as ``run_banked`` has none; the stream runs on ``device`` (``"cuda"`` by
+default, which raises without a GPU); float feeds, carried as float64 on
+the host as in the JAX package, go up at the stream's dtype, the one the
+frames are cast to, so they take the warm path too.
 """
 
 from __future__ import annotations
@@ -59,11 +59,6 @@ from .bank import (
     sync_tolerance,
 )
 
-# the device dtype of a carried host dtype: int16 feeds keep their wire
-# dtype; anything else is carried as float64 and uploaded as float32
-_WIRE = {np.dtype(np.int16): torch.int16,
-         np.dtype(np.float64): torch.float32}
-
 
 @dataclass
 class _BankState:
@@ -82,17 +77,14 @@ class _BankState:
     tail_block: int = -1
 
 
-def _check_dtype(dtype) -> None:
-    """float32 only (None: the mode's, ``device.resolve_dtype``); float64
-    names the parity mode, whose stream is not yet ported."""
+def _check_dtype(dtype) -> torch.dtype:
+    """The stream's float dtype: float32 or float64 (None: the mode's,
+    ``device.resolve_dtype``); any other raises."""
     try:
-        dtype = resolve_dtype(dtype)
+        return resolve_dtype(dtype)
     except ValueError:
-        raise ValueError(f"dtype {dtype!r}: the stream runs float32 only")
-    if dtype == torch.float64:
-        raise ValueError("dtype float64: the float64 parity mode's route of "
-                         "the stream is not yet ported; the stream runs "
-                         "float32 only")
+        raise ValueError(f"dtype {dtype!r}: the stream runs float32 or "
+                         "float64") from None
 
 
 class StreamDecoder:
@@ -118,7 +110,7 @@ class StreamDecoder:
                  max_packets_per_block: int = 8, pipeline_depth: int = 2,
                  max_packet_seconds: float | None = None,
                  device: str | torch.device = "cuda"):
-        _check_dtype(dtype)
+        self.dtype = _check_dtype(dtype)
         bank_mod._check_codec(codec)
         self.device = resolve(device)
         self.codec = codec
@@ -128,7 +120,7 @@ class StreamDecoder:
         # behind the next step's compute
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.blocks_per_step = blocks_per_step
-        banks = bank_mod.group_chains(list(chains), self.device)
+        banks = bank_mod.group_chains(list(chains), self.device, self.dtype)
         if block_seconds == "auto" or overlap_seconds == "auto":
             # one feed geometry serves every bank: the widest auto choice
             geos = [bank_mod.bank_auto_geometry(b, sample_rate,
@@ -197,9 +189,17 @@ class StreamDecoder:
         span = (self.blocks_per_step - 1) * self.block_len + lin
         return self._audio_window(a0, span)
 
+    def _wire(self) -> torch.dtype:
+        """The device dtype of the carried samples: int16 feeds keep their
+        wire dtype; float ones (carried as float64) go up at the stream's
+        dtype."""
+        return (torch.int16 if self._audio.dtype == np.int16
+                else self.dtype)
+
     def _upload(self, samples: np.ndarray) -> torch.Tensor:
         if samples.dtype != np.int16:
-            samples = samples.astype(np.float32)
+            samples = samples.astype(
+                np.float64 if self.dtype == torch.float64 else np.float32)
         return upload(samples, self.device)
 
     def _submit_blocks(self, state: _BankState, first_block: int,
@@ -215,7 +215,7 @@ class StreamDecoder:
         lin = state.plan.block_input_len
         ext = lin - self.block_len
         warm = (state.tail is not None and state.tail_block == first_block
-                and state.tail.dtype == _WIRE.get(self._audio.dtype))
+                and state.tail.dtype == self._wire())
         if warm:
             tail = state.tail
             a0 = first_block * self.block_len - state.plan.front_pad
@@ -297,8 +297,8 @@ class StreamDecoder:
 
         Returns the newly decoded packets (globally addressed, block
         boundary repeats removed).  int16 chunks keep their wire dtype to
-        the card (int16 -> float32 there is exact); anything else is
-        carried as float64 and uploaded as float32."""
+        the card (int16 -> float32 or float64 there is exact); anything else
+        is carried as float64 and uploaded at the stream's dtype."""
         chunk = np.asarray(chunk)
         if chunk.dtype != np.int16:
             chunk = chunk.astype(np.float64)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K9) on the card, against their plain twins.
+"""The port's CUDA kernels (K1-K16) on the card, against their plain twins.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it also
 runs where JAX is not installed (the tests' conftest.py imports JAX, so run
@@ -150,9 +150,10 @@ def _special(x, seed):
 
 def _same_bits(got, want):
     """Equal bit for bit, except that any NaN equals any NaN."""
-    nan = torch.tensor(float("nan"), device=got.device)
-    return torch.equal(torch.where(got.isnan(), nan, got).view(torch.int32),
-                       torch.where(want.isnan(), nan, want).view(torch.int32))
+    nan = torch.tensor(float("nan"), dtype=got.dtype, device=got.device)
+    bits = torch.int64 if got.dtype == torch.float64 else torch.int32
+    return torch.equal(torch.where(got.isnan(), nan, got).view(bits),
+                       torch.where(want.isnan(), nan, want).view(bits))
 
 
 @pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
@@ -577,8 +578,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tsl.binary_slice_lanes(x.t().contiguous().t(), lp)
     with pytest.raises(ValueError, match="window"):
         tsl.binary_slice_lanes(x, lp, window=3)
+    # a float32 first rail is K7's: a float64 second rail or rows raise
     with pytest.raises(ValueError, match="float32"):
         tsl.quadrature_slice_lanes(x, x.double(), lp, (0, 0, 1, 1), 3, 1)
+    with pytest.raises(ValueError, match="float32"):
+        tsl.quadrature_slice_lanes(x, x, lp.double(), (0, 0, 1, 1), 3, 1)
+    with pytest.raises(ValueError, match="float32"):
+        tagc.agc_lanes(x, _rows(_AGC_ROWS, 8, cuda).double())
     with pytest.raises(ValueError, match="demap"):
         tsl.quadrature_slice_lanes(x, x, lp, (0, 0, 1, 1), 0xF, 1)
     with pytest.raises(ValueError, match="contiguous"):
@@ -598,6 +604,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         tloops.mpsk_loop_lanes(x, x, rows12, sine, cosine, tables[:1],
                                index.long())
+    with pytest.raises(ValueError, match="float32"):
+        tloops.mpsk_loop_lanes(x, x.double(), rows12, sine, cosine,
+                               tables[:1], index)
     with pytest.raises(ValueError, match="demap"):
         tsl.four_level_slice_lanes(x, lp, (2, 0, 3))
     with pytest.raises(ValueError, match="window"):
@@ -614,6 +623,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                  cosine)
     with pytest.raises(ValueError, match="NCO tables"):
         tloops.qpsk_costas_lanes(x, rows17, sine[:128], cosine)
+    with pytest.raises(ValueError, match="float32"):
+        tloops.qpsk_costas_lanes(x, rows17.double(), sine, cosine)
     from pymodem_tpu_torch.codecs import ax25_device as tax
 
     rows = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
@@ -913,7 +924,7 @@ def test_cli_after_a_device_side_fault(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the float64 parity mode's kernels K10-K12
+# the float64 parity mode's kernels K10-K16
 # ---------------------------------------------------------------------------
 
 
@@ -1010,27 +1021,187 @@ def test_coherent_loop_f64_kernel_matches_twin(cuda, kind, lanes, n_rows, T):
     assert torch.equal(got, want)
 
 
-def test_f64_wrappers_refuse_what_has_no_f64_kernel(cuda):
-    """Float64 on the card never gives way to an f32 kernel: K4-K7 refuse
-    float64 tensors."""
+def test_f64_wrappers_refuse_mixed_dtypes(cuda):
+    """Float64 on the card never gives way to an f32 kernel nor to a twin:
+    the wrappers of K13-K16 refuse float32 parameters or tables beside
+    float64 samples, and a float64 row beside a float32 one."""
     x = torch.zeros(2, 64, dtype=torch.float64, device=cuda)
-    tables = [torch.zeros(256, dtype=torch.float64, device=cuda)] * 2
-    with pytest.raises(ValueError):
-        tagc.agc_lanes(x, torch.zeros(5, 2, dtype=torch.float64,
-                                      device=cuda))
-    with pytest.raises(ValueError):
-        tloops.qpsk_costas_lanes(x, torch.zeros(17, 2, dtype=torch.float64,
-                                                device=cuda), *tables)
-    with pytest.raises(ValueError):
-        tsl.quadrature_slice_lanes(x, x, torch.ones(2, 2, dtype=torch.float64,
-                                                    device=cuda),
+    f32 = dict(dtype=torch.float32, device=cuda)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    tables = [torch.zeros(256, **f64)] * 2
+    with pytest.raises(ValueError, match="float64"):
+        tagc.agc_lanes(x, torch.zeros(5, 2, **f32))
+    with pytest.raises(ValueError, match="float64"):
+        tloops.qpsk_costas_lanes(x, torch.zeros(17, 2, **f32), *tables)
+    with pytest.raises(ValueError, match="float64"):
+        tloops.qpsk_costas_lanes(x, torch.zeros(12, 2, **f64),
+                                 tables[0].float(), tables[1])
+    pd = torch.zeros(1, 64 * 64, dtype=torch.int32, device=cuda)
+    index = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float64"):
+        tloops.mpsk_loop_lanes(x, x.float(), torch.zeros(12, 2, **f64),
+                               *tables, pd, index)
+    with pytest.raises(ValueError, match="int32"):
+        tloops.mpsk_loop_lanes(x, x, torch.zeros(12, 2, **f64), *tables,
+                               pd.long(), index)
+    with pytest.raises(ValueError, match="float64"):
+        tsl.quadrature_slice_lanes(x, x.float(), torch.ones(2, 2, **f64),
                                    (0, 1, 3, 2), 3, 2)
+    with pytest.raises(ValueError, match="float64"):
+        tsl.quadrature_slice_lanes(x, x, torch.ones(2, 2, **f32),
+                                   (0, 1, 3, 2), 3, 2)
+
+
+# the f64 PSK kernels K13-K16, on inputs around the presets at 44.1 kHz
+
+
+def _f64_psk_rows(values, L, device, vary=None):
+    return _rows(values, L, device, vary).double()
+
+
+def _f64_tables(device):
+    from pymodem_tpu_torch.dsp import window_design as wd
+
+    return tuple(torch.from_numpy(t).to(device) for t in
+                 tloops.f64_nco_tables(wd.nco_wavetable(256, 1.0)))
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+@pytest.mark.parametrize("rows", ["as_they_are", "strided", "special"])
+@pytest.mark.parametrize("lanes", [1, 45, 118])
+def test_agc_f64_kernel_matches_twin(cuda, lanes, rows, T):
+    """K13 equals the f64 twin bitwise (NaN, -0.0 and zero samples too);
+    agc_lanes routes float64 to it, never to K4; rows a view of wider
+    rows are taken as they lie."""
+    x = _carrier(3, lanes, T, cuda).double() * 7.0
+    if rows == "special" and lanes >= 6:
+        x = _special(x, 31)
+    if rows == "strided":
+        wide = x.new_zeros((lanes, T + 5))
+        wide[:, :T] = x
+        x = wide[:, :T]
+    lp = _f64_psk_rows(_AGC_ROWS, lanes, cuda)
+    k4, k13 = tagc.agc_lanes.launches, tagc.agc_f64_lanes.launches
+    got = tagc.agc_lanes(x, lp)
+    want = tagc.agc_follower(x, lp)
+    torch.cuda.synchronize()
+    assert tagc.agc_lanes.launches == k4
+    assert tagc.agc_f64_lanes.launches == k13 + 1
+    assert got.dtype == torch.float64 and got.shape == (lanes, T)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+@pytest.mark.parametrize("chains", [0, 1, 8],
+                         ids=["identity", "shared_1", "shared_8"])
+@pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
+def test_qpsk_costas_f64_kernel_matches_twin(cuda, n_rows, chains, T):
+    """K14 in both row forms, on lanes of their own rows or C chains of 37
+    lanes on 37 shared rows (``row_of_lane``): bitwise equal to the f64
+    twin; qpsk_costas_lanes routes float64 to it, never to K5."""
+    n_in = 200 if chains == 0 else 37
+    L = 200 if chains == 0 else 37 * chains
+    re, _ = _carrier(9, n_in, T, cuda, iq=True)
+    x = (re * 3.0).double().contiguous()
+    row_of_lane = None if chains == 0 else torch.arange(
+        n_in, dtype=torch.int32, device=cuda).repeat(chains)
+    lp = _f64_psk_rows((_QPSK_ROWS + _AGC_ROWS)[:n_rows], L, cuda, vary=1)
+    tables = _f64_tables(cuda)
+    k5 = tloops.qpsk_costas_lanes.launches
+    k14 = tloops.qpsk_costas_f64_lanes.launches
+    got = tloops.qpsk_costas_lanes(x, lp, *tables, row_of_lane)
+    want = tloops.qpsk_costas(x, lp, *tables, row_of_lane)
+    torch.cuda.synchronize()
+    assert tloops.qpsk_costas_lanes.launches == k5
+    assert tloops.qpsk_costas_f64_lanes.launches == k14 + 1
+    for g, w in zip(got, want):
+        assert g.shape == (L, T) and g.dtype == torch.float64
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
+def test_qpsk_costas_f64_kernel_special_rows(cuda, n_rows):
+    """Zero, -0.0 and NaN samples: K14 and its twin agree bit for bit (a
+    NaN takes the sign -1, as the twin's compare gives it)."""
+    re, _ = _carrier(10, 100, 1000, cuda, iq=True)
+    x = _special(re * 3.0, 18).double()
+    lp = _f64_psk_rows((_QPSK_ROWS + _AGC_ROWS)[:n_rows], 100, cuda, vary=1)
+    tables = _f64_tables(cuda)
+    got = tloops.qpsk_costas_lanes(x, lp, *tables)
+    want = tloops.qpsk_costas(x, lp, *tables)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same_bits(g, w)
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+@pytest.mark.parametrize("rows", ["identity", "shared"])
+@pytest.mark.parametrize("n_gains", [1, 2, 24],
+                         ids=["1_gain", "2_gains", "24_gains"])
+def test_mpsk_loop_f64_kernel_matches_twin(cuda, n_gains, rows, T):
+    """K15 on lanes of one or several detector tables (the reference's
+    qpsk_error_table; 24 tables of 16 KB pass the shared-memory cap and
+    stay in device memory), on their own rows or rows shared by 8 chains:
+    bitwise equal to the f64 twin; mpsk_loop_lanes routes float64 to it,
+    never to K6."""
+    from pymodem_tpu_torch.dsp import window_design as wd
+
+    L = 200
+    re, im, lp, _, index, row_of_lane = _mpsk_inputs(
+        L, T, n_gains, rows == "shared", cuda)
+    re, im, lp = re.double(), im.double(), lp.double()
+    tables = torch.from_numpy(np.stack([
+        wd.qpsk_error_table(64, 8.0 + 2.0 * k).astype(np.int32).reshape(-1)
+        for k in range(n_gains)])).to(cuda)
+    k6 = tloops.mpsk_loop_lanes.launches
+    k15 = tloops.mpsk_loop_f64_lanes.launches
+    got = tloops.mpsk_loop_lanes(re, im, lp, *_f64_tables(cuda), tables,
+                                 index, row_of_lane)
+    want = tloops.mpsk_loop(re, im, lp, *_f64_tables(cuda), tables, index,
+                            row_of_lane)
+    torch.cuda.synchronize()
+    assert tloops.mpsk_loop_lanes.launches == k6
+    assert tloops.mpsk_loop_f64_lanes.launches == k15 + 1
+    for g, w in zip(got, want):
+        assert g.shape == (L, T) and g.dtype == torch.float64
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("T", [3000, 3 * 128 + 5])
+@pytest.mark.parametrize("window", [1, 8, 32, 256])
+@pytest.mark.parametrize("bps", [1, 2])
+@pytest.mark.parametrize("rows", ["as_they_are", "strided"])
+def test_quadrature_slicer_f64_kernel_matches_twin(cuda, rows, bps, window,
+                                                   T):
+    """K16 on 300 lanes (not a multiple of 32), rows as they are or a view
+    of wider rows: bitwise equal to the f64 twin (and the twin on the
+    CPU); quadrature_slice_lanes routes float64 to it, never to K7."""
+    i_l, lp = _f64_rows(300, rows, T, cuda)
+    q_l, _ = _lanes(7, 300, T, cuda)
+    if rows == "strided":
+        wide = i_l.new_zeros((300, T + 5))
+        wide[:, :T] = q_l.double()
+        q_l = wide[:, :T]
+    else:
+        q_l = q_l.double()
+    demap, mask = _quad_demap(bps)
+    k7 = tsl.quadrature_slice_lanes.launches
+    k16 = tsl.quadrature_slice_f64_lanes.launches
+    got = tsl.quadrature_slice_lanes(i_l, q_l, lp, demap, mask, bps, window)
+    want = tsl.quadrature_slice(i_l, q_l, lp, demap, mask, bps, window)
+    torch.cuda.synchronize()
+    assert tsl.quadrature_slice_lanes.launches == k7
+    assert tsl.quadrature_slice_f64_lanes.launches == k16 + 1
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), tsl.quadrature_slice(
+        i_l.cpu(), q_l.cpu(), lp.cpu(), demap, mask, bps, window))
+    assert bool(((got & 0x100) != 0).any())
 
 
 def test_f64_run_plan_on_the_card_matches_cpu(cuda):
     """A small f64 run_plan on the card (K11, K10, the FIRs as float64
     DGEMMs) gives the same packets and report as on the CPU (the twins,
-    conv1d); a qpsk chain at f64 on the card is refused."""
+    conv1d)."""
     from pymodem_tpu_torch.config import ReportSpec, RunPlan
     from pymodem_tpu_torch.runtime import executor
 

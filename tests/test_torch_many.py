@@ -6,7 +6,9 @@ different lengths, both codec routes, a coherent bank and an AX.25 bank):
 packets (payload, CRC, stream address, corrections) and report text equal
 to the JAX package's counterparts on the same synthesized audio, float32,
 the same explicit block geometry on both sides; the pipelined entry points
-also equal the port's own per-recording runs.  The port runs its kernels'
+also equal the port's own per-recording runs.  At float64 (the parity
+mode, by argument and by ``PYMODEM_TPU_TORCH_X64``) each of the four
+entry points equals the JAX package's at x64.  The port runs its kernels'
 plain twins here.
 """
 
@@ -16,6 +18,7 @@ from dataclasses import replace
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from pymodem_tpu.config import build_chain_spec as jbuild_chain_spec
 from pymodem_tpu.ops.crc import np_crc16
@@ -25,6 +28,7 @@ from pymodem_tpu_torch.config import (
     RunPlan,
     build_chain_spec,
 )
+from pymodem_tpu_torch.mode import X64_VAR
 from pymodem_tpu_torch.runtime import bank as tbank
 from pymodem_tpu_torch.synth import fixtures as tfx
 from pymodem_tpu_torch.synth import modulate as tmod
@@ -230,3 +234,75 @@ def test_run_banked_files_coherent_bank_in_one_pass(monkeypatch):
     assert n_afsk > 1
     for fi, (g, w) in enumerate(zip(got, _jax_files("device"))):
         assert _packets(g) == _packets(w), fi
+
+
+# ---------------------------------------------------------------------------
+# float64, the parity mode
+# ---------------------------------------------------------------------------
+
+
+def _every_frame(by_name, sent, chains):
+    for chain in chains:
+        assert [bytes(p.data[16:-2]) for p in by_name[chain.name]] == sent
+
+
+def test_run_banked_many_f64_matches_jax():
+    """run_banked_many at ``dtype=float64`` over two recordings: packets
+    equal to the JAX package's at x64, every chain every frame."""
+    audios = [x for _, x in RECORDINGS[:2]]
+    got = tbank.run_banked_many(A, audios, depth=1, device="cpu",
+                                dtype=torch.float64, **GEOM)
+    want = jbank.run_banked_many(JA, audios, depth=1, dtype=jnp.float64,
+                                 **GEOM)
+    assert [_packets(g) for g in got] == [_packets(w) for w in want]
+    for g, (sent, _) in zip(got, RECORDINGS):
+        _every_frame(g, sent, A)
+
+
+def test_run_plan_banked_many_f64_by_the_mode_matches_jax(monkeypatch):
+    """run_plan_banked_many under PYMODEM_TPU_TORCH_X64 (dtype None):
+    reports equal to the JAX package's at x64."""
+    monkeypatch.setenv(X64_VAR, "1")
+    plan = RunPlan(chains=tuple(A), reports=REPORTS)
+    audios = [x for _, x in RECORDINGS[:2]]
+    got = tbank.run_plan_banked_many(plan, audios, RATE, depth=2,
+                                     resilient=False, device="cpu", **GEOM)
+    want = jbank.run_plan_banked_many(_jax_plan(plan), audios, RATE, depth=2,
+                                      dtype=jnp.float64, resilient=False,
+                                      **GEOM)
+    assert [r.reports for r in got] == [r.reports for r in want]
+    for r, (sent, _) in zip(got, RECORDINGS):
+        assert f"Unique, valid packets:  {len(sent)}\n" in r.reports[0]
+
+
+def test_run_plans_banked_pipelined_f64_matches_jax():
+    """run_plans_banked_pipelined at ``dtype=float64`` over two configs:
+    reports equal to the JAX package's at x64."""
+    plan_a = RunPlan(chains=tuple(A), reports=REPORTS)
+    plan_b = RunPlan(chains=tuple(B), reports=REPORTS[:1])
+    jobs = [(plan_a, RECORDINGS[0][1], RATE), (plan_b, AX25_REC[1], RATE)]
+    got = tbank.run_plans_banked_pipelined(jobs, depth=1, device="cpu",
+                                           dtype=torch.float64, **GEOM)
+    want = jbank.run_plans_banked_pipelined(
+        [(_jax_plan(p), x, r) for p, x, r in jobs], depth=1,
+        dtype=jnp.float64, **GEOM)
+    assert [r.reports for r in got] == [r.reports for r in want]
+    for r, sent in zip(got, (RECORDINGS[0][0], AX25_REC[0])):
+        assert f"Unique, valid packets:  {len(sent)}\n" in r.reports[0]
+
+
+def test_run_banked_files_f64_by_the_mode_matches_jax(monkeypatch):
+    """run_banked_files under PYMODEM_TPU_TORCH_X64 (dtype None), a
+    coherent BPSK bank and an AX.25 correlator bank over three files:
+    packets equal to the JAX package's batched run at x64, every file
+    decoding every frame."""
+    monkeypatch.setenv(X64_VAR, "1")
+    audios = [x for _, x in FILES]
+    got = tbank.run_banked_files([A[0], B[0]], audios, device="cpu", **GEOM)
+    want = jbank.run_banked_files([JA[0], JB[0]], audios,
+                                  dtype=jnp.float64, **GEOM)
+    assert [_packets(g) for g in got] == [_packets(w) for w in want]
+    for fi, g in enumerate(got):
+        decoded = sorted(bytes(p.data[16:-2]) for pkts in g.values()
+                         for p in pkts)
+        assert decoded == sorted(FILES[fi][0]), fi

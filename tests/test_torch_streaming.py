@@ -7,9 +7,10 @@ stream address, corrections), ``state()`` JSON equal at the same feed,
 checkpoints restored across packages and from the version 1 and 2 forms,
 mixed int16/float feeds, the device-resident tail's warm steps, the
 retained-audio bound, a failed collect and its retry, the host codec
-route against the device codec route on a mixed AX.25/IL2P bank, and
+route against the device codec route on a mixed AX.25/IL2P bank,
 ``block0`` in the device codec's packet build against the JAX package's
-on the same arrays.  The stream against the port's one-shot
+on the same arrays, and the float64 parity mode's stream against the JAX
+package's f64 stream.  The stream against the port's one-shot
 ``run_banked``: the correlator chain exactly, the PLL chain by the JAX
 package's rule (its AGC normalises per step group in a stream).
 
@@ -513,9 +514,37 @@ def test_overlapped_frames_equal_frame_blocks():
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, np.float64, "float64"])
-def test_float64_raises(dtype):
-    with pytest.raises(ValueError, match="float64 parity mode"):
-        StreamDecoder(CORR, RATE, dtype=dtype, device="cpu", **GEOM)
+def test_float64_stream(dtype):
+    """Each spelling of float64 gives a float64 stream (its banks, their
+    leaves and the uploads of a float feed); a dtype the decode does not
+    run still raises."""
+    dec = StreamDecoder(CORR, RATE, dtype=dtype, device="cpu", **GEOM)
+    assert dec.dtype == torch.float64
+    assert all(st.bank.dtype == torch.float64 for st in dec._banks)
+    assert dec._upload(np.zeros(3)).dtype == torch.float64
+    with pytest.raises(ValueError, match="float32 or float64"):
+        StreamDecoder(CORR, RATE, dtype="float16", device="cpu", **GEOM)
+
+
+def test_f64_stream_matches_jax():
+    """An f64 stream (a float feed, carried and uploaded as float64) of
+    both chains against the JAX package's f64 stream on the same chunks:
+    packets equal, every chain every frame, and ``state()`` equal JSON at
+    the same feed (a float64 audio tail)."""
+    chunks = _chunks(AUDIO.astype(np.float64), 80_000)
+    run = _stream(lambda: StreamDecoder(BOTH, RATE, dtype=torch.float64,
+                                        device="cpu", blocks_per_step=BPS,
+                                        **GEOM), chunks, snap_at=1)
+    jrun = _stream(lambda: JStream(JBOTH, RATE, dtype=jnp.float64,
+                                   blocks_per_step=BPS, **GEOM), chunks,
+                   snap_at=1)
+    assert _pk(run.out) == _pk(jrun.out)
+    assert _by_chain(run.dec.packets()) == _by_chain(jrun.dec.packets())
+    for chain in BOTH:
+        assert [bytes(p.data[16:-2])
+                for p in run.dec.packets()[chain.name]] == SENT
+    assert run.snap is not None and run.snap == jrun.snap
+    assert json.loads(run.snap)["audio_tail"]["dtype"] == "float64"
 
 
 def test_stream_defaults_to_the_card():

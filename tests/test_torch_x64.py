@@ -4,26 +4,37 @@ The JAX side runs with ``jax_enable_x64`` on (tests/conftest.py) and
 ``dtype=jnp.float64``, its reference-parity mode; the port runs
 ``dtype=torch.float64`` on the CPU, through the plain twins of its f64
 kernels (K10 binary slicer, K11 AGC + AFSK PLL / BPSK Costas loop, K12
-four-level slicer), whose bitwise equality with the kernels is held on
+four-level slicer, K13 AGC, K14 QPSK Costas loop, K15 MPSK loop, K16
+quadrature slicer), whose bitwise equality with the kernels is held on
 the card (tests/test_torch_cuda.py, chip_smoke.py):
 
 * the sequential executor (the mode's default route): packets and report
-  text equal to the JAX package's ``run_plan`` for the ``afsk``,
-  ``afsk_pll``, ``bpsk``, ``fsk`` (binary slicer) and 4FSK families;
-* the banked runtime: ``run_plan_banked(dtype=float64)`` on a 3-chain
-  AFSK space-gain sweep (demodulated per chain at f64, no ``space_scale``
-  row) and the PLL pair (``pre_shared``), packets and report text equal;
+  text equal to the JAX package's ``run_plan`` for every family: ``afsk``,
+  ``afsk_pll``, ``bpsk``, ``fsk`` (binary slicer), 4FSK, ``qpsk`` (Costas
+  QPSK-2400) and ``mpsk`` (QPSK-2400 and BPSK-1200);
+* the banked runtime: the f64 bank's leaves equal the JAX package's
+  (an AFSK space-gain sweep, the PLL pair, pre-shared ``qpsk`` and
+  ``mpsk`` sweeps); ``run_plan_banked(dtype=float64)`` on a 3-chain AFSK
+  space-gain sweep (demodulated per chain at f64, no ``space_scale`` row)
+  with the PLL pair (``pre_shared``), on a Costas ``qpsk`` pair and on an
+  ``mpsk`` pair: packets and report text equal;
 * the FIRs at f64 against the JAX package's ``direct`` engine, to 1e-12
   of the peak (the CPU's ``conv1d``, and the banded DGEMM engine the card
   runs at f64);
 * the slicers' twins at f64 against the JAX f64 scans, compacted, bitwise;
-* the CLI under ``PYMODEM_TPU_TORCH_X64=1`` and ``PYMODEM_TPU_X64=1``;
-* what is not yet ported at f64 raises: a ``qpsk`` or ``mpsk`` chain on
-  the card, the multi-recording entry points and the stream.
+  the loops' and the AGC's twins against the JAX f64 scans;
+* on a device that is not the CPU every family's f64 demod and slicer
+  reach the f64 kernels' entry points (none of the f32 kernels'), and the
+  multi-recording entry points and the stream run at f64 by argument and
+  by the mode (their results against JAX's: tests/test_torch_many.py,
+  tests/test_torch_streaming.py);
+* the CLI under ``PYMODEM_TPU_TORCH_X64=1`` and ``PYMODEM_TPU_X64=1``,
+  one-at-a-time and (with the banked runtime) its batch route.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 from dataclasses import replace
@@ -41,7 +52,9 @@ from pymodem_tpu.ops import slicers as jsl
 from pymodem_tpu.ops.crc import np_crc16
 from pymodem_tpu.runtime import bank as jbank
 from pymodem_tpu.runtime import executor as jexecutor
+from pymodem_tpu_torch import _ext
 from pymodem_tpu_torch import cli as tcli
+from pymodem_tpu_torch import config as tconfig
 from pymodem_tpu_torch import modems as tmodems
 from pymodem_tpu_torch.config import ReportSpec, RunPlan, build_chain_spec
 from pymodem_tpu_torch.convert import bank_params_from_jax
@@ -84,6 +97,13 @@ FAMILIES = {
     "fsk9600": (_line("fsk", "9600", "binary", "9600", "0x63003"),
                 96000.0),
     "fsk4_9600": (_line("fsk", "4800", "4level", "4800", "0x1"), 48000.0),
+    "qpsk2400_costas": (_line("qpsk", "2400", "quadrature", "qpsk_2400",
+                              "0x1"), 44100.0),
+    "mpsk_qpsk2400": (_line("mpsk", "qpsk_2400", "quadrature", "qpsk_2400",
+                            "0x1"), 44100.0),
+    # at 16 kHz, as the f32 PSK tests run it: the twins step in Python
+    "mpsk_bpsk1200": (_line("mpsk", "bpsk_1200", "quadrature", "bpsk_1200"),
+                      16000.0),
 }
 _AUDIO: dict = {}
 
@@ -165,6 +185,7 @@ def test_f64_without_a_gpu_raises():
 
 BANK_RATE = 8000.0
 GEOM = dict(block_seconds=2.0, overlap_seconds=2.5)
+PSK_GEOM = dict(block_seconds=1.5, overlap_seconds=1.5)
 
 
 def _sweep(build):
@@ -185,7 +206,38 @@ def _pair(build):
             for inv in ("no", "yes")]
 
 
+def _carrier_sweep(build, modem, preset, carrier):
+    """A 2-chain carrier sweep of a PSK preset at 8 kHz, 0.25 Hz apart
+    (pre-shared: one band-pass for both chains)."""
+    base = build(BANK_RATE, _line(modem, preset, "quadrature", "qpsk_2400",
+                                  "0x1", name=f"{modem} {preset}"))
+    return [replace(base, name=f"{modem}{i}",
+                    modem=replace(base.modem,
+                                  carrier_freq=carrier + 0.25 * i),
+                    codec=replace(base.codec, ident=f"{modem}{i}"))
+            for i in range(2)]
+
+
+def _mpsk_pair(build):
+    """The smoke run's ``mpsk_bpsk1200_pair`` cut to 16 kHz: two MPSK
+    BPSK-1200 chains that the AGC attack (500, 400) keeps apart."""
+    base = build(MPSK_PAIR_RATE, _line("mpsk", "bpsk_1200", "quadrature",
+                                       "bpsk_1200", name="mb500"))
+    return [base, replace(base, name="mb400", modem=replace(
+        base.modem, agc=replace(base.modem.agc, attack_rate=400.0)),
+        codec=replace(base.codec, ident="mb400"))]
+
+
+MPSK_PAIR_RATE = 16000.0
 SWEEP, PAIR = _sweep(build_chain_spec), _pair(build_chain_spec)
+# the PSK banks: their builders, given build_chain_spec, and rates
+PSK_BANKS = {
+    "qpsk_sweep": (lambda b: _carrier_sweep(b, "qpsk", "2400", 1800.0),
+                   BANK_RATE),
+    "mpsk_sweep": (lambda b: _carrier_sweep(b, "mpsk", "qpsk_2400", 1500.0),
+                   BANK_RATE),
+    "mpsk_pair": (_mpsk_pair, MPSK_PAIR_RATE),
+}
 
 
 def _bank_audio():
@@ -206,13 +258,16 @@ def _flat(tree, prefix=""):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("which", ["sweep", "pll_pair"])
+@pytest.mark.parametrize("which", ["sweep", "pll_pair", "qpsk_sweep",
+                                   "mpsk_sweep"])
 def test_group_chains_f64_matches_jax(which):
     """The f64 bank's leaves equal the JAX package's f64 bank leaf for
     leaf: float64, no space_scale row on the sweep, pre_shared on the
-    carrier pair; the NCO tables are the reference wavetable and its
+    carrier pair and the PSK sweeps (the mpsk sweep's detector table the
+    reference's); the NCO tables are the reference wavetable and its
     quarter-turn shift."""
-    make = _sweep if which == "sweep" else _pair
+    make = {"sweep": _sweep, "pll_pair": _pair}.get(which) or \
+        PSK_BANKS[which][0]
     chains = make(build_chain_spec)
     (jb,) = jbank.group_chains(make(jbuild_chain_spec), jnp.float64)
     (tb,) = tbank.group_chains(chains, "cpu", dtype=F64)
@@ -225,8 +280,13 @@ def test_group_chains_f64_matches_jax(which):
         assert torch.equal(got[key], want[key]), key
     assert "space_scale" not in tb.params
     assert got["sps/"].dtype == F64
-    assert ("pre_shared" in tb.params) == (which == "pll_pair")
-    if which == "pll_pair":
+    assert ("pre_shared" in tb.params) == (which != "sweep")
+    if which == "mpsk_sweep":
+        spec = chains[0].modem
+        table = wd.qpsk_error_table(int(spec.pd_granularity), spec.pd_gain)
+        assert np.array_equal(tb.params["pd_error_table"][0].numpy(),
+                              table.astype(np.int32).reshape(-1))
+    if which != "sweep":
         table = wd.nco_wavetable(256, 1.0)
         assert np.array_equal(tb.params["sine_table"].numpy(), table)
         assert np.array_equal(tb.params["cos_table"].numpy(),
@@ -259,6 +319,46 @@ def test_run_plan_banked_f64_matches_jax():
     for name in ("s1", PAIR[0].name):  # the audio's descrambler invert
         assert sorted(bytes(p.data[16:-2]) for p in by_chain[name]) == \
             sorted(sent), name
+
+
+_PSK_AUDIO: dict = {}
+
+
+def _psk_bank_audio(which):
+    """(payloads, int16 audio) of a PSK bank: 2 frames of 10 bytes, 300
+    idle bits apart, line-coded per its first chain."""
+    if which not in _PSK_AUDIO:
+        make, rate = PSK_BANKS[which]
+        sent, x = tfx.synthesize_for_chain(
+            make(build_chain_spec)[0], rate, np.random.default_rng(20261118),
+            n_frames=2, size=10, gap_bits=300)
+        _PSK_AUDIO[which] = (sent, tmod.to_int16(x))
+    return _PSK_AUDIO[which]
+
+
+@pytest.mark.parametrize("which", ["qpsk_sweep", "mpsk_pair"])
+def test_run_plan_banked_psk_f64_matches_jax(which):
+    """run_plan_banked at f64 on a pre-shared Costas ``qpsk`` pair (K14's
+    twin on shared rows, K16's) and on an ``mpsk`` pair the AGC keeps
+    apart (K13's twin over C*B lanes, per-chain Hilbert FIRs, K15's on the
+    reference's detector table): packets and report text equal to the JAX
+    package's at x64, every chain decoding every frame."""
+    make, rate = PSK_BANKS[which]
+    sent, x = _psk_bank_audio(which)
+    reports = (ReportSpec("decoded", style="decoded_headers"),)
+    chains = tuple(make(build_chain_spec))
+    want = jbank.run_plan_banked(
+        JRunPlan(chains=tuple(make(jbuild_chain_spec)), reports=reports), x,
+        rate, dtype=jnp.float64, resilient=False, **PSK_GEOM)
+    got = tbank.run_plan_banked(RunPlan(chains=chains, reports=reports), x,
+                                rate, resilient=False, device="cpu",
+                                dtype=F64, **PSK_GEOM)
+    assert _packets(got.aggregate.chains) == _packets(want.aggregate.chains)
+    assert got.reports == want.reports
+    assert f"Unique, valid packets:  {len(sent)}\n" in got.reports[0]
+    assert got.aggregate.count_bad() == 0
+    for chain in got.aggregate.chains:
+        assert sorted(bytes(p.data[16:-2]) for p in chain) == sorted(sent)
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +400,11 @@ def test_fir_f64_matches_jax_direct(n_taps, rng):
         _close(got[c], _direct(x[c], taps[c]))
 
 
+# the quadrature slicer presets' (demap, state_mask, bits_per_symbol)
+_QUAD = {name: (tuple(p["demap"]), p["state_mask"], p["bits_per_symbol"])
+         for name, p in tconfig._QUAD_SLICER_PRESETS.items()}
+
+
 def _slicer_input(rng, n_lanes, n):
     sps = 8000.0 / 300.0
     idx = (np.arange(n) / sps).astype(np.int64)
@@ -307,30 +412,39 @@ def _slicer_input(rng, n_lanes, n):
     return sym[:, idx] + 0.3 * rng.standard_normal((n_lanes, n)), sps
 
 
-@pytest.mark.parametrize("kind", ["binary", "4level"])
+@pytest.mark.parametrize("kind", ["binary", "4level", "quadrature"])
 def test_slicer_twins_f64_match_jax_scans(kind, rng):
-    """The twins of K10 and K12 at f64, compacted as the bank compacts
-    them (windowed emissions), equal the JAX f64 scans' compact_bytes
-    bitwise: bytes, addresses and counts."""
-    x, sps = _slicer_input(rng, 3, 6000)
+    """The twins of K10, K12 and K16 at f64, compacted as the bank
+    compacts them (windowed emissions), equal the JAX f64 scans'
+    compact_bytes bitwise: bytes, addresses and counts.  The quadrature
+    slicer runs the QPSK-2400 demap, state mask and 2 bits a decision."""
+    x, sps = _slicer_input(rng, 6 if kind == "quadrature" else 3, 6000)
     lock, demap = 0.75, (2, 0, 3, 1)
     bps = 1 if kind == "binary" else 2
     window = tsl.safe_compact_window(sps, lock, bps)
     rows = torch.tensor([[sps] * 3, [lock] * 3], dtype=F64)
     xt = torch.from_numpy(x)
+    quad = _QUAD["qpsk_2400"]
     if kind == "binary":
         enc = tsl.binary_slice_lanes(xt, rows, window)
-    else:
+    elif kind == "4level":
         enc = tsl.four_level_slice_lanes(xt, rows, demap, window)
+    else:
+        enc = tsl.quadrature_slice_lanes(xt[:3], xt[3:], rows, *quad,
+                                         window)
     cap = 512
     got = tsl.compact_windowed(enc, window, cap)
     for lane in range(3):
         xl = jnp.asarray(x[lane])
         if kind == "binary":
             out = jsl.binary_slice(xl, sps, lock)
-        else:
+        elif kind == "4level":
             out = jsl.four_level_slice(xl, sps, lock,
                                        jnp.asarray(demap, jnp.int32), 0.0)
+        else:
+            out = jsl.quadrature_slice(xl, jnp.asarray(x[3 + lane]), sps,
+                                       lock, jnp.asarray(quad[0], jnp.int32),
+                                       quad[1], quad[2])
         want = jsl.compact_bytes(out, cap, window)
         assert int(want[2]) > 10
         for g, w in zip(got, want):
@@ -358,6 +472,104 @@ def test_bpsk_twin_f64_matches_scan():
     got = tloops.bpsk_costas_lanes(x[None], rows.contiguous(),
                                    *tmodems.nco_tables("cpu", F64))[0]
     _close(got, want)
+
+
+def _psk_inputs(family, n=8000):
+    """(port spec, JAX spec, JAX params, JAX's f64 band-passed first n
+    samples of the family's executor audio, the same as a torch tensor)."""
+    from pymodem_tpu import modems as jmodems
+
+    line, rate = FAMILIES[family]
+    spec = build_chain_spec(rate, line).modem
+    jspec = jbuild_chain_spec(rate, line).modem
+    _, x16 = _audio(family)
+    jparams = jmodems.build_params(jspec)
+    filtered = jfir.fir_valid(jnp.asarray(x16[:n], jnp.float64),
+                              jnp.asarray(jparams.input_bpf), "direct")
+    return spec, jspec, jparams, filtered, torch.from_numpy(
+        np.array(filtered))
+
+
+def test_agc_twin_f64_matches_scan():
+    """K13's twin (``agc_follower``, through ``agc_lanes``) at f64 against
+    the JAX package's f64 ``agc_apply`` on the same band-passed MPSK
+    input: bitwise."""
+    from pymodem_tpu import modems as jmodems
+    from pymodem_tpu_torch.dsp import agc as tagc
+
+    spec, _, jparams, filtered, x = _psk_inputs("mpsk_qpsk2400")
+    want = np.asarray(jmodems._apply_agc(filtered, jparams.agc))
+    rows = tmodems.agc_rows(tmodems.build_params(spec).agc, x)
+    got = tagc.agc_lanes(x[None], rows.contiguous())[0]
+    assert got.dtype == F64
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_qpsk_twin_f64_matches_scan():
+    """K14's twin at f64 (the bank's form: 17 rows, the AGC fused) against
+    the JAX package's AGC then f64 ``qpsk_costas`` scan on the same
+    band-passed input: both rails to 1e-12 of the peak (XLA's CPU scan
+    contracts multiply-adds where the twin rounds each operation), and
+    the 12-row form on the leveled input equal to the 17-row form."""
+    from pymodem_tpu import modems as jmodems
+    from pymodem_tpu.dsp.loops import QPSKLoopParams
+
+    spec, jspec, jparams, filtered, x = _psk_inputs("qpsk2400_costas")
+    leveled = jmodems._apply_agc(filtered, jparams.agc)
+    bb0, ba1 = wd.iir1_lpf_coefs(spec.sample_rate, spec.branch_lpf_cutoff,
+                                 1.0)
+    want = jloops.qpsk_costas(leveled, QPSKLoopParams(
+        base=jmodems._loop_params(jspec, jnp.float64),
+        branch_b0=jnp.asarray(bb0, jnp.float64),
+        branch_a1=jnp.asarray(ba1, jnp.float64)))
+    # the loop's and branch IIR's 12 rows, then the AGC's over the JAX
+    # package's band-passed input
+    params = tmodems.build_params(spec)
+    _, rows = tmodems.coherent_loop_inputs(spec, params, torch.from_numpy(
+        _audio("qpsk2400_costas")[1][:8000].astype(np.float64)))
+    rows = torch.cat([rows[:12], tmodems.agc_rows(params.agc, x)]
+                     ).contiguous()
+    tables = tmodems.nco_tables("cpu", F64)
+    got = tloops.qpsk_costas_lanes(x[None], rows, *tables)
+    for g, w in zip(got, want):
+        _close(g[0], np.asarray(w))
+    alone = tloops.qpsk_costas_lanes(
+        torch.from_numpy(np.array(leveled))[None], rows[:12].contiguous(),
+        *tables)
+    for g, a in zip(got, alone):
+        assert torch.equal(g, a)
+
+
+def test_mpsk_twin_f64_matches_scan():
+    """K15's twin at f64 against the JAX package's f64 ``mpsk_loop`` (its
+    table detector, control rounded half to even) on the same analytic
+    input, the JAX package's own: both rails to 1e-12 of the peak (XLA's
+    CPU scan contracts multiply-adds), the detector table the reference's
+    ``qpsk_error_table``."""
+    from pymodem_tpu import modems as jmodems
+    from pymodem_tpu.dsp.loops import MPSKLoopParams
+
+    spec, jspec, jparams, filtered, _ = _psk_inputs("mpsk_qpsk2400")
+    leveled = jmodems._apply_agc(filtered, jparams.agc)
+    imag = jfir.fir_valid(leveled, jnp.asarray(jparams.hilbert), "direct")
+    d = jparams.hilbert_delay
+    real = leveled[d:-d]
+    want = jloops.mpsk_loop(real, imag, MPSKLoopParams(
+        base=jmodems._loop_params(jspec, jnp.float64),
+        pd_table=jnp.asarray(jparams.pd_table),
+        pd_granularity=jnp.asarray(jspec.pd_granularity, jnp.int32),
+        pd_gain=jnp.asarray(jspec.pd_gain, jnp.float64)))
+    _, _, rows, table, index = tmodems.mpsk_loop_inputs(
+        spec, tmodems.build_params(spec), torch.from_numpy(
+            np.zeros(4000, np.float64)))
+    assert np.array_equal(table[0].numpy(),
+                          np.asarray(jparams.pd_table).reshape(-1))
+    got = tloops.mpsk_loop_lanes(
+        torch.from_numpy(np.array(real))[None],
+        torch.from_numpy(np.array(imag))[None], rows,
+        *tmodems.nco_tables("cpu", F64), table, index)
+    for g, w in zip(got, want):
+        _close(g[0], np.asarray(w))
 
 
 # ---------------------------------------------------------------------------
@@ -413,42 +625,171 @@ def test_cli_x64_matches_jax(tmp_path):
     assert "banked runtime" not in port.stdout  # the sequential executor
 
 
+_JAX_BATCH = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+from pymodem_tpu.cli import run_decode_batch
+print(json.dumps(run_decode_batch(json.loads(sys.argv[1]))))
+"""
+
+
+def _strip(text: str) -> str:
+    return re.sub(r"Elapsed time.*\n?", "", text)
+
+
+def test_cli_batch_x64_banked_pipelines_as_jax(tmp_path, monkeypatch):
+    """``run_decode_batch`` under ``PYMODEM_TPU_TORCH_X64=1`` with
+    ``PYMODEM_TPU_TORCH_RUNTIME=banked`` pipelines the batch through
+    ``run_plans_banked_pipelined`` at f64 (one call, no one-at-a-time
+    fallback), and its outputs equal the JAX package's batch route under
+    ``PYMODEM_TPU_X64=1 PYMODEM_TPU_RUNTIME=banked``: two configs, every
+    frame decoded."""
+    from scipy.io import wavfile
+
+    requests, sent = [], []
+    for family in ("afsk300", "fsk9600"):
+        line, rate = FAMILIES[family]
+        frames, x = _audio(family)
+        wav, cfg = tmp_path / f"{family}.wav", tmp_path / f"{family}.json"
+        wavfile.write(str(wav), int(rate), x)
+        cfg.write_text("".join(json.dumps(d) + "\n" for d in (
+            line, {"object_name": "report", "object_type": "report",
+                   "options": {"style": "decoded_headers",
+                               "destination": "std_out"}})))
+        requests.append((str(cfg), str(wav)))
+        sent.append(frames)
+    monkeypatch.setenv(X64_VAR, "1")
+    monkeypatch.setenv("PYMODEM_TPU_TORCH_RUNTIME", "banked")
+    monkeypatch.setenv("PYMODEM_TPU_TORCH_DEVICE", "cpu")
+    calls = []
+    pipelined = tbank.run_plans_banked_pipelined
+
+    def spy(jobs, **kw):
+        calls.append((len(jobs), resolve_dtype(kw.get("dtype"))))
+        return pipelined(jobs, **kw)
+
+    monkeypatch.setattr(tbank, "run_plans_banked_pipelined", spy)
+    got = tcli.run_decode_batch(requests)
+    assert calls == [(2, F64)]
+    env = dict(os.environ, PYTHONPATH=REPO, PYMODEM_TPU_X64="1",
+               PYMODEM_TPU_RUNTIME="banked")
+    proc = subprocess.run([sys.executable, "-c", _JAX_BATCH,
+                           json.dumps(requests)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    want = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [(c, _strip(o)) for c, o in got] == \
+        [(c, _strip(o)) for c, o in want]
+    for (code, out), frames in zip(got, sent):
+        assert code == 0 and "banked runtime failed" not in out
+        assert f"Unique, valid packets:  {len(frames)}\n" in out
+
+
 # ---------------------------------------------------------------------------
-# not yet ported at f64
+# every family and entry point at f64
 # ---------------------------------------------------------------------------
 
-
-def test_f64_kernel_check_refuses_qpsk_and_mpsk_on_the_card():
-    """A plain function of the family, the dtype and the device type: a
-    qpsk or mpsk chain at f64 on a CUDA device raises, naming the chain,
-    its family and the kernels not yet ported at f64."""
-    for family, kernels in (("qpsk", "K5, K7"), ("mpsk", "K4, K6, K7")):
-        with pytest.raises(ValueError, match=kernels) as err:
-            tmodems.check_f64_kernels(family, F64, "cuda", "my chain")
-        assert "my chain" in str(err.value) and family in str(err.value)
-        tmodems.check_f64_kernels(family, F64, "cpu", "my chain")
-        tmodems.check_f64_kernels(family, torch.float32, "cuda", "x")
-    for family in ("afsk", "afsk_pll", "bpsk", "fsk"):
-        tmodems.check_f64_kernels(family, F64, "cuda", "x")
+# the C entry points of the f32 loop and slicer kernels (K1-K8)
+F32_ENTRIES = {"binary_slice_lanes", "afsk_pll_lanes", "bpsk_costas_lanes",
+               "agc_lanes", "qpsk_costas_lanes", "mpsk_loop_lanes",
+               "quadrature_slice_lanes", "four_level_slice_lanes"}
 
 
-def test_plans_with_unported_chains_raise_before_running():
-    """run_plan and run_plan_banked refuse a plan with a qpsk chain at f64
-    on the card before any chain runs (no resilient skip)."""
-    qpsk = build_chain_spec(44100.0, _line("qpsk", "2400", "quadrature",
-                                           "qpsk_2400", "0x1"))
-    plan = RunPlan(chains=(qpsk,), reports=REPORTS)
-    x = np.zeros(4410, np.int16)
-    with pytest.raises(ValueError, match="K5, K7"):
-        texecutor.run_plan(plan, x, 44100.0, device="cuda", dtype=F64)
-    with pytest.raises(ValueError, match="K5, K7"):
-        tbank.run_plan_banked(plan, x, 44100.0, device="cuda", dtype=F64)
+@pytest.fixture
+def launched(monkeypatch):
+    """The C entry points launched, by name, with the CUDA checks relaxed
+    to any device that is not the CPU: the kernels' routes run on ``meta``
+    tensors here, shapes and dtypes but no data, and nothing launches."""
+    names = []
+
+    def require(device, dtype, **tensors):
+        assert device.type != "cpu"
+        for name, t in tensors.items():
+            assert t.device == device and t.dtype == dtype, name
+
+    monkeypatch.setattr(_ext, "require", require)
+    monkeypatch.setattr(_ext, "require_rows", require)
+    monkeypatch.setattr(_ext, "launch",
+                        lambda name, device, argtypes, *args:
+                        names.append(name))
+    return names
 
 
-def test_multi_recording_entry_points_raise_at_f64(monkeypatch):
+def test_f64_tensors_off_the_cpu_reach_the_f64_kernels(launched):
+    """A float64 tensor on a device that is not the CPU goes from each
+    routed wrapper to its f64 kernel's entry point, never its twin nor an
+    f32 kernel: K13 from ``agc_lanes``, K14 from ``qpsk_costas_lanes``
+    (17 rows with the AGC fused, 12 without, on shared rows), K15 from
+    ``mpsk_loop_lanes``, K16 from ``quadrature_slice_lanes``, and the
+    results are float64 (the emissions int32) of the lanes' shapes."""
+    meta = torch.device("meta")
+    L, R, T = 6, 3, 50
+
+    def f64(*shape):
+        return torch.empty(shape, dtype=F64, device=meta)
+
+    rol = torch.empty(L, dtype=torch.int32, device=meta)
+    tabs = (f64(256), f64(256))
+    from pymodem_tpu_torch.dsp import agc as tagc
+
+    counters = (tagc.agc_f64_lanes, tloops.qpsk_costas_f64_lanes,
+                tloops.mpsk_loop_f64_lanes, tsl.quadrature_slice_f64_lanes)
+    before = [c.launches for c in counters]
+    assert tagc.agc_lanes(f64(L, T), f64(5, L)).shape == (L, T)
+    for n in (17, 12):
+        i, q = tloops.qpsk_costas_lanes(f64(R, T), f64(n, L), *tabs, rol)
+        assert i.dtype == q.dtype == F64 and i.shape == q.shape == (L, T)
+    re, im = tloops.mpsk_loop_lanes(
+        f64(R, T), f64(R, T), f64(12, L), *tabs,
+        torch.empty((1, 64 * 64), dtype=torch.int32, device=meta),
+        torch.empty(L, dtype=torch.int32, device=meta), rol)
+    assert re.dtype == F64 and re.shape == im.shape == (L, T)
+    enc = tsl.quadrature_slice_lanes(f64(L, T), f64(L, T), f64(2, L),
+                                     *_QUAD["qpsk_2400"], window=8)
+    assert enc.dtype == torch.int32 and enc.shape == (L, -(-T // 8))
+    assert launched == ["agc_f64_lanes", "qpsk_costas_f64_lanes",
+                        "qpsk_costas_f64_lanes", "mpsk_loop_f64_lanes",
+                        "quadrature_slice_f64_lanes"]
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 2, 1, 1]
+
+
+@pytest.mark.parametrize("family", ["qpsk2400_costas", "mpsk_qpsk2400",
+                                    "mpsk_bpsk1200"])
+def test_psk_chains_at_f64_run_their_f64_kernels(family, launched):
+    """The executor's whole-recording demod and slicer of a ``qpsk`` or
+    ``mpsk`` chain at f64 on a device that is not the CPU launch the f64
+    kernels and only those: K14 then K16 for the Costas chain, K13, K15
+    and K16 for the MPSK chains."""
+    line, rate = FAMILIES[family]
+    chain = build_chain_spec(rate, line)
+    audio = torch.empty(int(rate), dtype=F64, device="meta")
+    base = tmodems.demod(chain.modem, tmodems.build_params(chain.modem),
+                         audio)
+    sl = chain.slicer
+    tsl.quadrature_slice_lanes(
+        base[0][None], base[1][None],
+        texecutor.slicer_lane_params(sl, audio.device, F64), sl.demap,
+        sl.state_mask, sl.bits_per_symbol)
+    assert not F32_ENTRIES & set(launched)
+    assert launched == (
+        ["qpsk_costas_f64_lanes", "quadrature_slice_f64_lanes"]
+        if chain.modem.kind == "qpsk" else
+        ["agc_f64_lanes", "mpsk_loop_f64_lanes",
+         "quadrature_slice_f64_lanes"])
+
+
+class _Grouped(Exception):
+    """Raised by the spied ``group_chains`` once it has seen the dtype."""
+
+
+def test_multi_recording_entry_points_take_f64(monkeypatch):
     """run_banked_many, run_banked_files, run_plan_banked_many,
-    run_plans_banked_pipelined and the stream raise at f64, by argument
-    or by the mode, naming the entry point."""
+    run_plans_banked_pipelined and the stream build float64 banks at f64,
+    by argument and by the mode (None), and float32 banks otherwise.  The
+    spied ``group_chains`` stops each call there (their decodes against
+    the JAX package's: tests/test_torch_many.py,
+    tests/test_torch_streaming.py)."""
     x = np.zeros(800, np.int16)
     plan = RunPlan(chains=tuple(PAIR), reports=REPORTS)
     calls = {
@@ -457,19 +798,28 @@ def test_multi_recording_entry_points_raise_at_f64(monkeypatch):
         "run_banked_files": lambda **kw: tbank.run_banked_files(
             PAIR, [x], device="cpu", **kw),
         "run_plan_banked_many": lambda **kw: tbank.run_plan_banked_many(
-            plan, [x], BANK_RATE, device="cpu", **kw),
+            plan, [x], BANK_RATE, device="cpu", resilient=False, **kw),
         "run_plans_banked_pipelined":
             lambda **kw: tbank.run_plans_banked_pipelined(
                 [(plan, x, BANK_RATE)], device="cpu", **kw),
+        "StreamDecoder": lambda **kw: StreamDecoder(
+            PAIR, BANK_RATE, device="cpu", **kw),
     }
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match=f"{name}: the float64"):
-            call(dtype=F64)
-    with pytest.raises(ValueError, match="float64 parity mode"):
-        StreamDecoder(PAIR, BANK_RATE, dtype=F64, device="cpu")
-    monkeypatch.setenv(X64_VAR, "1")
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match=f"{name}: the float64"):
-            call()
-    with pytest.raises(ValueError, match="float64 parity mode"):
-        StreamDecoder(PAIR, BANK_RATE, device="cpu")
+    seen = []
+
+    def spy(chains, device="cuda", dtype=torch.float32):
+        seen.append(resolve_dtype(dtype))
+        raise _Grouped
+
+    monkeypatch.setattr(tbank, "group_chains", spy)
+    for how, kw, want in (("argument", dict(dtype=F64), F64),
+                          ("mode", {}, F64),
+                          ("float32", dict(dtype=torch.float32),
+                           torch.float32)):
+        if how == "mode":
+            monkeypatch.setenv(X64_VAR, "1")
+        for name, call in calls.items():
+            seen.clear()
+            with pytest.raises(_Grouped):
+                call(**kw)
+            assert seen == [want], (name, how)
