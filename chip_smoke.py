@@ -32,7 +32,11 @@ hand-written kernel (K1-K16) against its plain PyTorch twin:
   K10 binary slicer, K11 AGC + AFSK PLL / BPSK Costas loop, K12
   four-level slicer, K13 AGC, K14 QPSK Costas loop, K15 MPSK loop, K16
   quadrature slicer), its CLI, the synthesizer's round trip, and the
-  multi-recording front doors, the stream and the CLI batch at float64.
+  multi-recording front doors, the stream and the CLI batch at float64;
+* the sharded runtime (``runtime/sharded.run_banked_sharded`` over a
+  ('chain', 'time') DeviceMesh) on one rank and on two ranks sharing the
+  card, against ``run_banked`` (kernels K1, K2, K4, K6, K7, K9, K10 and
+  K11 again).
 
 Phases, each printing one line with its seconds:
 
@@ -198,7 +202,26 @@ Phases, each printing one line with its seconds:
     peak memory and chain-Msamples/s beside the f32 stream; the CLI's
     batch route under ``PYMODEM_TPU_TORCH_X64=1`` with
     ``PYMODEM_TPU_TORCH_RUNTIME=banked``: one pipelined call, outputs
-    equal to one-at-a-time runs.
+    equal to one-at-a-time runs;
+29. the sharded runtime on one rank, this process (NCCL, through a
+    ``file://`` store), mesh (1, 1): ``run_banked_sharded`` on ``sweep64``
+    and ``pll_sweep8`` over 600 s, a cold call, then SHARDED_WARM_RUNS
+    warm ones, the launch counters set to 0 just before the first and
+    read just after: packets equal to ``run_banked``'s on the card by
+    (address, bytes), K1 (and K2 on the PLL bank) launched, one packed
+    gather per codec sub-group and no sizing (``profiling`` counts); warm
+    walls, min / median / max, beside ``run_banked``'s;
+30. two ranks sharing the card over gloo, spawned by the port's launcher
+    (``sharded.spawn``; each rank loads the library phase 2 built), as
+    in 29 on every rank: mesh (2, 1) on ``sweep64`` and the dry run's
+    mixed IL2P/AX.25 bank (K1, K9; two codec sub-groups, a padded chain),
+    mesh (1, 2), the AGC's normal all-reduced over the time shards, on
+    ``pll_sweep8``, ``qpsk2400_sweep8`` (K4, K6, K7) and 60 s of the PLL
+    pair at float64 (K10, K11); every rank's packets equal, its uploaded
+    frame samples (counted) its blocks' rows, within n_audio / n_time +
+    blocks per shard x (overlap + trim) + block_len; walls and each
+    rank's peak memory; then
+    ``sharded.dryrun_multichip(2)``, its packets equal to ``run_banked``'s.
 
 Phases 17-22 and the CLI phases fail if any output holds "banked runtime
 failed" or "skipped chain" (the retry's messages), but phase 21's own.
@@ -283,6 +306,9 @@ SEED = 20261016
 # warm runs of each bank for its wall time: host-side walls vary from call
 # to call by 2x and more (PERF.md section 5)
 WARM_RUNS = 3
+# phases 29-30 time more warm runs, and print their spread: two processes
+# sharing the card vary more than one (PERF.md section 6)
+SHARDED_WARM_RUNS = 7
 # the H100 SXM's published peaks at its full 700 W:
 # HBM bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2569,6 +2595,287 @@ def _f64_front_doors(dev, smi, banks, afsk, wrappers) -> dict:
     return launches
 
 
+def _all_wrappers() -> dict:
+    """Every kernel wrapper by key (K1-K16); each counts its launches in
+    its ``launches`` attribute."""
+    from pymodem_tpu_torch.codecs.ax25_device import ax25_deframe_rows
+    from pymodem_tpu_torch.dsp.agc import agc_f64_lanes, agc_lanes
+    from pymodem_tpu_torch.dsp.loops import (
+        afsk_pll_lanes,
+        bpsk_costas_lanes,
+        coherent_loop_f64_lanes,
+        mpsk_loop_f64_lanes,
+        mpsk_loop_lanes,
+        qpsk_costas_f64_lanes,
+        qpsk_costas_lanes,
+    )
+    from pymodem_tpu_torch.ops.slicers import (
+        binary_slice_f64_lanes,
+        binary_slice_lanes,
+        four_level_slice_f64_lanes,
+        four_level_slice_lanes,
+        quadrature_slice_f64_lanes,
+        quadrature_slice_lanes,
+    )
+
+    return {
+        "K1": binary_slice_lanes, "K2": afsk_pll_lanes,
+        "K3": bpsk_costas_lanes, "K4": agc_lanes, "K5": qpsk_costas_lanes,
+        "K6": mpsk_loop_lanes, "K7": quadrature_slice_lanes,
+        "K8": four_level_slice_lanes, "K9": ax25_deframe_rows,
+        "K10": binary_slice_f64_lanes, "K11": coherent_loop_f64_lanes,
+        "K12": four_level_slice_f64_lanes, "K13": agc_f64_lanes,
+        "K14": qpsk_costas_f64_lanes, "K15": mpsk_loop_f64_lanes,
+        "K16": quadrature_slice_f64_lanes}
+
+
+# phases 29-30: the banks of the sharded runtime, and the kernels each
+# must launch on every shard
+SHARDED_KERNELS = {
+    "sweep64": {"K1"}, "pll_sweep8": {"K1", "K2"},
+    "qpsk2400_sweep8": {"K4", "K6", "K7"}, "pll_pair_f64": {"K10", "K11"},
+    "dryrun_mixed": {"K1", "K9"}}
+
+
+def _sharded_case(name):
+    """(chains, audio, run_banked keywords) of a phase 29-30 bank, made
+    from SEED, so that a spawned rank makes the same: the AFSK path's 600
+    s for ``sweep64`` and ``pll_sweep8``, the PSK path's for
+    ``qpsk2400_sweep8``, 60 s of whole segments of the AFSK path's
+    recording for the PLL pair at float64, and the sharded runtime's dry
+    run for its mixed IL2P/AX.25 bank."""
+    import torch
+
+    from pymodem_tpu_torch.runtime import sharded
+
+    if name == "dryrun_mixed":
+        chains, audio = sharded.dryrun_case()
+        kw = {k: v for k, v in sharded.DRYRUN_KW.items() if k != "codec"}
+        return chains, audio, kw
+    if name == "qpsk2400_sweep8":
+        chains = _psk_banks()[name]
+        _, audio, _, mps = _family_audio(chains[0], PSK_RATE)
+        return chains, audio, dict(max_packet_seconds=mps)
+    expected, audio = _audio()
+    kw = dict(max_packet_seconds=MAX_PACKET_SECONDS)
+    if name == "pll_pair_f64":
+        _, audio = _whole_segments(expected, audio,
+                                   len(audio) // (SECONDS // 30), RATE,
+                                   EXECUTOR_SECONDS)
+        return _banks()["pll_pair"], audio, dict(kw, dtype=torch.float64)
+    return _banks()[name], audio, kw
+
+
+def _sharded_rank(n_chain: int, n_time: int, names) -> dict:
+    """Phases 29-30 on one rank (of a spawned world, or this process's
+    own): on a (n_chain, n_time) mesh, each bank of ``names`` decoded cold
+    (its budgets) and then warm, the warm call with the launch counters
+    set to 0 before it and read after, and ``profiling`` counting it,
+    then SHARDED_WARM_RUNS - 1 more warm calls.  Returns per bank the
+    counted call's packets (address, bytes), counts (its frame samples
+    uploaded among them), launches and peak device memory, the bank's
+    block plans, and the warm walls in call order."""
+    import torch
+
+    from pymodem_tpu_torch import profiling
+    from pymodem_tpu_torch.runtime import bank as tbank
+    from pymodem_tpu_torch.runtime import sharded
+
+    mesh = sharded.make_mesh(n_chain, n_time)
+    wrappers = _all_wrappers()
+    out = {}
+    for name in names:
+        chains, audio, kw = _sharded_case(name)
+        sharded.run_banked_sharded(chains, audio, mesh, **kw)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        profiling.reset()
+        profiling.enable(True)
+        walls = []
+        t1 = time.time()
+        try:
+            got = sharded.run_banked_sharded(chains, audio, mesh, **kw)
+            torch.cuda.synchronize()
+        finally:
+            profiling.enable(False)
+        walls.append(time.time() - t1)
+        counts = profiling.counts()
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        for _ in range(SHARDED_WARM_RUNS - 1):
+            t1 = time.time()
+            sharded.run_banked_sharded(chains, audio, mesh, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t1)
+        plans = [tbank.bank_plan(
+            b, len(audio), kw.get("block_seconds", "auto"),
+            kw.get("overlap_seconds", "auto"), kw.get("max_packet_seconds"))
+            for b in tbank.group_chains(chains, "cpu", kw.get("dtype"))]
+        out[name] = dict(
+            packets=sharded.packet_rows(got),
+            walls=walls,
+            counts=counts,
+            launches=launches,
+            peak=torch.cuda.max_memory_allocated(),
+            plans=plans,
+            n_audio=len(audio))
+    return out
+
+
+def _spread(walls) -> str:
+    """'min / median / max' of warm walls, in seconds."""
+    w = sorted(walls)
+    return f"{w[0]:.3f} / {w[len(w) // 2]:.3f} / {w[-1]:.3f}"
+
+
+def _check_sharded(what, outs, n_time, want, subgroups, smi) -> dict:
+    """Hold every rank's warm run of each bank (``_sharded_rank``) against
+    ``run_banked`` on the same card, by (address, bytes): every rank's
+    packets equal, one packed gather per codec sub-group and no sizing,
+    each kernel of the bank's family launched and no block on the host
+    FSM, each rank's uploaded frames (the ``sharded_upload_samples``
+    count) its blocks' rows, within n_audio / n_time + blocks per shard x
+    (overlap + trim) + block_len samples.  Prints each bank's warm walls,
+    min / median / max, a call's wall the slower rank's, beside
+    ``run_banked``'s (``want``: {bank: (packets, its warm walls)}), and
+    peak memory by rank; returns the launches of every rank, summed."""
+    from pymodem_tpu_torch.runtime import sharded
+
+    launches: dict = {}
+    for name, (rows, base_walls) in want.items():
+        runs = [o[name] for o in outs]
+        for rank, run in enumerate(runs):
+            if run["packets"] != rows:
+                for chain in sorted(set(rows) | set(run["packets"])):
+                    a = set(run["packets"].get(chain, []))
+                    b = set(rows.get(chain, []))
+                    if a != b:
+                        print(f"  {what} {name} {chain}: sharded only "
+                              f"{sorted(a - b)[:3]}, run_banked only "
+                              f"{sorted(b - a)[:3]}")
+                raise AssertionError(f"{what} {name}: rank {rank}'s packets "
+                                     f"differ from run_banked's")
+            c = run["counts"]
+            if (c.get("sharded_codec_transfer", 0) != subgroups[name]
+                    or c.get("sharded_codec_sizing", 0)
+                    or c.get("sharded_candidate_budget", 0)
+                    or c.get("host_codec", 0)):
+                raise AssertionError(f"{what} {name} rank {rank}: warm call "
+                                     f"counts {c}, expected "
+                                     f"{subgroups[name]} gathers")
+            missed = SHARDED_KERNELS[name] - set(run["launches"])
+            if missed:
+                raise AssertionError(f"{what} {name} rank {rank} launched no "
+                                     f"{sorted(missed)}: {run['launches']}")
+            uploaded = c.get("sharded_upload_samples", 0)
+            rows_of = sum(sharded.blocks_per_shard(p, n_time)
+                          * p.block_input_len for p in run["plans"])
+            bound = sum(sharded.upload_bound(p, n_time)
+                        for p in run["plans"])
+            if uploaded != rows_of or uploaded > bound:
+                raise AssertionError(f"{what} {name} rank {rank}: uploaded "
+                                     f"{uploaded} frame samples, its blocks' "
+                                     f"rows {rows_of}, bound {bound}")
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        n_packets = sum(len(v) for v in rows.values())
+        walls = [max(w) for w in zip(*(r["walls"] for r in runs))]
+        print(f"{what} {name}: {n_packets} packets on every rank, equal to "
+              f"run_banked's; warm walls of {SHARDED_WARM_RUNS}, min / "
+              f"median / max, {_spread(walls)} s (run_banked "
+              f"{_spread(base_walls)} s); gathers {subgroups[name]}, sizing "
+              f"0; AGC all-reduces "
+              f"{runs[0]['counts'].get('sharded_agc_normal', 0)}; launches "
+              f"by rank {[r['launches'] for r in runs]}; frame samples a "
+              f"rank {runs[0]['counts'].get('sharded_upload_samples')} of "
+              f"{runs[0]['n_audio']} (bound "
+              f"{sum(sharded.upload_bound(p, n_time) for p in runs[0]['plans'])}"
+              f"); peak device memory by rank "
+              f"{[round(r['peak'] / 2**30, 3) for r in runs]} GiB [{smi}]")
+    return launches
+
+
+def _sharded_phases(dev, smi) -> dict:
+    """Phases 29-30, the sharded runtime (``runtime/sharded.py``) against
+    ``run_banked`` on the same card: 29 on one rank (this process, NCCL,
+    mesh (1, 1)); 30 on two ranks sharing the card over gloo, spawned by
+    the port's launcher (the chain axis, mesh (2, 1): ``sweep64`` and the
+    mixed IL2P/AX.25 bank; the time axis with the AGC all-reduce, mesh
+    (1, 2): ``pll_sweep8``, ``qpsk2400_sweep8`` and the PLL pair at
+    float64), then the dry run at 2 ranks.  Returns the launches of the
+    sharded runs, summed over ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from pymodem_tpu_torch.runtime import bank as tbank
+    from pymodem_tpu_torch.runtime import sharded
+
+    def baseline(names):
+        """{bank: (run_banked's packets, its SHARDED_WARM_RUNS warm
+        walls)} and {bank: codec sub-groups}."""
+        want, subgroups = {}, {}
+        for name in names:
+            chains, audio, kw = _sharded_case(name)
+            tbank.run_banked(chains, audio, device=dev, **kw)
+            walls = []
+            for _ in range(SHARDED_WARM_RUNS):
+                t1 = time.time()
+                rows = sharded.packet_rows(tbank.run_banked(
+                    chains, audio, device=dev, **kw))
+                torch.cuda.synchronize()
+                walls.append(time.time() - t1)
+            want[name] = (rows, walls)
+            subgroups[name] = sum(
+                len(tbank._codec_subgroups(b)) for b in
+                tbank.group_chains(chains, "cpu", kw.get("dtype")))
+        return want, subgroups
+
+    launches: dict = {}
+
+    def add(more):
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.time()
+    names = ("sweep64", "pll_sweep8")
+    want, subgroups = baseline(names)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(sharded.backend_for(1, "cuda"),
+                            init_method="file://" + os.path.join(tmp, "store"),
+                            world_size=1, rank=0, timeout=sharded.TIMEOUT)
+    try:
+        add(_check_sharded("mesh (1, 1), one rank, NCCL",
+                           [_sharded_rank(1, 1, names)], 1, want, subgroups,
+                           smi))
+    finally:
+        dist.destroy_process_group()
+    _phase(29, "sharded runtime, one rank (NCCL, mesh (1, 1))", t0)
+
+    t0 = time.time()
+    for mesh, names in (((2, 1), ("sweep64", "dryrun_mixed")),
+                        ((1, 2), ("pll_sweep8", "qpsk2400_sweep8",
+                                  "pll_pair_f64"))):
+        want, subgroups = baseline(names)
+        t1 = time.time()
+        outs = sharded.spawn(_sharded_rank, 2, "cuda", *mesh, names)
+        add(_check_sharded(f"mesh {mesh}, two ranks on one card (gloo)",
+                           outs, mesh[1], want, subgroups, smi))
+        print(f"mesh {mesh}: spawn and both calls of each bank "
+              f"{time.time() - t1:.3f} s")
+    t1 = time.time()
+    dry = sharded.dryrun_multichip(2, "cuda")
+    chains, audio, kw = _sharded_case("dryrun_mixed")
+    rows = sharded.packet_rows(tbank.run_banked(chains, audio, device=dev,
+                                                **kw))
+    if dry["first"] != rows:
+        raise AssertionError("the dry run's packets differ from run_banked's")
+    print(f"dry run at 2 ranks: packets equal to run_banked's "
+          f"({time.time() - t1:.3f} s) [{smi}]")
+    _phase(30, "sharded runtime, two ranks sharing the card (gloo)", t0)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2583,34 +2890,24 @@ def main() -> int:
     )
     from pymodem_tpu_torch.config import ReportSpec, RunPlan
     from pymodem_tpu_torch.device import resolve
-    from pymodem_tpu_torch.dsp.agc import (
-        agc_f64_lanes,
-        agc_follower,
-        agc_lanes,
-    )
+    from pymodem_tpu_torch.dsp.agc import agc_follower, agc_lanes
     from pymodem_tpu_torch.dsp.loops import (
         afsk_pll,
         afsk_pll_lanes,
         bpsk_costas,
         bpsk_costas_lanes,
-        coherent_loop_f64_lanes,
         mpsk_loop,
-        mpsk_loop_f64_lanes,
         mpsk_loop_lanes,
         mpsk_tables_staged,
         qpsk_costas,
-        qpsk_costas_f64_lanes,
         qpsk_costas_lanes,
     )
     from pymodem_tpu_torch.ops.slicers import (
         binary_slice,
-        binary_slice_f64_lanes,
         binary_slice_lanes,
         four_level_slice,
-        four_level_slice_f64_lanes,
         four_level_slice_lanes,
         quadrature_slice,
-        quadrature_slice_f64_lanes,
         quadrature_slice_lanes,
     )
     from pymodem_tpu_torch.runtime import bank as tbank
@@ -3375,15 +3672,7 @@ def main() -> int:
         {"K1": binary_slice_lanes, "K2": afsk_pll_lanes,
          "K9": ax25_deframe_rows})
     # 25-27. the float64 parity mode
-    every_wrapper = {
-        "K1": binary_slice_lanes, "K2": afsk_pll_lanes,
-        "K3": bpsk_costas_lanes, "K4": agc_lanes, "K5": qpsk_costas_lanes,
-        "K6": mpsk_loop_lanes, "K7": quadrature_slice_lanes,
-        "K8": four_level_slice_lanes, "K9": ax25_deframe_rows,
-        "K10": binary_slice_f64_lanes, "K11": coherent_loop_f64_lanes,
-        "K12": four_level_slice_f64_lanes, "K13": agc_f64_lanes,
-        "K14": qpsk_costas_f64_lanes, "K15": mpsk_loop_f64_lanes,
-        "K16": quadrature_slice_f64_lanes}
+    every_wrapper = _all_wrappers()
     f64_entries, _ = _f64_phases(
         dev, smi, banks, (expected, audio), psk, psk_audio, fsk_chains,
         fsk_audio, every_wrapper)
@@ -3394,6 +3683,11 @@ def main() -> int:
     for key, entry in f64_entries.items():
         entry["launches"] += f64_doors.get(key, 0)
     kernels.update(f64_entries)
+    # 29-30. the sharded runtime
+    sharded_launches = _sharded_phases(dev, smi)
+    for key, entry in f64_entries.items():
+        entry["launches"] += sharded_launches.get(key, 0)
+    paths.append(sharded_launches)
 
     for key, fn_count in (("K1", afsk_launches["K1"] + psk_launches["K1"]
                            + fsk_launches["K1"] + ax_launches["K1"]),

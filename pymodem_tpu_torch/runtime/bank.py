@@ -425,18 +425,24 @@ def afsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _input_bpf(params: dict, blocks: torch.Tensor):
+def _input_bpf(params: dict, blocks: torch.Tensor, normal_fn=None):
     """A coherent bank's input band-pass: ((C, B, L1) per-chain streams,
     (C,) AGC normals).  The ``normal`` is each chain's signed max over
     every block (agc.py:67); a ``pre_shared`` carrier sweep runs the FIR
-    once and broadcasts it, a view."""
+    once and broadcasts it, a view.  ``normal_fn`` maps the normals of
+    these blocks to the whole recording's: None (identity) on one device,
+    a MAX all-reduce over the time shards under ``runtime/sharded.py``."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
     if "pre_shared" in params:
         x1 = fir_valid_nd(blocks, m["input_bpf"][0])
-        return x1[None].expand(C, *x1.shape), x1.max().expand(C)
-    x = fir_valid_multi(blocks, m["input_bpf"])
-    return x, x.amax(dim=(1, 2))
+        x, normals = x1[None].expand(C, *x1.shape), x1.max().reshape(1)
+    else:
+        x = fir_valid_multi(blocks, m["input_bpf"])
+        normals = x.amax(dim=(1, 2))
+    if normal_fn is not None:
+        normals = normal_fn(normals)
+    return x, normals.expand(C)
 
 
 def _coherent_lane_params(params: dict, normals: torch.Tensor, C: int,
@@ -470,42 +476,49 @@ def _shared_rows(x: torch.Tensor, shared: bool):
     return rows.contiguous(), row_of_lane
 
 
-def coherent_loop_inputs(params: dict, blocks: torch.Tensor):
+def coherent_loop_inputs(params: dict, blocks: torch.Tensor,
+                         normal_fn=None):
     """(B, Lin) blocks -> the inputs of kernels K2, K3 and K5 for all C*B
     lanes: the band-passed input rows, the (15 or 17, C*B) lane rows and
-    each lane's input row (C*B,) int32 (``_shared_rows``)."""
-    x, normals = _input_bpf(params, blocks)
+    each lane's input row (C*B,) int32 (``_shared_rows``).  ``normal_fn``:
+    as ``_input_bpf``'s."""
+    x, normals = _input_bpf(params, blocks, normal_fn)
     C, B, _ = x.shape
     rows, row_of_lane = _shared_rows(x, "pre_shared" in params)
     return rows, _coherent_lane_params(params, normals, C, B), row_of_lane
 
 
-def afsk_pll_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
+def afsk_pll_bank_demod(params: dict, blocks: torch.Tensor,
+                        normal_fn=None) -> torch.Tensor:
     """(B, Lin) blocks -> (C, B, L2) AFSK-PLL basebands: band-pass FIR, then
     the AGC follower and the PLL as ONE pass of kernel K2 over all C*B
     lanes, then the per-chain output LPF."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks)
+    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks,
+                                                       normal_fn)
     demod = afsk_pll_lanes(x, lane_params, params["sine_table"],
                            row_of_lane)
     return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]),
                                m["output_lpf"])
 
 
-def bpsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
+def bpsk_bank_demod(params: dict, blocks: torch.Tensor,
+                    normal_fn=None) -> torch.Tensor:
     """(B, Lin) blocks -> (C, B, L2) BPSK basebands: band-pass FIR, then
     the AGC follower and the Costas loop as ONE pass of kernel K3 over all
     C*B lanes, then the per-chain RRC."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks)
+    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks,
+                                                       normal_fn)
     demod = bpsk_costas_lanes(x, lane_params, params["sine_table"],
                               params["cos_table"], row_of_lane)
     return fir_valid_per_chain(demod.reshape(C, -1, x.shape[-1]), m["rrc"])
 
 
-def qpsk_bank_demod(params: dict, blocks: torch.Tensor):
+def qpsk_bank_demod(params: dict, blocks: torch.Tensor,
+                    normal_fn=None):
     """(B, Lin) blocks -> the (i, q) Costas-QPSK basebands, each (C, B, L2):
     band-pass FIR, then the AGC follower and the Costas loop with its
     branch IIRs as ONE pass of kernel K5 over all C*B lanes, then the
@@ -514,7 +527,8 @@ def qpsk_bank_demod(params: dict, blocks: torch.Tensor):
     band-passed rows."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks)
+    x, lane_params, row_of_lane = coherent_loop_inputs(params, blocks,
+                                                       normal_fn)
     i_d, q_d = qpsk_costas_lanes(x, lane_params, params["sine_table"],
                                  params["cos_table"], row_of_lane)
     L1 = x.shape[-1]
@@ -535,13 +549,13 @@ def fsk_bank_demod(params: dict, blocks: torch.Tensor) -> torch.Tensor:
     return fir_valid_multi(blocks, taps)
 
 
-def mpsk_agc_inputs(params: dict, blocks: torch.Tensor):
+def mpsk_agc_inputs(params: dict, blocks: torch.Tensor, normal_fn=None):
     """(B, Lin) blocks -> the inputs of kernel K4 for an MPSK bank: the
     band-passed lanes and their (5, lanes) AGC rows.  A ``pre_shared``
     sweep hands over its B shared lanes with chain 0's AGC rows; any other
-    bank all C*B lanes."""
+    bank all C*B lanes.  ``normal_fn``: as ``_input_bpf``'s."""
     m = params["modem"]
-    x, normals = _input_bpf(params, blocks)
+    x, normals = _input_bpf(params, blocks, normal_fn)
     C, B, L1 = x.shape
     if "pre_shared" in params:
         agc0 = {k: v[:1] for k, v in m["agc"].items()}
@@ -551,7 +565,7 @@ def mpsk_agc_inputs(params: dict, blocks: torch.Tensor):
     return x.reshape(C * B, L1).contiguous(), rows.contiguous()
 
 
-def mpsk_analytic(params: dict, blocks: torch.Tensor):
+def mpsk_analytic(params: dict, blocks: torch.Tensor, normal_fn=None):
     """(B, Lin) blocks -> the MPSK analytic signal (real, imag), each
     (C, B, L2): band-pass FIR, the AGC follower (kernel K4), the Hilbert
     FIR for the imaginary rail and its delay for the real one
@@ -559,7 +573,7 @@ def mpsk_analytic(params: dict, blocks: torch.Tensor):
     once over its B shared lanes, then broadcasts."""
     m = params["modem"]
     C = m["input_bpf"].shape[0]
-    lanes, rows = mpsk_agc_inputs(params, blocks)
+    lanes, rows = mpsk_agc_inputs(params, blocks, normal_fn)
     B = blocks.shape[0]
     xa = agc_lanes(lanes, rows)
     delay = (m["hilbert"].shape[-1] - 1) // 2
@@ -574,7 +588,7 @@ def mpsk_analytic(params: dict, blocks: torch.Tensor):
     return real, imag
 
 
-def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
+def mpsk_loop_inputs(params: dict, blocks: torch.Tensor, normal_fn=None):
     """(B, Lin) blocks -> the inputs of kernel K6 for all C*B lanes: the
     analytic (real, imag) input rows, (12, C*B) lane rows (the loop's, then
     pd_gain and pd_granularity), the bank's distinct phase-detector tables
@@ -582,7 +596,7 @@ def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
     row (C*B,) int32.  A ``pre_shared`` sweep hands over its B shared rows
     once (lane c*B + b reads row b), not C copies of them; any other bank
     its C*B rows."""
-    real, imag = mpsk_analytic(params, blocks)
+    real, imag = mpsk_analytic(params, blocks, normal_fn)
     C, B, _ = real.shape
     shared = "pre_shared" in params
     real, row_of_lane = _shared_rows(real, shared)
@@ -602,7 +616,7 @@ def mpsk_loop_inputs(params: dict, blocks: torch.Tensor):
             pd_index.contiguous(), row_of_lane)
 
 
-def mpsk_bank_demod(params: dict, blocks: torch.Tensor):
+def mpsk_bank_demod(params: dict, blocks: torch.Tensor, normal_fn=None):
     """(B, Lin) blocks -> the (i, q) MPSK basebands, each (C, B, L3): the
     analytic signal, the carrier loop as ONE pass of kernel K6 over all C*B
     lanes (a pre-shared sweep's lanes reading its B shared rows), then the
@@ -610,7 +624,7 @@ def mpsk_bank_demod(params: dict, blocks: torch.Tensor):
     m = params["modem"]
     C = m["input_bpf"].shape[0]
     re, im, lane_params, tables, pd_index, row_of_lane = mpsk_loop_inputs(
-        params, blocks)
+        params, blocks, normal_fn)
     i_d, q_d = mpsk_loop_lanes(re, im, lane_params, params["sine_table"],
                                params["cos_table"], tables, pd_index,
                                row_of_lane)
@@ -624,10 +638,15 @@ _DEMODS = {"afsk": afsk_bank_demod, "afsk_pll": afsk_pll_bank_demod,
            "mpsk": mpsk_bank_demod, "fsk": fsk_bank_demod}
 
 
-def bank_basebands(bank: Bank, blocks: torch.Tensor):
+def bank_basebands(bank: Bank, blocks: torch.Tensor, normal_fn=None):
     """(B, Lin) frames at the bank's dtype -> (C, B, L2) demodulated
-    basebands, or an (i, q) pair of them for ``qpsk`` and ``mpsk``."""
-    return _DEMODS[bank.kind](bank.params, blocks)
+    basebands, or an (i, q) pair of them for ``qpsk`` and ``mpsk``.
+    ``normal_fn``: the AGC normal hook of the coherent families
+    (``_input_bpf``); the others have no AGC."""
+    demod = _DEMODS[bank.kind]
+    if bank.kind in _COHERENT_KINDS:
+        return demod(bank.params, blocks, normal_fn)
+    return demod(bank.params, blocks)
 
 
 def slicer_lane_params(bank: Bank, blocks_per_chain: int) -> torch.Tensor:
@@ -678,11 +697,12 @@ def slice_lanes(bank: Bank, basebands, window: int) -> torch.Tensor:
 
 
 def bank_frames_compute(bank: Bank, blocks: torch.Tensor, capacity: int,
-                        window: int, sync_tolerance: int):
+                        window: int, sync_tolerance: int, normal_fn=None):
     """(B, Lin) frames at the bank's dtype -> per-chain (C, B, cap)
     descrambled bytes (uint8), addresses (int32), counts (C, B) and the
-    packed IL2P sync candidate map (C, B, cap) uint8."""
-    enc = slice_lanes(bank, bank_basebands(bank, blocks), window)
+    packed IL2P sync candidate map (C, B, cap) uint8.  ``normal_fn``: as
+    ``bank_basebands``'."""
+    enc = slice_lanes(bank, bank_basebands(bank, blocks, normal_fn), window)
     if window > 1:
         data, addr, count = compact_windowed(enc, window, capacity)
     else:
@@ -905,14 +925,14 @@ def bank_capacity(bank: Bank, plan: BlockPlan) -> int:
 
 
 def _compute_groups(bank: Bank, frames: torch.Tensor, per_group: int,
-                    capacity: int, sync_tolerance: int):
+                    capacity: int, sync_tolerance: int, normal_fn=None):
     """bank_frames_compute over (N, Lin) wire-dtype frames, ``per_group``
     blocks a pass (cast to the bank's dtype), concatenated along the block
-    axis."""
+    axis.  Each pass takes its own AGC normal, through ``normal_fn``."""
     window = slicer_window(bank)
     outs = [
         bank_frames_compute(bank, frames[s : s + per_group].to(bank.dtype),
-                            capacity, window, sync_tolerance)
+                            capacity, window, sync_tolerance, normal_fn)
         for s in range(0, frames.shape[0], per_group)
     ]
     if len(outs) == 1:
@@ -939,16 +959,21 @@ def sync_tolerance(bank: Bank) -> int:
                 if c.codec.kind == "il2p"), default=0)
 
 
-def _audio_tensor(audio, device: torch.device,
-                  dtype=torch.float32) -> torch.Tensor:
-    """A recording on ``device`` in its wire dtype (int16 or float32; any
-    other dtype becomes ``dtype``, the decode's: float64 audio keeps its
-    precision in the parity mode, as in the JAX package)."""
+def _wire(audio, dtype=torch.float32) -> np.ndarray:
+    """A recording in its wire dtype (int16 or float32; any other dtype
+    becomes ``dtype``, the decode's: float64 audio keeps its precision in
+    the parity mode, as in the JAX package)."""
     wire = np.asarray(audio)
     if wire.dtype not in (np.int16, np.float32):
         wire = wire.astype(np.float64 if dtype == torch.float64
                            else np.float32)
-    return upload(wire, device)
+    return wire
+
+
+def _audio_tensor(audio, device: torch.device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """A recording on ``device`` in its wire dtype (``_wire``)."""
+    return upload(_wire(audio, dtype), device)
 
 
 def _check_codec(codec: str) -> None:
@@ -1238,23 +1263,26 @@ def bank_codec_step(codec_kind: str, data, addr, count, sync, plan: BlockPlan,
                     scan_cap: int = 64, rs_fail_frac: int | None = 2,
                     max_payload: int = 1023, min_packet_length: int = 18,
                     max_packet_length: int = 1023,
-                    keep_filter: bool = True) -> dict:
+                    keep_filter: bool = True, block0: int = 0) -> dict:
     """The device codec (``"il2p"`` or ``"ax25"``) over dispatch_bank
     outputs: (C, B, cap) byte streams -> fixed-capacity packet buffers
     (C, B, max_packets, ...).
 
     Absolute stream addresses are formed on the device (block b's demod
-    range starts at b*block_len - overlap).  With ``keep_filter`` each
-    block's keep window (plan.keep_range) applies on the device, so halo
-    duplicates never reach the packed readback (the host filter stays as
-    an idempotent guard); it needs ``plan`` to be the recording's own, so
-    a template plan (run_banked_files) leaves the filter to the host."""
+    range starts at b*block_len - overlap; the buffers' block 0 is the
+    recording's block ``block0``, a time shard's first block under
+    ``runtime/sharded.py``).  With ``keep_filter`` each block's keep
+    window (plan.keep_range) applies on the device, so halo duplicates
+    never reach the packed readback (the host filter stays as an
+    idempotent guard); it needs ``plan`` to be the recording's own, so a
+    template plan (run_banked_files) leaves the filter to the host."""
     from ..codecs.ax25_device import ax25_decode_blocks
     from ..codecs.il2p_device import il2p_decode_blocks
 
     n_blocks = data.shape[1]
-    offsets = (torch.arange(n_blocks, dtype=torch.int32, device=data.device)
-               * plan.block_len - plan.overlap)
+    blocks = torch.arange(block0, block0 + n_blocks, dtype=torch.int32,
+                          device=data.device)
+    offsets = blocks * plan.block_len - plan.overlap
     addr_abs = addr + offsets[None, :, None]
     if codec_kind == "il2p":
         out = il2p_decode_blocks(
@@ -1274,8 +1302,7 @@ def bank_codec_step(codec_kind: str, data, addr, count, sync, plan: BlockPlan,
     else:
         raise ValueError(codec_kind)
     if keep_filter:
-        lo = (torch.arange(n_blocks, device=data.device)
-              * plan.block_len)[None, :, None]
+        lo = (blocks.long() * plan.block_len)[None, :, None]
         hi = (lo + plan.block_len).clamp(max=plan.n_demod)
         out["ok"] = (out["ok"] & (out["address"] > lo)
                      & (out["address"] <= hi))
@@ -1307,7 +1334,7 @@ def _codec_subgroups(bank: Bank):
     return [(k, groups[k]) for k in order]
 
 
-def _bank_chain_subset(bank: Bank, idxs: list[int]) -> Bank:
+def _bank_chain_subset(bank: Bank, idxs: list[int], params=None) -> Bank:
     """A chain-index view of the bank for the codec and packet stage (which
     reads only specs and the per-chain stream settings, never params)."""
     from dataclasses import replace as _replace
@@ -1315,10 +1342,35 @@ def _bank_chain_subset(bank: Bank, idxs: list[int]) -> Bank:
     return _replace(
         bank,
         specs=[bank.specs[i] for i in idxs],
-        params=None,
+        params=params,
         stream_polys=tuple(bank.stream_polys[i] for i in idxs),
         stream_inverts=tuple(bank.stream_inverts[i] for i in idxs),
     )
+
+
+# parameter leaves without a chain axis: the NCO tables every lane reads
+_BANK_WIDE_LEAVES = ("sine_table", "cos_table")
+
+
+def bank_chain_slice(bank: Bank, idxs: list[int]) -> Bank:
+    """The bank cut to chains ``idxs`` (in that order; an index may
+    repeat) along the chain axis, parameters included, for the device
+    stages: every leaf but the NCO tables is indexed on its chain axis, so
+    the slice keeps the bank's switches (``space_scale``, whose ratios the
+    demod then takes to the slice's first chain, and ``pre_shared``) and
+    the descrambler reads the slice's own stream settings."""
+    lo = idxs[0] if idxs else 0
+    if list(idxs) == list(range(lo, lo + len(idxs))):
+        sel = slice(lo, lo + len(idxs))
+    else:
+        sel = upload(np.asarray(idxs, np.int64), bank.params["sps"].device)
+
+    def cut(tree):
+        return {k: (v if k in _BANK_WIDE_LEAVES else
+                    cut(v) if isinstance(v, dict) else v[sel])
+                for k, v in tree.items()}
+
+    return _bank_chain_subset(bank, list(idxs), cut(bank.params))
 
 
 def _popcount_stats(sync: torch.Tensor) -> torch.Tensor:
@@ -1328,12 +1380,20 @@ def _popcount_stats(sync: torch.Tensor) -> torch.Tensor:
     return torch.stack([per_block.sum(), per_block.max()])
 
 
-def auto_candidate_budget_device(sync) -> tuple[int, int, int]:
+def _host_ints(t: torch.Tensor) -> list[int]:
+    """A small integer tensor's values on the host (one readback)."""
+    return [int(v) for v in t.cpu().tolist()]
+
+
+def auto_candidate_budget_device(sync, ints=_host_ints
+                                 ) -> tuple[int, int, int]:
     """(candidate-slot budget, acceptance-scan cap, busiest block's
     candidate count) for a device-resident bitmap: reads back two scalars
-    in one transfer.  The scan cap is the power-of-two bucket covering the
-    busiest block; blocks past 64 fall back via ``dropped``."""
-    total, max_pb = (int(v) for v in _popcount_stats(sync).cpu().tolist())
+    in one transfer (``ints``; the sharded runtime's is a MAX over the
+    ranks).  The scan cap is the power-of-two
+    bucket covering the busiest block; blocks past 64 fall back via
+    ``dropped``."""
+    total, max_pb = ints(_popcount_stats(sync))
     cap = 8
     while cap < min(max_pb, 64):
         cap *= 2
@@ -1489,16 +1549,17 @@ def _il2p_payload_budget(bank: Bank, plan: BlockPlan) -> int:
 def _dispatch_codec(codec_key, data, addr, count, sync, plan,
                     max_packets_per_block, total_candidates, scan_cap,
                     rs_fail_frac: int | None, max_payload: int,
-                    keep_filter: bool = True) -> dict:
+                    keep_filter: bool = True, block0: int = 0) -> dict:
     if codec_key[0] == "ax25":
         return bank_codec_step(
             "ax25", data, addr, count, sync, plan,
             max_packets=max_packets_per_block,
             min_packet_length=codec_key[1], max_packet_length=codec_key[2],
-            keep_filter=keep_filter)
+            keep_filter=keep_filter, block0=block0)
     return bank_codec_step(
         "il2p", data, addr, count, sync, plan,
         max_packets=max_packets_per_block, keep_filter=keep_filter,
+        block0=block0,
         collect_crc=codec_key[1], disable_rs=codec_key[2],
         min_distance=codec_key[3],
         total_candidates=total_candidates,
@@ -1564,9 +1625,58 @@ def _len_bucket(max_len: int, lmax: int) -> int:
     return min(b, lmax)
 
 
+class CodecReadback:
+    """How ``_device_codec_submit`` reads its device results back on one
+    device: each integer statistic by one small readback (``ints``), the
+    packed buffer by one copy (``packed``: into pinned memory and started
+    at once on a budget-cache hit), and the byte streams for the host FSM
+    only where blocks are still dropped (``host_arrays``).
+    ``runtime/sharded.py`` overrides each with its reduction or gather over
+    the ranks, so every rank takes the same branches and issues the same
+    collectives.  ``stage``, ``sizing`` and ``budget`` name the profiling
+    stages; ``cache`` holds the learned budgets."""
+
+    stage = "device_codec"
+    sizing = "codec_sizes"
+    budget = "candidate_budget"
+    cache = _CODEC_BUDGET_CACHE
+    # the buffers' first block in the recording, for the device's
+    # addresses and keep windows (a time shard's); None on one device,
+    # where ``block0`` shifts them on the host instead
+    device_block0: int | None = None
+    ints = staticmethod(_host_ints)
+
+    def packed(self, packed, meta_budget: int, len_budget: int,
+               dropped_shape: tuple, has_corrected: bool, now: bool):
+        """Read ``packed`` back: now, or (``now`` False) started at once
+        into pinned memory.  Returns a wait() giving (n_ok, n_ok_max,
+        max_len, comp, dropped): valid packets in ``comp``, the count
+        ``meta_budget`` must hold, the longest packet."""
+        fetch = (lambda: packed.cpu().numpy()) if now else \
+            _start_readback(packed)
+
+        def wait():
+            (n_ok, _bytes, max_len), comp, dropped = _read_compact(
+                fetch(), meta_budget, len_budget, dropped_shape,
+                has_corrected)
+            return n_ok, n_ok, max_len, comp, dropped
+
+        return wait
+
+    def host_arrays(self, data, addr, count, sync, dropped):
+        """The byte streams ``packets_from_compact`` decodes the blocks
+        still ``dropped`` from (it reads them back only if there are
+        any)."""
+        return data, addr, count, sync
+
+
+_LOCAL_READBACK = CodecReadback()
+
+
 def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
                          max_packets_per_block, total_candidates,
-                         block0: int = 0, host_plan: BlockPlan | None = None):
+                         block0: int = 0, host_plan: BlockPlan | None = None,
+                         io: CodecReadback = _LOCAL_READBACK):
     """Run the device codec and compaction over bank outputs; return a
     collect() closure that performs the single packed readback and builds
     packet objects.
@@ -1590,54 +1700,64 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
     the recording's own.  ``block0`` (the streaming decoder): the global
     index of the buffers' block 0; the host packet build shifts addresses
     by ``block0 * plan.block_len`` and keep windows by ``block0`` blocks.
-    The device keep filter runs only with neither."""
+    The device keep filter runs only with neither, or on a time shard
+    (``io.device_block0``), whose readback is already global.  ``io``:
+    how results are read back (``CodecReadback``); every branch below is
+    decided from what it returns."""
     from .. import profiling
 
-    device_keep = host_plan is None and block0 == 0
+    if io.device_block0 is None:
+        device_keep, dev_block0 = host_plan is None and block0 == 0, 0
+    else:
+        device_keep, dev_block0 = True, io.device_block0
     if host_plan is None:
         host_plan = plan
+    il2p = codec_key[0] == "il2p"
     cache_key = (codec_key, plan, tuple(data.shape[:2]),
                  max_packets_per_block)
     cached = None
     if total_candidates is None:
         with _CODEC_BUDGET_LOCK:
-            cached = _CODEC_BUDGET_CACHE.get(cache_key)
+            cached = io.cache.get(cache_key)
 
     def dispatch(mp, cand_budget, scan_cap, rs_frac, pay_budget):
-        with profiling.timed("device_codec_step"):
+        with profiling.timed(f"{io.stage}_step"):
             return _dispatch_codec(codec_key, data, addr, count, sync, plan,
                                    mp, cand_budget, scan_cap, rs_frac,
-                                   pay_budget, device_keep)
+                                   pay_budget, device_keep, dev_block0)
 
     def compact(out, meta_budget, len_budget):
         return compact_codec_out(
             out["ok"], out["address"], out["length"], out.get("corrected"),
             out["packet"], out["dropped"], meta_budget, len_budget)
 
-    def read(flat, meta_budget, len_budget):
-        with profiling.timed("device_codec_transfer"):
-            return _read_compact(flat, meta_budget, len_budget,
-                                 tuple(data.shape[:2]),
-                                 has_corrected=codec_key[0] == "il2p")
+    def readback(packed, meta_budget, len_budget, now=True):
+        wait = io.packed(packed, meta_budget, len_budget,
+                         tuple(data.shape[:2]), il2p, now)
+
+        def timed_wait():
+            with profiling.timed(f"{io.stage}_transfer"):
+                return wait()
+
+        return timed_wait
 
     def run_exact(mp, cand_budget, scan_cap, rs_frac, pay_budget):
         out = dispatch(mp, cand_budget, scan_cap, rs_frac, pay_budget)
-        with profiling.timed("codec_sizes"):
-            n_ok, _total_bytes, max_len = (
-                int(v) for v in
-                _codec_out_sizes(out["ok"], out["length"]).cpu().tolist())
-        with profiling.timed("device_codec_compact"):
+        with profiling.timed(io.sizing):
+            n_ok_max, _total_bytes, max_len = io.ints(
+                _codec_out_sizes(out["ok"], out["length"]))
+        with profiling.timed(f"{io.stage}_compact"):
             len_budget = _len_bucket(max_len, out["packet"].shape[-1])
-            meta_budget = _budget_bucket(n_ok)
+            meta_budget = _budget_bucket(n_ok_max)
             packed = compact(out, meta_budget, len_budget)
-        _sizes, comp, dropped = read(packed.cpu().numpy(), meta_budget,
-                                     len_budget)
+        n_ok, _m, _l, comp, dropped = readback(packed, meta_budget,
+                                               len_budget)()
         return n_ok, meta_budget, len_budget, comp, dropped
 
     def resolve_budgets(mp, cand_budget, scan_cap, rs_frac, pay_budget, n_ok,
                         meta_budget, len_budget, comp, dropped):
         while dropped.any() and mp < MP_CAP:
-            with profiling.timed("device_codec_escalate"):
+            with profiling.timed(f"{io.stage}_escalate"):
                 mp = mp * 2
                 scan_cap = min(scan_cap * 2, 128)
                 # dropped does not say WHICH budget saturated; turn off the
@@ -1652,16 +1772,16 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
                 )
         with _CODEC_BUDGET_LOCK:
             if total_candidates is None and not dropped.any():
-                _CODEC_BUDGET_CACHE[cache_key] = _merge_budget_entry(
-                    _CODEC_BUDGET_CACHE.get(cache_key),
+                io.cache[cache_key] = _merge_budget_entry(
+                    io.cache.get(cache_key),
                     (mp, cand_budget, scan_cap, meta_budget, len_budget,
                      rs_frac, pay_budget),
                 )
             else:
-                _CODEC_BUDGET_CACHE.pop(cache_key, None)
+                io.cache.pop(cache_key, None)
         return packets_from_compact(
-            bank, host_plan, comp, n_ok, dropped, data, addr, count, sync,
-            block0,
+            bank, host_plan, comp, n_ok, dropped,
+            *io.host_arrays(data, addr, count, sync, dropped), block0,
         )
 
     if cached is not None:
@@ -1669,24 +1789,23 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
         (mp0, cand_budget, scan_cap, meta_budget0, len_budget0, rs_frac0,
          pay0) = cached
         out = dispatch(mp0, cand_budget, scan_cap, rs_frac0, pay0)
-        with profiling.timed("device_codec_compact"):
-            readback = _start_readback(compact(out, meta_budget0,
-                                               len_budget0))
+        with profiling.timed(f"{io.stage}_compact"):
+            wait = readback(compact(out, meta_budget0, len_budget0),
+                            meta_budget0, len_budget0, now=False)
 
         def collect():
             meta_budget, len_budget = meta_budget0, len_budget0
-            sizes, comp, dropped = read(readback(), meta_budget, len_budget)
-            n_ok, _total_bytes, max_len = sizes
-            if n_ok > meta_budget or max_len > len_budget:
+            n_ok, n_ok_max, max_len, comp, dropped = wait()
+            if n_ok_max > meta_budget or max_len > len_budget:
                 # compaction budgets overflowed (the workload grew): redo
                 # the compaction with exact budgets
-                with profiling.timed("device_codec_redo"):
-                    meta_budget = _budget_bucket(n_ok)
+                with profiling.timed(f"{io.stage}_redo"):
+                    meta_budget = _budget_bucket(n_ok_max)
                     len_budget = _len_bucket(max_len,
                                              out["packet"].shape[-1])
-                    _, comp, dropped = read(
-                        compact(out, meta_budget, len_budget).cpu().numpy(),
-                        meta_budget, len_budget)
+                    n_ok, _m, _l, comp, dropped = readback(
+                        compact(out, meta_budget, len_budget), meta_budget,
+                        len_budget)()
             return resolve_budgets(mp0, cand_budget, scan_cap, rs_frac0,
                                    pay0, n_ok, meta_budget, len_budget, comp,
                                    dropped)
@@ -1698,12 +1817,11 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
         cand_budget = total_candidates
         mp = max_packets_per_block
         # AX.25 starts at max_packets_per_block and pays no IL2P budget
-        il2p = codec_key[0] == "il2p"
         pay0 = _il2p_payload_budget(bank, plan) if il2p else 1023
         if il2p and total_candidates is None:
-            with profiling.timed("candidate_budget"):
+            with profiling.timed(io.budget):
                 cand_budget, scan_cap, max_pb = (
-                    auto_candidate_budget_device(sync)
+                    auto_candidate_budget_device(sync, io.ints)
                 )
             # right-size the packet-slot budget from the busiest block's
             # candidate count, skipping the escalation ladder on
