@@ -171,7 +171,10 @@ Phases, each printing one line with its seconds:
     ``mpsk_bpsk1200_pair`` and ``qpsk_costas2400_sweep8`` (their own
     inputs: shared rows and ``row_of_lane``, analytic rows, detector
     tables, basebands, windows); each kernel timed at full shape, the
-    twins at 4101 samples on the banks;
+    twins at 4101 samples on the banks; the staged K10 and K11 also on
+    views of 4100 samples at the rows' own stride (the timed call's
+    route), with their dynamic shared memory and whether each full
+    shape's rows went through a padded copy;
 26. the float64 mode end to end, the launch counters set to 0 before each
     run and read after: the executor (the mode's default route) on 60 s
     of the PLL pair (``afsk_300_pll``), the AFSK-300 correlator,
@@ -181,8 +184,10 @@ Phases, each printing one line with its seconds:
     scale row at f64), ``qpsk2400_sweep8``, ``mpsk_bpsk1200_pair`` and
     ``qpsk_costas2400_sweep8`` over 600 s: every frame, 0 rejected,
     K10-K16 launched as each family needs and no f32 loop or slicer
-    kernel (K1-K8); walls beside the same plans at f32, the packets that
-    differ between the two, peak device memory;
+    kernel (K1-K8); walls beside the same plans at f32 (the banks' min /
+    median / max of WARM_RUNS warm runs), the packets that differ between
+    the two, peak device memory, the padded-row copies made for K10 and
+    K11;
 27. the CLI as a subprocess with ``PYMODEM_TPU_TORCH_X64=1`` on the PLL
     pair's config and a few seconds of audio (2 frames): exit 0 and the report of the same
     decode on the CPU twins (``run_decode`` with
@@ -321,6 +326,14 @@ FULL_POWER_W = 700.0
 # decodes every frame)
 F64_CUT = SLICE + 5
 F64_SWEEP_GAINS = [0.97 + 0.01 * i for i in range(8)]
+# K10 and K11 before their redesign (one thread a lane; PERF.md, H100 80GB
+# HBM3 at 700 W): ms at full shape on pll_sweep8 at f64, on
+# bpsk1200_sweep8 and on the executor's lane of the PLL pair's chain
+F64_BEFORE_MS = {
+    "K10": {"pll_sweep8": 15.431, "bpsk1200_sweep8": 42.846,
+            "afsk300_pll": 21.868},
+    "K11": {"pll_sweep8": 41.230, "bpsk1200_sweep8": 114.359,
+            "afsk300_pll": 116.756}}
 
 
 def _phase(n: int, what: str, t0: float) -> None:
@@ -755,8 +768,9 @@ def _same(what: str, got, want) -> float:
 
 
 def _same_route(what: str, *rows, aligned: bool) -> None:
-    """Raise unless the staged lane kernels (K1-K8) take ``rows`` as they
-    are (``aligned``) or through padded copies (not ``aligned``)."""
+    """Raise unless the staged lane kernels (K1-K8, K10, K11) take
+    ``rows`` as they are (``aligned``) or through padded copies (not
+    ``aligned``)."""
     from pymodem_tpu_torch import _ext
 
     if any(_ext.rows_aligned(t) != aligned for t in rows):
@@ -1837,7 +1851,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
     import numpy as np
     import torch
 
-    from pymodem_tpu_torch import modems
+    from pymodem_tpu_torch import _ext, modems
     from pymodem_tpu_torch.config import ReportSpec, RunPlan, build_chain_spec
     from pymodem_tpu_torch.dsp.agc import agc_f64_lanes, agc_follower
     from pymodem_tpu_torch.dsp.fir import fir_valid_nd
@@ -1894,25 +1908,62 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                 "pymodem_tpu/ops/slicers.py:189"),
     }
     held = {}  # key -> [(where, entry)]
+    smem = {key: _ext.kernel(entry, ())() for key, entry in (
+        ("K10", "binary_slice_f64_smem_bytes"),
+        ("K11", "coherent_loop_f64_smem_bytes"))}
+    designs = {
+        "K10": "K1's design at f64: a lane warp and a copy warp a block of "
+               "32 lanes, 128-sample tiles in 3 stages by bulk copies, sign "
+               "and crossing words packed a tile ahead, window codes "
+               f"stored in coalesced runs; {smem['K10']} B of dynamic "
+               "shared memory",
+        "K11": "K2/K3's design at f64: a lane warp, a copy warp (bulk "
+               "copies, the AGC follower a tile ahead) and one gain warp "
+               "(AGC quotients a tile ahead) a block of 32 lanes, "
+               f"64-sample tiles in 5 stages of 2 rails; {smem['K11']} B of "
+               "dynamic shared memory"}
+    print(f"K10 and K11, staged: dynamic shared memory {smem} B a block; "
+          "K11's gain warps: 1 (csrc/coherent_loop_f64.cu kGainWarps)")
 
     def hold(key, where, kernel, twin, x, n_lanes, n_bytes, ops_a_step):
         """``kernel`` against ``twin`` on the first F64_CUT samples of the
         rows ``x`` (or of each rail of a tuple of them) at the full lane
         count: bitwise; the kernel timed at full shape (3 runs a bank's
-        lanes, 1 the executor's lane), the twin's call on the cut."""
+        lanes, 1 the executor's lane), the twin's call on the cut.  The
+        staged K10 and K11 are held on two cuts, as K1-K8 are: views of
+        the first ALIGNED_CUT samples, which the kernel reads at the rows'
+        own stride, by the route of the timed call (as they lie, or
+        through ``_ext.lane_rows``' padded copy), and a contiguous copy of
+        the first PADDED_CUT samples, whose odd stride takes the padded
+        copy; for them, the full rows' route (the copy's time inside the
+        kernel's) and the time before the redesign are printed."""
         rails = x if isinstance(x, tuple) else (x,)
-        cut = tuple(r[:, :F64_CUT].contiguous() for r in rails)
-        got = kernel(*cut)
-        # the twin's one call, timed by CUDA events (4101 steps of its
-        # launches, no warm-up worth a second call)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = twin(*cut)
-        end.record()
-        torch.cuda.synchronize()
-        plain = start.elapsed_time(end)
-        err = _same(f"{key} on {where}", got, want)
+        staged = key in designs
+        # (samples, whether the cut is a view of the rows as they lie)
+        cuts = (((ALIGNED_CUT, True),) if staged else ()) + ((F64_CUT,
+                                                             False),)
+        err = 0.0
+        for n, view in cuts:
+            # a fresh copy: .contiguous() keeps a single row's stride
+            cut = tuple(r[:, :n] if view else
+                        r[:, :n].clone(memory_format=torch.contiguous_format)
+                        for r in rails)
+            if staged:
+                _same_route(f"{key} on {where}, {n} samples", *cut,
+                            aligned=view and _ext.rows_aligned(rails[0]))
+            got = kernel(*cut)
+            cut = tuple(c.contiguous() for c in cut)
+            # the twin's one call, timed by CUDA events (4101 steps of its
+            # launches, no warm-up worth a second call)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = twin(*cut)
+            end.record()
+            torch.cuda.synchronize()
+            plain = start.elapsed_time(end)
+            err = max(err, _same(f"{key} on {where}, {n} samples", got,
+                                 want))
         ms = _time_ms(lambda: kernel(*rails), 3 if n_lanes > 1 else 1)
         T = rails[0].shape[1]
         name, source, replaces = sources[key]
@@ -1920,12 +1971,28 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                     ops_a_step * n_lanes * T, (n_lanes, T),
                     (n_lanes, F64_CUT), smi, ops_per_s=F64_OPS_PER_S)
         held.setdefault(key, []).append((where, k))
+        equal_on = f"{n_lanes}x{F64_CUT}"
+        extra = ""
+        if staged:
+            aligned = _ext.rows_aligned(rails[0])
+            equal_on = (f"{n_lanes}x{ALIGNED_CUT} (views of the rows, "
+                        f"{'as they lie' if aligned else 'padded'}) and "
+                        f"{n_lanes}x{PADDED_CUT} (padded rows)")
+            before = next((v for name_, v in F64_BEFORE_MS[key].items()
+                           if name_ in where), None)
+            route = ("as they lie" if aligned else
+                     f"through a padded copy ({_copy_ms(rails[0]):.3f} ms "
+                     "of the kernel's time)")
+            extra = f"; full rows {route}"
+            if before is not None:
+                extra += f"; {before:.3f} ms before the redesign"
         print(f"{key} on {where}: lanes {n_lanes} T {T}: bitwise equal to "
-              f"its f64 twin on {n_lanes}x{F64_CUT}; twin {plain:.1f} ms at "
+              f"its f64 twin on {equal_on}; twin {plain:.1f} ms at "
               f"{n_lanes}x{F64_CUT}; kernel {ms:.3f} ms at full "
-              f"{n_lanes}x{T}, {ms * 1e6 / T:.1f} ns a step, one thread a "
-              f"lane, 32 lanes a block; bound {k['bound_ms']:.3f} ms "
-              f"({k['bound_by']}) [{smi}]")
+              f"{n_lanes}x{T}, {ms * 1e6 / T:.1f} ns a step, "
+              f"{designs.get(key, 'one thread a lane, 32 lanes a block')}"
+              f"{extra}; bound {k['bound_ms']:.3f} ms ({k['bound_by']}) "
+              f"[{smi}]")
 
     def loop_at(where, kind, x, rows, tables, row_of_lane=None):
         twin = afsk_pll if kind == "afsk_pll" else bpsk_costas
@@ -2104,20 +2171,25 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
     def f64_run(what, fn, need):
         """One f64 run with the counters set to 0 before and read after:
         fails unless it launched each of ``need`` and no f32 loop or
-        slicer kernel (K1-K8)."""
+        slicer kernel (K1-K8).  Returns the result, the wall, the peak
+        device memory, the launches and the padded-row copies made for K10
+        and K11 (``_ext.lane_rows``)."""
         zero_counts()
+        _ext.lane_rows.copies = 0
         torch.cuda.reset_peak_memory_stats()
         t1 = time.time()
         result = fn()
         torch.cuda.synchronize()
         wall = time.time() - t1
         launched = read_counts()
+        copies = _ext.lane_rows.copies
         if f32_keys & set(launched) or not set(need) <= set(launched):
             raise AssertionError(f"{what} at f64 launched {launched}, "
                                  f"expected {sorted(need)} and no K1-K8")
         for k, v in launched.items():
             f64_launches[k] = f64_launches.get(k, 0) + v
-        return result, wall, torch.cuda.max_memory_allocated(), launched
+        return (result, wall, torch.cuda.max_memory_allocated(), launched,
+                copies)
 
     psk60 = _whole_segments(*psk_audio["bpsk1200_sweep8"][:3], PSK_RATE,
                             EXECUTOR_SECONDS)
@@ -2162,7 +2234,8 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                                      device=dev, dtype=F64)
 
         run64()  # the kernels' first launches
-        result, wall, peak, launched = f64_run(name, run64, need)
+        result, wall, peak, launched, copies = f64_run(name, run64,
+                                                        need)
         _check_bank(f"{name} (executor, f64)", result, sent)
         t1 = time.time()
         r32 = executor.run_plan(plan_, wave, rate, resilient=False,
@@ -2173,7 +2246,8 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         walls[f"executor {name}"] = (wall, wall32)
         print(f"f64 executor {name}: {len(chains)} chain(s) x "
               f"{len(wave) / rate:.0f} s, {len(sent)} frames decoded, 0 "
-              f"rejected; launches {launched}; wall {wall:.3f} s at f64, "
+              f"rejected; launches {launched}, padded-row copies for K10 "
+              f"and K11 {copies}; wall {wall:.3f} s at f64, "
               f"{wall32:.3f} s at f32; packets differing between f64 and "
               f"f32: {len(a ^ b)} of {len(a | b)}; peak device memory "
               f"{peak / 2**30:.2f} GiB [{smi}]")
@@ -2210,9 +2284,21 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                 plan_, wave, rate, max_packet_seconds=mps,
                 resilient=False, device=dev, dtype=dtype)
 
+        def warm_walls(dtype):
+            """Walls of WARM_RUNS - 1 more warm runs at ``dtype``."""
+            out = []
+            for _ in range(WARM_RUNS - 1):
+                t1 = time.time()
+                run64(dtype)
+                torch.cuda.synchronize()
+                out.append(time.time() - t1)
+            return out
+
         run64()  # budgets and first launches
-        result, wall, peak, launched = f64_run(name, run64, need)
+        result, wall, peak, launched, copies = f64_run(name, run64,
+                                                        need)
         _check_bank(f"{name} (banked, f64)", result, sent)
+        walls64 = [wall, *warm_walls(F64)]
         run64(torch.float32)
         torch.cuda.reset_peak_memory_stats()
         t1 = time.time()
@@ -2220,17 +2306,21 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         torch.cuda.synchronize()
         wall32 = time.time() - t1
         peak32 = torch.cuda.max_memory_allocated()
+        walls32 = [wall32, *warm_walls(torch.float32)]
         a, b = set(_packet_keys(result)), set(_packet_keys(r32))
         pa, pb = ({k[:2] for k in keys} for keys in (a, b))
-        walls[f"banked {name}"] = (wall, wall32)
+        walls[f"banked {name}"] = tuple(sorted(w)[len(w) // 2]
+                                        for w in (walls64, walls32))
         plan_b = tbank.bank_plan(bank_, len(wave), max_packet_seconds=mps)
         print(f"f64 run_plan_banked {name}: {len(chains)} chains x "
               f"{len(wave) / rate:.0f} s ({plan_b.n_blocks} blocks of "
               f"{plan_b.block_input_len} samples at f64, "
               f"{-(-plan_b.n_blocks // tbank.blocks_per_group(bank_, plan_b))}"
               f" group(s)), {len(sent)} "
-              f"frames decoded, 0 rejected; launches {launched}; warm wall "
-              f"{wall:.3f} s at f64, {wall32:.3f} s at f32; packets "
+              f"frames decoded, 0 rejected; launches {launched}, padded-row "
+              f"copies for K10 and K11 {copies}; warm walls of {WARM_RUNS}, "
+              f"min / median / max, {_spread(walls64)} s at f64, "
+              f"{_spread(walls32)} s at f32; packets "
               f"differing between f64 and f32: {len(a ^ b)} of "
               f"{len(a | b)} by (chain, bytes, stream address), "
               f"{len(pa ^ pb)} of {len(pa | pb)} by (chain, bytes) (where "
@@ -2238,7 +2328,8 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
               f"8 bytes a sample, an address moves with its block's start); "
               f"peak device memory {peak / 2**30:.2f} GiB at "
               f"f64, {peak32 / 2**30:.2f} GiB at f32 [{smi}]")
-    print(f"f64 mode: launches {f64_launches}; walls (f64, f32) s "
+    print(f"f64 mode: launches {f64_launches}; walls (f64, f32) s, "
+          f"medians of {WARM_RUNS} for the banks "
           f"{ {k: (round(a, 3), round(b, 3)) for k, (a, b) in walls.items()} }")
     _phase(26, "f64 mode end to end (executor, run_plan_banked)", t0)
 

@@ -136,9 +136,8 @@ def require(device, dtype, **tensors) -> None:
 
 
 def require_rows(device, dtype, **tensors) -> None:
-    """``require`` for the (n, T) inputs of the staged kernels K1, K2, K3
-    and K8, which take rows of unit stride that need not follow one
-    another (``lane_rows``)."""
+    """``require`` for the (n, T) inputs of the kernels that take rows of
+    unit stride that need not follow one another (``lane_rows``)."""
     _require(device, dtype, lambda t: t.ndim == 2 and t.stride(-1) == 1,
              "(n, T) with contiguous rows", tensors)
 
@@ -154,26 +153,35 @@ def _require(device, dtype, layout_ok, layout: str, tensors: dict) -> None:
                              f"strides {t.stride()}")
 
 
+# a bulk copy (TMA) moves a multiple of 16 bytes between 16-byte-aligned
+# addresses
+BULK_BYTES = 16
+
+
 def rows_aligned(t) -> bool:
-    """Whether the staged lane kernels (K1-K8) can copy the rows of the
-    (n, T) tensor ``t`` (rows of unit stride) as they are, by bulk copies:
-    16-byte aligned starts a multiple of 4 floats apart.  For a contiguous
-    ``t``: T a multiple of 4."""
-    return (t.stride(-1) == 1 and t.stride(0) % 4 == 0
-            and t.stride(0) >= t.shape[-1] and t.data_ptr() % 16 == 0)
+    """Whether the staged lane kernels (K1-K8, K10, K11) can copy the rows
+    of the (n, T) tensor ``t`` (rows of unit stride) as they are, by bulk
+    copies: 16-byte aligned starts a multiple of 16 bytes apart (4 floats,
+    2 doubles).  For a contiguous ``t``: T floats a multiple of 4, T
+    doubles a multiple of 2."""
+    return (t.stride(-1) == 1
+            and t.stride(0) * t.element_size() % BULK_BYTES == 0
+            and t.stride(0) >= t.shape[-1]
+            and t.data_ptr() % BULK_BYTES == 0)
 
 
 def lane_rows(t):
     """The rows of the (n, T) tensor ``t`` (rows of unit stride) as the
-    staged lane kernels (K1-K8) copy them: ``t`` itself when
+    staged lane kernels (K1-K8, K10, K11) copy them: ``t`` itself when
     ``rows_aligned``, else a copy into rows of T rounded up to a multiple
-    of 4 floats, zero-padded.  The kernels take the row stride,
-    ``.stride(0)``, and read T samples a row.  ``lane_rows.copies`` counts
-    the copies."""
+    of 16 bytes (4 floats, 2 doubles), zero-padded.  The kernels take the
+    row stride, ``.stride(0)``, and read T samples a row.
+    ``lane_rows.copies`` counts the copies."""
     if rows_aligned(t):
         return t
     n, T = t.shape
-    out = t.new_zeros((n, -(-T // 4) * 4))
+    per = BULK_BYTES // t.element_size()
+    out = t.new_zeros((n, -(-T // per) * per))
     out[:, :T] = t
     lane_rows.copies += 1
     return out

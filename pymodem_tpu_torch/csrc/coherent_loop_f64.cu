@@ -28,62 +28,230 @@
 // does at f64 (pymodem_tpu/dsp/loops.py _nco_step): sin[i] is the table
 // and cos[i] the table at (i + 64) mod 256, handed in as two tables.
 //
-// What bounds it: each lane is one sequential recurrence, ~40 dependent
-// f64 operations a step for K11 and ~10 for K13, and the lanes (~100 to
-// ~1,000 on the banks) are the parallelism; 16 bytes a sample move.
+// What bounds it on an H100: each lane is one sequential recurrence, and
+// the lanes (384 on pll_sweep8 at f64, 744 on the BPSK sweep, one on the
+// executor) are the parallelism, so the run time is T times one step's
+// latency; the 16 bytes a sample moves are far below what the card
+// streams.  K11's step on one thread was ~40 dependent f64 operations:
+// the AGC follower (~10: compares, selects, NaN-propagating min and max),
+// the IEEE f64 divide target * x / env (a reciprocal seed, Newton steps
+// and a branch to its slow path, the longest latency of the step, not
+// timed alone: K13, the follower and the divide on one thread, takes
+// 154.5 ns a step at one lane), then
+// the NCO (~10 with its four wraps), the table read, the mixer, the IIR
+// and PI (~15); 243 ns a step at one lane, 303 ns on bank lanes, whose
+// rows a warp read 8 samples at a time, one memory round trip a chunk.
+// The AGC does not depend on the loop, so it leaves the lane's chain.
 //
-// Design (lanes_f64.cuh): one thread a lane, 32 lanes a block; lane l
-// reads input row row_of_lane[l] (a pre-shared bank's B shared rows; K13
-// reads row l) straight from global memory in chunks; the tables in shared
-// memory; the AGC, NCO, IIR and PI state in registers.
+// Design of K11 (lane_tiles_f64.cuh): a block serves 32 lanes with a lane
+// warp, a copy warp and kGainWarps gain warps (one: two measured within
+// 1.1% of one on an H100, PERF.md), and
+// walks time in tiles of 64 samples over five stages of two rails, 165 KB
+// of dynamic shared memory (128-sample tiles would need 325 KB at f64).
+// Lane l reads input row row_of_lane[l] of (R, T) rows (a pre-shared
+// bank's B shared rows).  While the lanes run the loop over tile k - 2,
+// the gain warp forms Agc::gain, target * x / env, of tile k - 1 in place
+// over its input, and copy thread l runs lane l's Agc::follow over tile
+// k, writing the envelopes into the stage's second rail; the copy warp
+// also stores tile k - 3 and loads tile k + 1, one bulk copy a lane each.
+// The lane thread's chain is the NCO (Loop::nco_select, nco's wraps as
+// selects side by side), the table read, the mixer and Loop::filter, ~25
+// dependent operations; it reads its gained row as double2s and writes
+// its output (afsk_pll prop, bpsk i) in place.  The table is one
+// shared-memory read a step: afsk_pll's sine, bpsk's (cos, -sin) pairs
+// (negating is exact).  Built with -fmad=false and without fast math, in
+// the twins' op order, so the outputs equal the plain twins (dsp/loops.py
+// afsk_pll, bpsk_costas) bitwise.
+//
+// K13 (AGC alone) keeps the one-thread-a-lane design of lanes_f64.cuh:
+// lane l reads its row straight from global memory in chunks, ~10
+// dependent operations and the divide a step.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "lane_tiles_f64.cuh"
 #include "lanes_f64.cuh"
 
 namespace {
 
 using namespace pymodem::f64;
 
-template <bool kBpsk>
-__global__ void __launch_bounds__(kLanes)
+constexpr int kLoopRows = 10;  // PLL_PARAMS, then the five AGC rows
+constexpr int kGainWarps = 1;  // warps forming the AGC's quotients
+constexpr int kTile = 64;      // samples a tile
+constexpr int kStride = row_stride(kTile);  // doubles a lane row of a rail
+// tile k + 1 loads while tile k follows, k - 1 gains, k - 2 runs the loop
+// and k - 3 stores
+constexpr int kStages = 5;
+constexpr int kRail = kLanes * kStride;  // doubles of one rail of a stage
+// dynamic shared memory: kStages stages of two rails
+constexpr int kSmemBytes = 8 * 2 * kStages * kRail;
+
+// afsk_pll: the mixer x * sin; the output is prop
+struct AfskPll {
+  using Entry = double;  // sin
+  __device__ static Entry entry(const double* sine, const double*, int k) {
+    return sine[k];
+  }
+  __device__ static __forceinline__ double step(Loop& loop, const Entry* tab,
+                                                double xs) {
+    const double prop = loop.filter(xs * tab[loop.nco_select()]);
+    loop.control = prop + loop.integral;
+    return prop;
+  }
+};
+
+// bpsk: i = x * cos, q = x * (-sin), e = i * q; the output is i
+struct BpskCostas {
+  using Entry = double2;  // (cos, -sin)
+  __device__ static Entry entry(const double* sine, const double* cosine,
+                                int k) {
+    return make_double2(cosine[k], -sine[k]);
+  }
+  __device__ static __forceinline__ double step(Loop& loop, const Entry* tab,
+                                                double xs) {
+    const double2 cs = tab[loop.nco_select()];
+    const double i_mixer = xs * cs.x;
+    const double prop = loop.filter(i_mixer * (xs * cs.y));
+    loop.control = prop + loop.integral;
+    return i_mixer;
+  }
+};
+
+// Warp 0 is the lanes, warp 1 the copy warp (it starts its lane's bulk
+// copies and runs its lane's envelope follower), warps 2 and up the gain
+// warps: gain warp g forms the quotients of the tile's double2 columns
+// c with c % kGainWarps == g.
+template <class Kind>
+__global__ void __launch_bounds__((2 + kGainWarps) * kLanes, 1)
     coherent_loop_f64_kernel(const double* __restrict__ x, int in_stride,
-                             const int* __restrict__ row_of_lane,
+                             const int* __restrict__ row_of_lane, int n_rows,
                              const double* __restrict__ params,
                              const double* __restrict__ sine,
                              const double* __restrict__ cosine,
                              double* __restrict__ out, int out_stride, int L,
                              int T) {
-  __shared__ double sin_s[kTableSize];
-  __shared__ double cos_s[kTableSize];
-  stage(sin_s, sine, kTableSize);
-  if (kBpsk) stage(cos_s, cosine, kTableSize);
+  using Entry = typename Kind::Entry;
+  constexpr int kThreads = (2 + kGainWarps) * kLanes;
+  // [stage][rail][lane][kStride] tiles (rail 0: the input, gained in
+  // place, then the outputs in place; rail 1: the envelopes)
+  extern __shared__ __align__(16) double smem[];
+  __shared__ uint64_t bars[kStages];
+  __shared__ Entry tab[kTableSize];  // the NCO table
+  const int tid = threadIdx.x;
+  const int warp = tid / kLanes;
+  const int r = tid % kLanes;  // the lane row this thread serves
+  const int lane0 = blockIdx.x * kLanes;
+  const int lane = lane0 + r;
+  const bool active = lane < L;
+  const int n_active = min(kLanes, L - lane0);
+  for (int k = tid; k < kTableSize; k += kThreads) {
+    tab[k] = Kind::entry(sine, cosine, k);
+  }
+  if (tid < kStages) pymodem::mbar_init(&bars[tid]);
   __syncthreads();
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
-  if (lane >= L) return;
-  Loop loop(params + lane, L);
-  Agc agc(params + 10 * L + lane, L);
-  double* orow = out + static_cast<size_t>(lane) * out_stride;
-  for_each_sample(
-      x + static_cast<size_t>(row_of_lane[lane]) * in_stride, T,
-      [&](int t, double v) {
-        const double xs = agc.step(v);
-        const int idx = loop.nco();
-        double mixer, emitted = 0.0;
-        if (kBpsk) {
-          const double i_mixer = xs * cos_s[idx];
-          const double q_mixer = xs * -sin_s[idx];
-          mixer = i_mixer * q_mixer;
-          emitted = i_mixer;
-        } else {
-          mixer = xs * sin_s[idx];
-        }
-        const double prop = loop.filter(mixer);
-        loop.control = prop + loop.integral;
-        orow[t] = kBpsk ? emitted : prop;
-      });
+
+  const int pl = active ? lane : 0;
+  // the clamp only keeps a mismatched call inside the rows
+  const double* row =
+      x + static_cast<size_t>(min(max(row_of_lane[pl], 0), n_rows - 1)) *
+              in_stride;
+  Loop loop(params + pl, L);
+  Agc agc(params + kLoopRows * L + pl, L);
+  auto tile_n = [&](int k) { return min(kTile, T - k * kTile); };
+  auto row_at = [&](int k) {
+    return smem + 2 * (k % kStages) * kRail + r * kStride;
+  };
+
+  // copy warp: tile k to rail 0 of its stage by one bulk copy a lane,
+  // completing on the stage's barrier
+  auto fetch = [&](int k) {
+    const unsigned bytes = tile_bytes(tile_n(k));
+    uint64_t* bar = &bars[k % kStages];
+    if (r == 0) pymodem::mbar_expect(bar, bytes * n_active);
+    if (active) pymodem::bulk_load(row_at(k), row + k * kTile, bytes, bar);
+  };
+  // copy warp: the outputs of tile k to the (L, T) output
+  auto store = [&](int k) {
+    if (active) {
+      pymodem::bulk_store(
+          out + static_cast<size_t>(lane) * out_stride + k * kTile,
+          row_at(k), tile_bytes(tile_n(k)));
+    }
+    pymodem::bulk_commit();
+  };
+  // copy warp: the envelopes of tile k into rail 1, two steps at a time;
+  // past T (the last tile of a row whose T is odd) the step makes only an
+  // output in the rows' padding
+  auto follow = [&](int k) {
+    pymodem::mbar_wait(&bars[k % kStages], (k / kStages) & 1);
+    double* xr = row_at(k);
+    const int n = tile_n(k);
+#pragma unroll 4
+    for (int c = 0; c < n; c += 2) {
+      const double2 a = *reinterpret_cast<const double2*>(xr + c);
+      double2 e;
+      e.x = agc.follow(a.x);
+      e.y = agc.follow(a.y);
+      *reinterpret_cast<double2*>(xr + kRail + c) = e;
+    }
+  };
+  // gain warp g: target * x / env over its columns of tile k, in place
+  auto gain = [&](int k, int g) {
+    // long passed: orders the bulk load before these reads
+    pymodem::mbar_wait(&bars[k % kStages], (k / kStages) & 1);
+    double* xr = row_at(k);
+    const double* er = xr + kRail;
+    const int n = tile_n(k);
+#pragma unroll 2
+    for (int c = 2 * g; c < n; c += 2 * kGainWarps) {
+      const double2 a = *reinterpret_cast<const double2*>(xr + c);
+      const double2 e = *reinterpret_cast<const double2*>(er + c);
+      *reinterpret_cast<double2*>(xr + c) =
+          make_double2(agc.gain(a.x, e.x), agc.gain(a.y, e.y));
+    }
+    // ordered before the bulk copies that later refill the stage
+    pymodem::fence_proxy_async();
+  };
+  // lane warp: the loop over tile k, the outputs in place
+  auto run = [&](int k) {
+    double* xr = row_at(k);
+    const int n = tile_n(k);
+#pragma unroll 2
+    for (int c = 0; c < n; c += 2) {
+      double2 a = *reinterpret_cast<const double2*>(xr + c);
+      a.x = Kind::step(loop, tab, a.x);
+      a.y = Kind::step(loop, tab, a.y);
+      *reinterpret_cast<double2*>(xr + c) = a;
+    }
+    // the bulk store reads what these generic stores wrote
+    pymodem::fence_proxy_async();
+  };
+
+  const int n_tiles = (T + kTile - 1) / kTile;
+  if (warp == 1 && n_tiles > 0) fetch(0);
+  for (int k = 0; k < n_tiles + 3; ++k) {
+    // the follower is done with k - 1, the gains with k - 2, the lanes
+    // with k - 3
+    __syncthreads();
+    if (warp == 1) {
+      // store tile k - 3, then load tile k + 1 into the stage of tile
+      // k - 4 once its store has read it, then follow tile k
+      if (k >= 3) store(k - 3);
+      pymodem::bulk_wait_read<1>();
+      if (k + 1 < n_tiles) fetch(k + 1);
+      if (active && k < n_tiles) follow(k);
+    } else if (warp >= 2) {
+      if (active && k >= 1 && k <= n_tiles) gain(k - 1, warp - 2);
+    } else if (active && k >= 2 && k < n_tiles + 2) {
+      run(k - 2);
+    }
+  }
+  if (warp == 1) pymodem::bulk_wait_all();
 }
 
+// K13: one thread a lane (lanes_f64.cuh)
 __global__ void __launch_bounds__(kLanes)
     agc_f64_kernel(const double* __restrict__ x, int in_stride,
                    const double* __restrict__ params,
@@ -96,13 +264,18 @@ __global__ void __launch_bounds__(kLanes)
                   [&](int t, double v) { orow[t] = agc.step(v); });
 }
 
+using LoopKernel = void (*)(const double*, int, const int*, int,
+                           const double*, const double*, const double*,
+                           double*, int, int, int);
+
 }  // namespace
 
-// K11.  Input rows ``in_stride`` doubles apart (any stride >= T), lane l
-// on row row_of_lane[l] < R; params (15, L), PLL_PARAMS then AGC_PARAMS
-// (dsp/loops.py); the two (256,) tables (cosine unused, and may be null,
-// for kind 0); out (L, T) rows ``out_stride`` apart.  kind 0 is
-// afsk_pll, 1 bpsk.
+// K11.  L lanes on (R, T) input rows ``in_stride`` doubles apart (lane l
+// on row row_of_lane[l] < R), params (15, L), PLL_PARAMS then AGC_PARAMS
+// (dsp/loops.py), the two (256,) tables (cosine unused, and may be null,
+// for kind 0), out (L, T) rows ``out_stride`` apart; rows 16-byte aligned
+// with strides that are multiples of 2 and >= T (lane_tiles_f64.cuh;
+// dsp/loops.py pads other rows).  kind 0 is afsk_pll, 1 bpsk.
 extern "C" int coherent_loop_f64_lanes(const double* x, int in_stride,
                                        const int* row_of_lane, int R,
                                        const double* params,
@@ -110,25 +283,28 @@ extern "C" int coherent_loop_f64_lanes(const double* x, int in_stride,
                                        const double* cosine, double* out,
                                        int out_stride, int L, int T, int kind,
                                        void* stream) {
-  if (in_stride < T || out_stride < T || R < 1 || kind < 0 || kind > 1 ||
-      (kind == 1 && cosine == nullptr)) {
+  if ((R < 1 && L > 0) || kind < 0 || kind > 1 ||
+      (kind == 1 && cosine == nullptr) || !rows_ok(x, in_stride, T) ||
+      !rows_ok(out, out_stride, T)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const LoopKernel kernel = kind == 1 ? coherent_loop_f64_kernel<BpskCostas>
+                                      : coherent_loop_f64_kernel<AfskPll>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (L + kLanes - 1) / kLanes;
   if (blocks > 0 && T > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (kind == 1) {
-      coherent_loop_f64_kernel<true><<<blocks, kLanes, 0, s>>>(
-          x, in_stride, row_of_lane, params, sine, cosine, out, out_stride,
-          L, T);
-    } else {
-      coherent_loop_f64_kernel<false><<<blocks, kLanes, 0, s>>>(
-          x, in_stride, row_of_lane, params, sine, cosine, out, out_stride,
-          L, T);
-    }
+    kernel<<<blocks, (2 + kGainWarps) * kLanes, kSmemBytes,
+             static_cast<cudaStream_t>(stream)>>>(
+        x, in_stride, row_of_lane, R, params, sine, cosine, out, out_stride,
+        L, T);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// K11's dynamic shared memory a block, bytes
+extern "C" int coherent_loop_f64_smem_bytes() { return kSmemBytes; }
 
 // K13.  Input rows ``in_stride`` doubles apart (any stride >= T), lane l
 // on row l; params (5, L), AGC_PARAMS (dsp/agc.py); out (L, T) rows

@@ -77,7 +77,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
-__device__ __forceinline__ void bulk_load(float* smem, const float* gmem,
+// the copies take float rows (K1-K8) and double rows (lane_tiles_f64.cuh)
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
                                           unsigned bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
@@ -86,7 +87,7 @@ __device__ __forceinline__ void bulk_load(float* smem, const float* gmem,
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_store(float* gmem, const float* smem,
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
                                            unsigned bytes) {
   asm volatile(
       "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(

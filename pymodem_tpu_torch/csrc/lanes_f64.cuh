@@ -1,10 +1,13 @@
-// Device helpers shared by the float64 parity kernels K10-K16
-// (binary_slicer_f64.cu, coherent_loop_f64.cu for K11 and K13,
-// four_level_slicer_f64.cu, iq_loop_f64.cu for K14 and K15,
-// quadrature_slicer_f64.cu).
+// Device helpers shared by the float64 parity kernels K11-K16
+// (coherent_loop_f64.cu for K11 and K13, four_level_slicer_f64.cu,
+// iq_loop_f64.cu for K14 and K15, quadrature_slicer_f64.cu): the step
+// arithmetic of the AGC (``Agc``) and of the NCO, loop IIR and PI
+// (``Loop``), in the plain twins' op order.
 //
 // Those kernels replace lax.scan recurrences that the JAX package runs at
-// float64 (it runs no Pallas kernel at f64): one thread a lane, the lane's
+// float64 (it runs no Pallas kernel at f64).  K11 stages its rows in
+// shared memory (lane_tiles_f64.cuh, as K10 does) and takes only the
+// structs' pieces from here; K12-K16 run one thread a lane: the lane's
 // state in registers, its row read straight from global memory a chunk of
 // kChunk samples at a time (the loads of a chunk are independent of the
 // state, so they are in flight together), and every step in the plain
@@ -45,16 +48,27 @@ struct Agc {
         sustain_inc(rows[3 * stride]),
         target(rows[4 * stride]) {}
 
-  // one step, by selects in the twin's order; the output is
-  // (target * x) / env, and x itself while env is 0
-  __device__ __forceinline__ double step(double x) {
+  // the envelope and sustain update of one step, by selects in the twin's
+  // order; returns the new envelope
+  __device__ __forceinline__ double follow(double x) {
     const double cv = fabs(x);
     const bool rising = cv > env;
     env = rising ? min_nan(env + attack, cv) : env;
     sustain = rising ? 0.0 : sustain;
     env = sustain >= sustain_time ? max_nan(env - decay, 0.0) : env;
     sustain = sustain + sustain_inc;
-    return env != 0.0 ? target * x / env : x;
+    return env;
+  }
+
+  // the step's output for envelope e: (target * x) / e, an IEEE divide,
+  // and x itself while e is 0
+  __device__ __forceinline__ double gain(double x, double e) const {
+    return e != 0.0 ? target * x / e : x;
+  }
+
+  // one step: follow, then gain
+  __device__ __forceinline__ double step(double x) {
+    return gain(x, follow(x));
   }
 };
 
@@ -86,6 +100,26 @@ struct Loop {
     ph = ph >= kTwoPi ? ph - kTwoPi : ph;
     ph = ph < 0.0 ? ph + kTwoPi : ph;
     ph = ph < 0.0 ? ph + kTwoPi : ph;
+    phase = ph;
+    return static_cast<int>(__double2ll_rz(ph * index_scale)) &
+           (kTableSize - 1);
+  }
+
+  // nco() with its four conditional wraps as selects among candidates
+  // computed side by side, in fewer dependent steps: a phase at or above
+  // 2pi never ends below 0 (p - 2pi >= 0 exactly or after rounding, as
+  // rounding is monotone), and one below 0 is never wrapped down, so the
+  // taken path does nco()'s arithmetic and the phase and index are
+  // nco()'s bit for bit (K11's lane thread)
+  __device__ __forceinline__ int nco_select() {
+    const double p = phase + phase_scale * (set_freq + control);
+    const double d1 = p - kTwoPi;
+    const double d2 = d1 - kTwoPi;
+    const double u1 = p + kTwoPi;
+    const double u2 = u1 + kTwoPi;
+    const double down = d1 >= kTwoPi ? d2 : d1;
+    const double up = u1 < 0.0 ? u2 : u1;
+    const double ph = p >= kTwoPi ? down : (p < 0.0 ? up : p);
     phase = ph;
     return static_cast<int>(__double2ll_rz(ph * index_scale)) &
            (kTableSize - 1);

@@ -1,8 +1,9 @@
-// The pieces that the staged symbol-timing slicers K1, K7 and K8
-// (binary_slicer.cu, quadrature_slicer.cu, four_level_slicer.cu) share on
-// top of lane_tiles.cuh: the bit words their copy warps pack one tile ahead
-// of the lanes, and the window codes the lanes leave in a shared buffer for
-// the block to store in coalesced runs.
+// The pieces that the staged symbol-timing slicers K1, K7, K8 and K10
+// (binary_slicer.cu, quadrature_slicer.cu, four_level_slicer.cu,
+// binary_slicer_f64.cu) share on top of lane_tiles.cuh: the bit words
+// their copy warps pack one tile ahead of the lanes, and the window codes
+// the lanes leave in a shared buffer for the block to store in coalesced
+// runs.
 //
 // Bit words: per 32 samples of a rail, bit b of a word is a predicate of
 // sample b, formed as the plain twins (ops/slicers.py) form it: x >= 0,
@@ -45,6 +46,21 @@ __device__ __forceinline__ unsigned gt0(float4 a) {
          static_cast<unsigned>(a.w > 0.0f) << 3;
 }
 
+// the same over a double2 (bits 0 and 1), for the float64 slicer K10: the
+// predicates on the doubles themselves, so a negative subnormal is < 0
+__device__ __forceinline__ unsigned ge0(double2 a) {
+  return static_cast<unsigned>(a.x >= 0.0) |
+         static_cast<unsigned>(a.y >= 0.0) << 1;
+}
+__device__ __forceinline__ unsigned lt0(double2 a) {
+  return static_cast<unsigned>(a.x < 0.0) |
+         static_cast<unsigned>(a.y < 0.0) << 1;
+}
+__device__ __forceinline__ unsigned gt0(double2 a) {
+  return static_cast<unsigned>(a.x > 0.0) |
+         static_cast<unsigned>(a.y > 0.0) << 1;
+}
+
 // the sign words of 32 samples
 struct Signs {
   unsigned ge = 0, lt = 0, gt = 0;
@@ -61,6 +77,20 @@ __device__ __forceinline__ Signs signs32(const float* x) {
     s.ge |= ge0(a) << (4 * v);
     s.lt |= lt0(a) << (4 * v);
     if (kGt) s.gt |= gt0(a) << (4 * v);
+  }
+  return s;
+}
+
+// Signs of the 32 doubles at x (16-byte aligned shared memory).
+template <bool kGt>
+__device__ __forceinline__ Signs signs32(const double* x) {
+  Signs s;
+#pragma unroll
+  for (int v = 0; v < 16; ++v) {
+    const double2 a = *reinterpret_cast<const double2*>(x + 2 * v);
+    s.ge |= ge0(a) << (2 * v);
+    s.lt |= lt0(a) << (2 * v);
+    if (kGt) s.gt |= gt0(a) << (2 * v);
   }
   return s;
 }

@@ -45,12 +45,13 @@ the error up (in place of the Pallas kernel's minimax atan and of CUDA's
 are the reference's own wavetable and table, as the JAX f64 path gathers
 (``f64_nco_tables``).
 
-Float64 lanes on the card run the f64 kernels, one thread a lane in the
-twins' op order, the JAX package's f64 scans having no Pallas kernel to
-port: K11 (``coherent_loop_f64_lanes``), the AGC fused with the AFSK PLL
-or the BPSK Costas loop; K14 (``qpsk_costas_f64_lanes``), the QPSK Costas
-loop with 17 rows or 12; K15 (``mpsk_loop_f64_lanes``), the MPSK loop on
-the reference's detector table.  ``afsk_pll_lanes``,
+Float64 lanes on the card run the f64 kernels in the twins' op order, the
+JAX package's f64 scans having no Pallas kernel to port: K11
+(``coherent_loop_f64_lanes``), the AGC fused with the AFSK PLL or the BPSK
+Costas loop, staged as K2 and K3 are; and one thread a lane, K14
+(``qpsk_costas_f64_lanes``), the QPSK Costas loop with 17 rows or 12, and
+K15 (``mpsk_loop_f64_lanes``), the MPSK loop on the reference's detector
+table.  ``afsk_pll_lanes``,
 ``bpsk_costas_lanes``, ``qpsk_costas_lanes`` and ``mpsk_loop_lanes``
 route a float64 CUDA tensor to them.
 """
@@ -389,9 +390,9 @@ def _check_lanes(name, x, lane_params, n_rows, row_of_lane, *tables):
 
 
 def _staged_rows(x, L, row_of_lane):
-    """What the staged loop kernels (K2, K3, K5, K6) take for input rows:
-    ``x`` as bulk copies can move it (``_ext.lane_rows``) and each lane's
-    row, the identity when ``row_of_lane`` is None."""
+    """What the staged loop kernels (K2, K3, K5, K6, K11) take for input
+    rows: ``x`` as bulk copies can move it (``_ext.lane_rows``) and each
+    lane's row, the identity when ``row_of_lane`` is None."""
     from .. import _ext
 
     if row_of_lane is None:
@@ -493,7 +494,10 @@ def coherent_loop_f64_lanes(kind: str, x: torch.Tensor,
     ``afsk_pll_lanes``); the tables are the reference wavetable and, for
     ``bpsk``, the same table at index + 64 (``f64_nco_tables``).
     ``afsk_pll_lanes`` and ``bpsk_costas_lanes`` route float64 CUDA
-    tensors here.  Returns (L, T) float64.
+    tensors here.  Rows that are not 16-byte aligned a multiple of 2
+    doubles apart go to the kernel through a padded copy
+    (``_ext.lane_rows``).  Returns (L, T) float64, a view of padded rows
+    when T is odd.
 
     Only a CPU tensor takes the plain twins."""
     if kind not in ("afsk_pll", "bpsk"):
@@ -510,8 +514,9 @@ def coherent_loop_f64_lanes(kind: str, x: torch.Tensor,
     _ext.require_rows(x.device, torch.float64, x=x)
     _ext.require(x.device, torch.float64, lane_params=lane_params, **named)
     R, T = x.shape
-    row_of_lane = _lane_rows_f64(x, L, row_of_lane)
-    out = torch.empty((L, T), dtype=torch.float64, device=x.device)
+    x, row_of_lane = _staged_rows(x, L, row_of_lane)
+    out = torch.empty((L, -(-T // 2) * 2), dtype=torch.float64,
+                      device=x.device)
     _ext.launch("coherent_loop_f64_lanes", x.device,
                 (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_int) + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4,
@@ -520,7 +525,7 @@ def coherent_loop_f64_lanes(kind: str, x: torch.Tensor,
                 None if kind == "afsk_pll" else cos_table.data_ptr(),
                 out.data_ptr(), out.stride(0), L, T, int(kind == "bpsk"))
     coherent_loop_f64_lanes.launches += 1
-    return out
+    return out[:, :T]
 
 
 def qpsk_costas_lanes(x: torch.Tensor, lane_params: torch.Tensor,
@@ -606,7 +611,7 @@ def qpsk_costas_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
 
 
 def _lane_rows_f64(x, L, row_of_lane):
-    """Each lane's input row for the f64 loop kernels (K11, K14, K15),
+    """Each lane's input row for the f64 loop kernels K14 and K15,
     which read rows as they lie: ``row_of_lane``, or the identity."""
     from .. import _ext
 

@@ -435,15 +435,18 @@ def four_level_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor, demap,
     return out
 
 
-def _f64_slicer(entry, x, lane_params, window, *args):
+def _f64_slicer(entry, x, lane_params, window, *args, staged=False):
     """Launch K10 or K12 (``entry``) over the (L, T) float64 rows of ``x``
-    (unit stride, any row stride >= T: taken as they lie); returns the
-    (L, ceil(T/window)) int32 emission stream."""
+    (unit stride); returns the (L, ceil(T/window)) int32 emission stream.
+    K12 takes rows as they lie, at any row stride >= T; K10 (``staged``)
+    takes them as bulk copies can move them (``_ext.lane_rows``)."""
     from .. import _ext
 
     _ext.require(x.device, torch.float64, lane_params=lane_params)
     _ext.require_rows(x.device, torch.float64, x=x)
     L, T = x.shape
+    if staged:
+        x = _ext.lane_rows(x)
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
                       device=x.device)
     _ext.launch(entry, x.device,
@@ -459,15 +462,18 @@ def binary_slice_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     """Kernel K10 (``csrc/binary_slicer_f64.cu``), the float64 binary
     slicer, over (L, T) float64 lanes with (2, L) float64 rows (sps,
     lock_rate); ``binary_slice_lanes`` routes float64 CUDA tensors here.
-    Its emissions are K1's.  Only a CPU tensor takes the plain twin
-    ``binary_slice``."""
+    Its emissions are K1's.  ``x``'s rows need unit stride; rows that are
+    not 16-byte aligned a multiple of 2 doubles apart go to the kernel
+    through a padded copy (``_ext.lane_rows``).  Only a CPU tensor takes
+    the plain twin ``binary_slice``."""
     if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
         raise ValueError(f"bad shapes x {tuple(x.shape)} "
                          f"lane_params {tuple(lane_params.shape)}")
     _check_window(window)
     if x.device.type == "cpu":
         return binary_slice(x, lane_params, window)
-    out = _f64_slicer("binary_slice_f64_lanes", x, lane_params, window)
+    out = _f64_slicer("binary_slice_f64_lanes", x, lane_params, window,
+                      staged=True)
     binary_slice_f64_lanes.launches += 1
     return out
 

@@ -930,31 +930,54 @@ def test_cli_after_a_device_side_fault(cuda, tmp_path):
 
 def _f64_rows(lanes, rows, T, device):
     """(x, lane_params): float64 slicer lanes (``_lanes``' symbols), as
-    they are or as a view of rows 5 doubles longer (a FIR's output)."""
+    they are, as a view of rows 5 doubles longer (a FIR's output), or
+    (``special``) with negative subnormals, which a float32 cast would
+    round to -0.0, and NaNs sprinkled over them."""
     x, lp = _lanes(11, lanes, T, device)
     x, lp = x.double(), lp.double()
     if rows == "strided":
         wide = x.new_zeros((lanes, T + 5))
         wide[:, :T] = x
         x = wide[:, :T]
+    elif rows == "special":
+        x[:, 3::17] = -4.9e-324
+        x[:, 8::23] = -2.5e-310
+        x[:, 5::29] = float("nan")
+        x[:, 11::31] = 2.5e-310
     return x, lp
 
 
-@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+# T at the edges of the staged f64 kernels' tiles (64 samples for K11, 128
+# for K10): 1 sample, a tile less 1, a tile, two tiles and 1
+_K11_T_EDGES = [1, 63, 64, 129]
+_K10_T_EDGES = [1, 127, 128, 257]
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5, *_K10_T_EDGES])
 @pytest.mark.parametrize("lanes,rows", [(300, "as_they_are"), (1, "as_they_are"),
-                                        (45, "strided")])
+                                        (45, "strided"), (70, "special")])
 @pytest.mark.parametrize("window", [1, 8, 256])
 def test_binary_slicer_f64_kernel_matches_twin(cuda, window, lanes, rows, T):
     """K10 equals the f64 twin bitwise; binary_slice_lanes routes float64
-    to it, never to K1."""
+    to it, never to K1.  Rows at an odd stride (T + 5 doubles, T even) or
+    of odd T go through a padded copy, the others as they lie; negative
+    subnormals decide 0 and cross as negatives, NaNs cross nothing."""
+    from pymodem_tpu_torch import _ext
+
     x, lp = _f64_rows(lanes, rows, T, cuda)
+    if rows == "special":
+        assert bool(x.isnan().any()) or T < 6
     k1 = tsl.binary_slice_lanes.launches
     k10 = tsl.binary_slice_f64_lanes.launches
+    copies = _ext.lane_rows.copies
     got = tsl.binary_slice_lanes(x, lp, window)
     assert tsl.binary_slice_lanes.launches == k1
     assert tsl.binary_slice_f64_lanes.launches == k10 + 1
+    assert _ext.lane_rows.copies == copies + (not _ext.rows_aligned(x))
+    assert _ext.rows_aligned(x) == (x.stride(0) % 2 == 0)
     assert torch.equal(got, tsl.binary_slice(x, lp, window))
-    assert int((got != 0).sum()) > 0
+    if T >= 3 * 128 + 5:
+        assert int((got != 0).sum()) > 0
 
 
 @pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
@@ -998,16 +1021,35 @@ def _f64_loop_case(device, lanes, n_rows, T, seed=5):
     return to(x), to(rows), to(rol), to(sine), to(cos)
 
 
-@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
-@pytest.mark.parametrize("lanes,n_rows", [(1, 1), (200, 7), (33, 33)])
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5, *_K11_T_EDGES])
+@pytest.mark.parametrize("lanes,n_rows", [(1, 1), (200, 7), (33, 33),
+                                          (45, "strided"), (70, "special")])
 @pytest.mark.parametrize("kind", ["afsk_pll", "bpsk"])
 def test_coherent_loop_f64_kernel_matches_twin(cuda, kind, lanes, n_rows, T):
     """K11, both kinds, on shared rows (``row_of_lane``): bitwise equal to
     the f64 twin; afsk_pll_lanes and bpsk_costas_lanes route float64 to
-    it, never to K2 or K3."""
-    x, rows, rol, sine, cos = _f64_loop_case(cuda, lanes, n_rows, T)
+    it, never to K2 or K3.  ``strided``: one row a lane, a view of rows
+    T + 5 doubles apart (a padded copy where that is odd); ``special``:
+    row 0 zero for its first 40 samples (the envelope stays 0 and x
+    passes) and a NaN in row 1, both read by lanes (NaNs equal as NaNs).
+    Rows of odd T go through a padded copy, and the output is then a view
+    of padded rows."""
+    from pymodem_tpu_torch import _ext
+
+    x, rows, rol, sine, cos = _f64_loop_case(
+        cuda, lanes, lanes if isinstance(n_rows, str) else n_rows, T)
+    if n_rows == "strided":
+        wide = x.new_zeros((lanes, T + 5))
+        wide[:, :T] = x
+        x = wide[:, :T]
+        rol = torch.arange(lanes, dtype=torch.int32, device=cuda)
+    elif n_rows == "special":
+        x[0, :40] = 0.0
+        x[1, T // 2] = float("nan")
+        rol[:2] = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
     f32 = (tloops.afsk_pll_lanes.launches, tloops.bpsk_costas_lanes.launches)
     k11 = tloops.coherent_loop_f64_lanes.launches
+    copies = _ext.lane_rows.copies
     if kind == "afsk_pll":
         got = tloops.afsk_pll_lanes(x, rows, sine, rol)
         want = tloops.afsk_pll(x, rows, sine, rol)
@@ -1017,8 +1059,15 @@ def test_coherent_loop_f64_kernel_matches_twin(cuda, kind, lanes, n_rows, T):
     assert (tloops.afsk_pll_lanes.launches,
             tloops.bpsk_costas_lanes.launches) == f32
     assert tloops.coherent_loop_f64_lanes.launches == k11 + 1
-    assert got.dtype == torch.float64 and torch.isfinite(got).all()
-    assert torch.equal(got, want)
+    assert _ext.rows_aligned(x) == (x.stride(0) % 2 == 0)
+    assert _ext.lane_rows.copies == copies + (not _ext.rows_aligned(x))
+    assert got.dtype == torch.float64 and got.shape == (lanes, T)
+    if n_rows == "special":
+        assert _same_bits(got, want) and bool(got.isnan().any())
+        assert bool((got[0, :40] == 0).all())
+    else:
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want)
 
 
 def test_f64_wrappers_refuse_mixed_dtypes(cuda):
