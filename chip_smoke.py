@@ -171,9 +171,9 @@ Phases, each printing one line with its seconds:
     ``mpsk_bpsk1200_pair`` and ``qpsk_costas2400_sweep8`` (their own
     inputs: shared rows and ``row_of_lane``, analytic rows, detector
     tables, basebands, windows); each kernel timed at full shape, the
-    twins at 4101 samples on the banks; the staged K10 and K11 also on
-    views of 4100 samples at the rows' own stride (the timed call's
-    route), with their dynamic shared memory and whether each full
+    twins at 4101 samples on the banks; the staged K10, K11, K15 and K16
+    also on views of 4100 samples at the rows' own stride (the timed
+    call's route), with their dynamic shared memory and whether each full
     shape's rows went through a padded copy;
 26. the float64 mode end to end, the launch counters set to 0 before each
     run and read after: the executor (the mode's default route) on 60 s
@@ -186,8 +186,8 @@ Phases, each printing one line with its seconds:
     K10-K16 launched as each family needs and no f32 loop or slicer
     kernel (K1-K8); walls beside the same plans at f32 (the banks' min /
     median / max of WARM_RUNS warm runs), the packets that differ between
-    the two, peak device memory, the padded-row copies made for K10 and
-    K11;
+    the two, peak device memory, the padded-row copies made for the
+    staged K10, K11, K15 and K16;
 27. the CLI as a subprocess with ``PYMODEM_TPU_TORCH_X64=1`` on the PLL
     pair's config and a few seconds of audio (2 frames): exit 0 and the report of the same
     decode on the CPU twins (``run_decode`` with
@@ -326,14 +326,18 @@ FULL_POWER_W = 700.0
 # decodes every frame)
 F64_CUT = SLICE + 5
 F64_SWEEP_GAINS = [0.97 + 0.01 * i for i in range(8)]
-# K10 and K11 before their redesign (one thread a lane; PERF.md, H100 80GB
-# HBM3 at 700 W): ms at full shape on pll_sweep8 at f64, on
-# bpsk1200_sweep8 and on the executor's lane of the PLL pair's chain
+# the staged f64 kernels before their redesign (one thread a lane; PERF.md,
+# H100 80GB HBM3 at 700 W): ms at full shape on the banks at f64 and on
+# the executor's lane of a chain
 F64_BEFORE_MS = {
     "K10": {"pll_sweep8": 15.431, "bpsk1200_sweep8": 42.846,
             "afsk300_pll": 21.868},
     "K11": {"pll_sweep8": 41.230, "bpsk1200_sweep8": 114.359,
-            "afsk300_pll": 116.756}}
+            "afsk300_pll": 116.756},
+    "K15": {"qpsk2400_sweep8": 90.461, "mpsk_bpsk1200_pair": 119.350,
+            "mpsk_qpsk2400": 664.278},
+    "K16": {"qpsk2400_sweep8": 42.590, "mpsk_bpsk1200_pair": 53.378,
+            "mpsk_qpsk2400": 238.487}}
 
 
 def _phase(n: int, what: str, t0: float) -> None:
@@ -767,24 +771,37 @@ def _same(what: str, got, want) -> float:
     return err
 
 
-def _same_route(what: str, *rows, aligned: bool) -> None:
-    """Raise unless the staged lane kernels (K1-K8, K10, K11) take
-    ``rows`` as they are (``aligned``) or through padded copies (not
-    ``aligned``)."""
+def _rows_route(*rails) -> bool:
+    """Whether the staged lane kernels take ``rails`` as they are: one
+    rail by ``_ext.rows_aligned``, two (the two-rail kernels K6, K7, K15,
+    K16, one row stride for both) by ``_ext.pair_aligned``."""
     from pymodem_tpu_torch import _ext
 
-    if any(_ext.rows_aligned(t) != aligned for t in rows):
+    if len(rails) == 2:
+        return _ext.pair_aligned(*rails)
+    (x,) = rails
+    return _ext.rows_aligned(x)
+
+
+def _same_route(what: str, *rows, aligned: bool) -> None:
+    """Raise unless the staged lane kernels (K1-K8, K10, K11, K15, K16)
+    take ``rows`` as they are (``aligned``) or through padded copies (not
+    ``aligned``)."""
+    if _rows_route(*rows) != aligned:
         raise AssertionError(f"{what}: expected rows the kernel copies "
                              f"{'as they are' if aligned else 'padded'}")
 
 
-def _copy_ms(x) -> float:
-    """Milliseconds of the padded-row copy the staged kernels make of
-    ``x`` (``_ext.lane_rows``), 0 when they take its rows as they are."""
+def _copy_ms(*rails) -> float:
+    """Milliseconds of the padded-row copies the staged kernels make of
+    ``rails`` (``_ext.lane_rows``, or ``_ext.lane_rows_pair`` for two),
+    0 when they take them as they are."""
     from pymodem_tpu_torch import _ext
 
-    return 0.0 if _ext.rows_aligned(x) else _time_ms(
-        lambda: _ext.lane_rows(x), 3)
+    if _rows_route(*rails):
+        return 0.0
+    copy = _ext.lane_rows_pair if len(rails) == 2 else _ext.lane_rows
+    return _time_ms(lambda: copy(*rails), 3)
 
 
 def _tree_f64(tree):
@@ -1910,7 +1927,9 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
     held = {}  # key -> [(where, entry)]
     smem = {key: _ext.kernel(entry, ())() for key, entry in (
         ("K10", "binary_slice_f64_smem_bytes"),
-        ("K11", "coherent_loop_f64_smem_bytes"))}
+        ("K11", "coherent_loop_f64_smem_bytes"),
+        ("K15", "mpsk_loop_f64_smem_bytes"),
+        ("K16", "quadrature_slice_f64_smem_bytes"))}
     designs = {
         "K10": "K1's design at f64: a lane warp and a copy warp a block of "
                "32 lanes, 128-sample tiles in 3 stages by bulk copies, sign "
@@ -1921,19 +1940,33 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                "copies, the AGC follower a tile ahead) and one gain warp "
                "(AGC quotients a tile ahead) a block of 32 lanes, "
                f"64-sample tiles in 5 stages of 2 rails; {smem['K11']} B of "
-               "dynamic shared memory"}
-    print(f"K10 and K11, staged: dynamic shared memory {smem} B a block; "
-          "K11's gain warps: 1 (csrc/coherent_loop_f64.cu kGainWarps)")
+               "dynamic shared memory",
+        "K15": "K6's design at f64: a lane warp and a copy warp a block of "
+               "32 lanes, 64-sample tiles in 3 stages of 2 rails by bulk "
+               "copies, outputs in place stored by the copy warp, the NCO "
+               "as one (cos, -sin) double2 (Loop::nco_select), the "
+               "detector tables staged as doubles up to 3 of 4096 "
+               f"entries; {smem['K15']} B of dynamic shared memory and "
+               "8 B a staged table entry",
+        "K16": "K7's design at f64: a lane warp and a copy warp a block of "
+               "32 lanes, 128-sample tiles in 3 stages of 2 rails by bulk "
+               "copies, sign and crossing words of both rails packed a "
+               "tile ahead, window codes stored in coalesced runs; "
+               f"{smem['K16']} B of dynamic shared memory"}
+    print(f"K10, K11, K15 and K16, staged: dynamic shared memory {smem} B "
+          "a block (K15: 8 B more a staged detector-table entry); K11's "
+          "gain warps: 1 (csrc/coherent_loop_f64.cu kGainWarps)")
 
     def hold(key, where, kernel, twin, x, n_lanes, n_bytes, ops_a_step):
         """``kernel`` against ``twin`` on the first F64_CUT samples of the
         rows ``x`` (or of each rail of a tuple of them) at the full lane
         count: bitwise; the kernel timed at full shape (3 runs a bank's
         lanes, 1 the executor's lane), the twin's call on the cut.  The
-        staged K10 and K11 are held on two cuts, as K1-K8 are: views of
-        the first ALIGNED_CUT samples, which the kernel reads at the rows'
-        own stride, by the route of the timed call (as they lie, or
-        through ``_ext.lane_rows``' padded copy), and a contiguous copy of
+        staged K10, K11, K15 and K16 are held on two cuts, as K1-K8 are:
+        views of the first ALIGNED_CUT samples, which the kernel reads at
+        the rows' own stride, by the route of the timed call (as they lie,
+        or through ``_ext.lane_rows``' or ``_ext.lane_rows_pair``' padded
+        copies), and a contiguous copy of
         the first PADDED_CUT samples, whose odd stride takes the padded
         copy; for them, the full rows' route (the copy's time inside the
         kernel's) and the time before the redesign are printed."""
@@ -1950,7 +1983,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                         for r in rails)
             if staged:
                 _same_route(f"{key} on {where}, {n} samples", *cut,
-                            aligned=view and _ext.rows_aligned(rails[0]))
+                            aligned=view and _rows_route(*rails))
             got = kernel(*cut)
             cut = tuple(c.contiguous() for c in cut)
             # the twin's one call, timed by CUDA events (4101 steps of its
@@ -1974,14 +2007,14 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         equal_on = f"{n_lanes}x{F64_CUT}"
         extra = ""
         if staged:
-            aligned = _ext.rows_aligned(rails[0])
+            aligned = _rows_route(*rails)
             equal_on = (f"{n_lanes}x{ALIGNED_CUT} (views of the rows, "
                         f"{'as they lie' if aligned else 'padded'}) and "
                         f"{n_lanes}x{PADDED_CUT} (padded rows)")
             before = next((v for name_, v in F64_BEFORE_MS[key].items()
                            if name_ in where), None)
             route = ("as they lie" if aligned else
-                     f"through a padded copy ({_copy_ms(rails[0]):.3f} ms "
+                     f"through padded copies ({_copy_ms(*rails):.3f} ms "
                      "of the kernel's time)")
             extra = f"; full rows {route}"
             if before is not None:
@@ -2172,8 +2205,8 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         """One f64 run with the counters set to 0 before and read after:
         fails unless it launched each of ``need`` and no f32 loop or
         slicer kernel (K1-K8).  Returns the result, the wall, the peak
-        device memory, the launches and the padded-row copies made for K10
-        and K11 (``_ext.lane_rows``)."""
+        device memory, the launches and the padded-row copies made for the
+        staged K10, K11, K15 and K16 (``_ext.lane_rows.copies``)."""
         zero_counts()
         _ext.lane_rows.copies = 0
         torch.cuda.reset_peak_memory_stats()
@@ -2246,8 +2279,8 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         walls[f"executor {name}"] = (wall, wall32)
         print(f"f64 executor {name}: {len(chains)} chain(s) x "
               f"{len(wave) / rate:.0f} s, {len(sent)} frames decoded, 0 "
-              f"rejected; launches {launched}, padded-row copies for K10 "
-              f"and K11 {copies}; wall {wall:.3f} s at f64, "
+              f"rejected; launches {launched}, padded-row copies for the "
+              f"staged K10, K11, K15, K16 {copies}; wall {wall:.3f} s at f64, "
               f"{wall32:.3f} s at f32; packets differing between f64 and "
               f"f32: {len(a ^ b)} of {len(a | b)}; peak device memory "
               f"{peak / 2**30:.2f} GiB [{smi}]")
@@ -2318,7 +2351,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
               f"{-(-plan_b.n_blocks // tbank.blocks_per_group(bank_, plan_b))}"
               f" group(s)), {len(sent)} "
               f"frames decoded, 0 rejected; launches {launched}, padded-row "
-              f"copies for K10 and K11 {copies}; warm walls of {WARM_RUNS}, "
+              f"copies for the staged K10, K11, K15, K16 {copies}; warm walls of {WARM_RUNS}, "
               f"min / median / max, {_spread(walls64)} s at f64, "
               f"{_spread(walls32)} s at f32; packets "
               f"differing between f64 and f32: {len(a ^ b)} of "

@@ -137,7 +137,8 @@ def require(device, dtype, **tensors) -> None:
 
 def require_rows(device, dtype, **tensors) -> None:
     """``require`` for the (n, T) inputs of the kernels that take rows of
-    unit stride that need not follow one another (``lane_rows``)."""
+    unit stride that need not follow one another (``lane_rows``,
+    ``lane_rows_pair``)."""
     _require(device, dtype, lambda t: t.ndim == 2 and t.stride(-1) == 1,
              "(n, T) with contiguous rows", tensors)
 
@@ -159,35 +160,69 @@ BULK_BYTES = 16
 
 
 def rows_aligned(t) -> bool:
-    """Whether the staged lane kernels (K1-K8, K10, K11) can copy the rows
-    of the (n, T) tensor ``t`` (rows of unit stride) as they are, by bulk
-    copies: 16-byte aligned starts a multiple of 16 bytes apart (4 floats,
-    2 doubles).  For a contiguous ``t``: T floats a multiple of 4, T
-    doubles a multiple of 2."""
+    """Whether the staged lane kernels (K1-K8, K10, K11, K15, K16) can copy
+    the rows of the (n, T) tensor ``t`` (rows of unit stride) as they are,
+    by bulk copies: 16-byte aligned starts a multiple of 16 bytes apart (4
+    floats, 2 doubles).  For a contiguous ``t``: T floats a multiple of 4,
+    T doubles a multiple of 2."""
     return (t.stride(-1) == 1
             and t.stride(0) * t.element_size() % BULK_BYTES == 0
             and t.stride(0) >= t.shape[-1]
             and t.data_ptr() % BULK_BYTES == 0)
 
 
-def lane_rows(t):
-    """The rows of the (n, T) tensor ``t`` (rows of unit stride) as the
-    staged lane kernels (K1-K8, K10, K11) copy them: ``t`` itself when
-    ``rows_aligned``, else a copy into rows of T rounded up to a multiple
-    of 16 bytes (4 floats, 2 doubles), zero-padded.  The kernels take the
-    row stride, ``.stride(0)``, and read T samples a row.
-    ``lane_rows.copies`` counts the copies."""
-    if rows_aligned(t):
-        return t
+def _padded(t, stride: int):
+    """A zero-padded copy of the (n, T) rows of ``t`` into rows ``stride``
+    elements apart, counted in ``lane_rows.copies``."""
     n, T = t.shape
-    per = BULK_BYTES // t.element_size()
-    out = t.new_zeros((n, -(-T // per) * per))
+    out = t.new_zeros((n, stride))
     out[:, :T] = t
     lane_rows.copies += 1
     return out
 
 
+def lane_rows(t):
+    """The rows of the (n, T) tensor ``t`` (rows of unit stride) as the
+    staged lane kernels of one input rail (K1-K5, K8, K10, K11) copy them:
+    ``t`` itself when ``rows_aligned``, else a copy into rows of T rounded
+    up to a multiple of 16 bytes (4 floats, 2 doubles), zero-padded.  The
+    kernels take the row stride, ``.stride(0)``, and read T samples a row.
+    ``lane_rows.copies`` counts the copies."""
+    if rows_aligned(t):
+        return t
+    per = BULK_BYTES // t.element_size()
+    return _padded(t, -(-t.shape[1] // per) * per)
+
+
 lane_rows.copies = 0
+
+
+def pair_aligned(a, b) -> bool:
+    """Whether the staged two-rail kernels (K6, K7, K15, K16), which take
+    one row stride for both rails, can copy the rows of ``a`` and ``b`` as
+    they are: both ``rows_aligned`` and as far apart."""
+    return rows_aligned(a) and rows_aligned(b) and a.stride(0) == b.stride(0)
+
+
+def lane_rows_pair(a, b):
+    """The two (n, T) rails ``a`` and ``b`` (same shape and dtype, rows of
+    unit stride) as the staged two-rail kernels (K6, K7, K15, K16) copy
+    them: at one row stride, each 16-byte aligned.  Both as they are when
+    ``pair_aligned``; else a rail that is ``rows_aligned`` stays as it is
+    and the other is copied, zero-padded, into rows of its stride; else
+    both are copied into rows of T rounded up to 16 bytes.  Returns (n, T)
+    views whose ``.stride(0)`` the kernels take for both rails; each copy
+    counts in ``lane_rows.copies``."""
+    if pair_aligned(a, b):
+        return a, b
+    T = a.shape[1]
+    if rows_aligned(a):
+        return a, _padded(b, a.stride(0))[:, :T]
+    if rows_aligned(b):
+        return _padded(a, b.stride(0))[:, :T], b
+    per = BULK_BYTES // a.element_size()
+    stride = -(-T // per) * per
+    return _padded(a, stride)[:, :T], _padded(b, stride)[:, :T]
 
 
 def launch(name: str, device, argtypes: tuple, *args) -> None:

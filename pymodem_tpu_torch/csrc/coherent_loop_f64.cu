@@ -54,7 +54,7 @@
 // over its input, and copy thread l runs lane l's Agc::follow over tile
 // k, writing the envelopes into the stage's second rail; the copy warp
 // also stores tile k - 3 and loads tile k + 1, one bulk copy a lane each.
-// The lane thread's chain is the NCO (Loop::nco_select, nco's wraps as
+// The lane thread's chain is the NCO (Loop::nco_select, its wraps as
 // selects side by side), the table read, the mixer and Loop::filter, ~25
 // dependent operations; it reads its gained row as double2s and writes
 // its output (afsk_pll prop, bpsk i) in place.  The table is one

@@ -26,29 +26,52 @@
 //        rint(prop + integral) (half to even, as torch.round and
 //        jnp.round); outputs (re', im').
 //
-// What bounds it: each lane is one sequential recurrence of ~50 (K14)
-// and ~45 (K15) dependent f64 operations a step, with two shared-memory
-// gathers (K15 three), and the lanes (944 on the 8-chain PSK banks) are the
-// parallelism; 16 (K14) or 32 (K15) bytes a sample move.
+// What bounds it on an H100: each lane is one sequential recurrence of
+// ~50 (K14) and ~45 (K15) dependent f64 operations a step, with one or two
+// shared-memory gathers, and the lanes (944 on the 8-chain PSK banks, one
+// on the executor) are the parallelism, so the run time is T times one
+// step's latency; 16 (K14) or 32 (K15) bytes a sample move.  One thread a
+// lane, K15 took 265.5 ns a step at one lane and 300.8 ns on bank lanes,
+// whose two rows a warp read 8 samples at a time, one exposed memory round
+// trip a chunk.
 //
-// Design (lanes_f64.cuh): one thread a lane, 32 lanes a block; lane l
-// reads input row row_of_lane[l] (a pre-shared bank's B shared rows)
-// straight from global memory in chunks; the NCO's wavetable and its
-// quarter-turn shift (and for K15 the detector tables, (U, g*g) int32,
-// when they fit) in shared memory; every carry in registers.
+// K14 (lanes_f64.cuh): one thread a lane, 32 lanes a block; lane l reads
+// input row row_of_lane[l] (a pre-shared bank's B shared rows) straight
+// from global memory in chunks; the NCO's wavetable and its quarter-turn
+// shift in shared memory; every carry in registers.
+//
+// K15 (lane_tiles_f64.cuh; K6's design at f64): a block serves 32 lanes
+// with a lane warp and a copy warp, and walks time in tiles of 64 samples
+// over three stages of two rails (101,376 B): while the lanes run tile k,
+// the copy warp stores tile k - 1 and loads tile k + 1, one bulk copy a
+// lane and rail (the copy warp only copies, so K6's three stages cover it;
+// 64-sample tiles leave room for three detector tables as doubles).  Lane
+// l reads input row row_of_lane[l] (a pre-shared bank's B shared rows),
+// as double2s, and writes re' and im' back in place for the copy warp to
+// store.  Off the lane's dependency chain: the NCO's four wraps, as
+// selects side by side (Loop::nco_select); its sine and cosine, one shared
+// (cos, -sin) double2 a step (negating is exact); the detector table's
+// int-to-double conversion, by a table staged as doubles (exact) when the
+// bank's tables fit beside the tiles (dsp/loops.py mpsk_f64_tables_staged
+// says when, in the same bytes), else read as int32 through the read-only
+// cache; and floor then int, as one rounding-down conversion.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "lane_tiles_f64.cuh"
 #include "lanes_f64.cuh"
 
 namespace {
 
 using namespace pymodem::f64;
 
-// K15's detector tables staged in dynamic shared memory up to this many
-// bytes (Hopper: 227 KB a block; the NCO tables take 4 KB static), else
-// read from global memory through the read-only cache
-constexpr int kPdSharedMax = 200 * 1024;
+constexpr int kTile = 64;  // K15: samples a tile
+constexpr int kStride = row_stride(kTile);  // doubles a lane row of a rail
+// tile k + 1 loads while tile k runs and tile k - 1 stores
+constexpr int kStages = 3;
+constexpr int kRail = kLanes * kStride;  // doubles of one rail of a stage
+constexpr size_t kTileBytes = 8 * 2 * kStages * kRail;  // both rails
 
 __device__ __forceinline__ double sgn(double v) {
   return v >= 0.0 ? 1.0 : -1.0;
@@ -83,7 +106,7 @@ __global__ void __launch_bounds__(kLanes)
       x + static_cast<size_t>(row_of_lane[lane]) * in_stride, T,
       [&](int t, double v) {
         const double xs = kAgc ? agc.step(v) : v;
-        const int idx = loop.nco();
+        const int idx = loop.nco_select();
         const double i_mixer = xs * cos_s[idx];
         const double cos_out = (bb0 * i_mixer + bb0 * cos_x) + ba1 * cos_y;
         const double q_mixer = xs * sin_s[idx];
@@ -100,11 +123,13 @@ __global__ void __launch_bounds__(kLanes)
       });
 }
 
+// K15: warp 0 is the lanes, warp 1 the copy warp (it starts its lane's
+// bulk loads and stores, so the lanes never wait on a copy's start).
 template <bool kPdShared>
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(2 * kLanes, 1)
     mpsk_loop_f64_kernel(const double* __restrict__ re,
                          const double* __restrict__ im, int in_stride,
-                         const int* __restrict__ row_of_lane,
+                         const int* __restrict__ row_of_lane, int n_rows,
                          const double* __restrict__ params,
                          const double* __restrict__ sine,
                          const double* __restrict__ cosine,
@@ -113,53 +138,163 @@ __global__ void __launch_bounds__(kLanes)
                          double* __restrict__ out_re,
                          double* __restrict__ out_im, int out_stride, int L,
                          int T, int g, int n_tables) {
-  __shared__ double sin_s[kTableSize];
-  __shared__ double cos_s[kTableSize];
-  extern __shared__ int pd_s[];
-  stage(sin_s, sine, kTableSize);
-  stage(cos_s, cosine, kTableSize);
+  // [stage][rail][lane][kStride] tiles (rail 0 re, then re'; rail 1 im,
+  // then im'), the (cos, -sin) table, then the detector tables as doubles
+  // when they are staged
+  extern __shared__ __align__(16) double smem[];
+  __shared__ uint64_t bars[kStages];
+  double2* sc = reinterpret_cast<double2*>(smem + 2 * kStages * kRail);
+  double* pd_shared = reinterpret_cast<double*>(sc + kTableSize);
+  const int tid = threadIdx.x;
+  const bool copier = tid >= kLanes;
+  const int r = copier ? tid - kLanes : tid;  // the lane row this thread serves
+  const int lane0 = blockIdx.x * kLanes;
+  const int lane = lane0 + r;
+  const bool active = lane < L;
+  const int n_active = min(kLanes, L - lane0);
   const int gg = g * g;
-  if (kPdShared) stage(pd_s, pd_tables, n_tables * gg);
+  for (int k = tid; k < kTableSize; k += 2 * kLanes) {
+    sc[k] = make_double2(cosine[k], -sine[k]);
+  }
+  if (kPdShared) {
+    // int32 to double is exact
+    for (int k = tid; k < n_tables * gg; k += 2 * kLanes) {
+      pd_shared[k] = static_cast<double>(pd_tables[k]);
+    }
+  }
+  if (tid < kStages) pymodem::mbar_init(&bars[tid]);
   __syncthreads();
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
-  if (lane >= L) return;
-  const double* p = params + lane;
-  Loop loop(p, L);
+
+  const int pl = active ? lane : 0;
+  // the clamps only keep a mismatched call inside the rows and tables
+  const size_t row =
+      static_cast<size_t>(min(max(row_of_lane[pl], 0), n_rows - 1)) *
+      in_stride;
+  Loop loop(params + pl, L);
   // row 11 is the lane's granularity (row 10, pd_gain, built its table);
   // int() of it as the twin's .to(int32), kept within the tables' g so a
   // mismatched call reads inside its table
-  const double gf = p[11 * L];
+  const double gf = params[11 * L + pl];
   const int gi = min(max(static_cast<int>(gf), 0), g);
   const double half = gf * 0.5;
-  const int* table = (kPdShared ? pd_s : pd_tables) +
-                     static_cast<size_t>(pd_index[lane]) * gg;
-  const size_t row = static_cast<size_t>(row_of_lane[lane]) * in_stride;
-  double* rrow = out_re + static_cast<size_t>(lane) * out_stride;
-  double* mrow = out_im + static_cast<size_t>(lane) * out_stride;
-  for_each_pair(re + row, im + row, T, [&](int t, double a_re, double a_im) {
-    const int idx = loop.nco();
-    const double s = sin_s[idx], c = cos_s[idx];
-    const double o_re = (a_re * c) - (a_im * -s);
-    const double o_im = (c * a_im) + (a_re * -s);
-    // quantise (floor, then int: exact for the in-range values), clamp
-    // to +-(g-1) in the twin's order, fold into the first quadrant
-    int r = static_cast<int>(floor(o_re * half));
-    int i = static_cast<int>(floor(o_im * half));
-    r = r >= gi ? gi - 1 : r;
-    i = i >= gi ? gi - 1 : i;
-    r = r <= -gi ? -(gi - 1) : r;
-    i = i <= -gi ? -(gi - 1) : i;
-    const bool rn = r >= 0, in = i >= 0;
-    const int a = rn ? (in ? r : -i) : (in ? i : -r);
-    const int b = rn ? (in ? i : r) : (in ? -r : -i);
-    const double e =
-        static_cast<double>(kPdShared ? table[a * gi + b]
-                                      : __ldg(table + a * gi + b));
+  const int which = min(max(pd_index[pl], 0), n_tables - 1);
+  const double* table_d = pd_shared + static_cast<size_t>(which) * gg;
+  const int* table_i = pd_tables + static_cast<size_t>(which) * gg;
+
+  // one sample: (re, im) rotated by the NCO into (o_re, o_im), then the
+  // detector and the loop update
+  auto step = [&](double a_re, double a_im, double& o_re, double& o_im) {
+    const double2 cs = sc[loop.nco_select()];
+    o_re = (a_re * cs.x) - (a_im * cs.y);
+    o_im = (cs.x * a_im) + (a_re * cs.y);
+    // quantise (floor, then int: one rounding-down conversion, which
+    // saturates out of range and takes NaN to 0 as the twin's floor then
+    // .to(int32) does on the card), clamp to +-(g-1) (r >= g and r <= -g
+    // are r > g-1 and r < -(g-1)), fold into the first quadrant
+    const int qr = max(min(__double2int_rd(o_re * half), gi - 1), -(gi - 1));
+    const int qi = max(min(__double2int_rd(o_im * half), gi - 1), -(gi - 1));
+    const bool rn = qr >= 0, in = qi >= 0;
+    const int a = rn ? (in ? qr : -qi) : (in ? qi : -qr);
+    const int b = rn ? (in ? qi : qr) : (in ? -qr : -qi);
+    const int flat = a * gi + b;
+    const double e = kPdShared ? table_d[flat]
+                               : static_cast<double>(__ldg(table_i + flat));
     const double prop = loop.filter(e);
     loop.control = rint(prop + loop.integral);
-    rrow[t] = o_re;
-    mrow[t] = o_im;
-  });
+  };
+  auto tile_n = [&](int k) { return min(kTile, T - k * kTile); };
+  auto rail_at = [&](int k, int rail) {
+    return smem + (2 * (k % kStages) + rail) * kRail + r * kStride;
+  };
+  // copy warp: tile k of both rails into its stage by one bulk copy a lane
+  // and rail, completing on the stage's barrier
+  auto fetch = [&](int k) {
+    const unsigned bytes = tile_bytes(tile_n(k));
+    uint64_t* bar = &bars[k % kStages];
+    if (r == 0) pymodem::mbar_expect(bar, 2u * bytes * n_active);
+    if (active) {
+      pymodem::bulk_load(rail_at(k, 0), re + row + k * kTile, bytes, bar);
+      pymodem::bulk_load(rail_at(k, 1), im + row + k * kTile, bytes, bar);
+    }
+  };
+  // copy warp: tile k (re', im' in place in its stage) to the outputs
+  auto store = [&](int k) {
+    if (active) {
+      const size_t o = static_cast<size_t>(lane) * out_stride + k * kTile;
+      const unsigned bytes = tile_bytes(tile_n(k));
+      pymodem::bulk_store(out_re + o, rail_at(k, 0), bytes);
+      pymodem::bulk_store(out_im + o, rail_at(k, 1), bytes);
+    }
+    pymodem::bulk_commit();
+  };
+  // lane warp: the loop over tile k, two samples a double2, the outputs in
+  // place; past T (the last tile of a row whose T is odd) the step makes
+  // only an output in the rows' padding
+  auto run = [&](int k) {
+    pymodem::mbar_wait(&bars[k % kStages], (k / kStages) & 1);
+    double* xr = rail_at(k, 0);
+    double* xi = rail_at(k, 1);
+    const int n = tile_n(k);
+#pragma unroll 2
+    for (int c = 0; c < n; c += 2) {
+      double2 a = *reinterpret_cast<const double2*>(xr + c);
+      double2 b = *reinterpret_cast<const double2*>(xi + c);
+      step(a.x, b.x, a.x, b.x);
+      step(a.y, b.y, a.y, b.y);
+      *reinterpret_cast<double2*>(xr + c) = a;
+      *reinterpret_cast<double2*>(xi + c) = b;
+    }
+    // the bulk store reads what these generic stores wrote
+    pymodem::fence_proxy_async();
+  };
+
+  const int n_tiles = (T + kTile - 1) / kTile;
+  if (copier && n_tiles > 0) fetch(0);
+  for (int k = 0; k < n_tiles; ++k) {
+    __syncthreads();  // the lanes are done with tile k - 1
+    if (copier) {
+      // store tile k - 1, then load tile k + 1 into the stage of tile
+      // k - 2 once its store has read it
+      if (k > 0) store(k - 1);
+      pymodem::bulk_wait_read<1>();
+      if (k + 1 < n_tiles) fetch(k + 1);
+    } else if (active) {
+      run(k);
+    }
+  }
+  __syncthreads();
+  if (copier) {
+    if (n_tiles > 0) store(n_tiles - 1);
+    pymodem::bulk_wait_all();
+  }
+}
+
+// K15's dynamic shared memory for ``pd_entries`` staged detector-table
+// entries (0: read through the read-only cache)
+size_t mpsk_smem_bytes(int pd_entries) {
+  return kTileBytes + sizeof(double2) * kTableSize +
+         sizeof(double) * static_cast<size_t>(pd_entries);
+}
+
+template <bool kPdShared>
+int launch_mpsk(const double* re, const double* im, int in_stride,
+                const int* row_of_lane, int R, const double* params,
+                const double* sine, const double* cosine,
+                const int* pd_tables, const int* pd_index, double* out_re,
+                double* out_im, int out_stride, int L, int T, int g,
+                int n_tables, cudaStream_t stream) {
+  const size_t smem = mpsk_smem_bytes(kPdShared ? n_tables * g * g : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      mpsk_loop_f64_kernel<kPdShared>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (L + kLanes - 1) / kLanes;
+  if (blocks > 0 && T > 0) {
+    mpsk_loop_f64_kernel<kPdShared><<<blocks, 2 * kLanes, smem, stream>>>(
+        re, im, in_stride, row_of_lane, R, params, sine, cosine, pd_tables,
+        pd_index, out_re, out_im, out_stride, L, T, g, n_tables);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -193,11 +328,15 @@ extern "C" int qpsk_costas_f64_lanes(const double* x, int in_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K15.  re, im rows ``in_stride`` doubles apart (any stride >= T), lane l
-// on row row_of_lane[l] < R; params (12, L), PLL_PARAMS then pd_gain,
-// pd_granularity; the two (256,) tables; pd_tables (n_tables, g*g) int32,
-// lane l's table pd_index[l] < n_tables; out_re, out_im (L, T) rows
-// ``out_stride`` apart.
+// K15.  re, im rows ``in_stride`` doubles apart, both 16-byte aligned
+// with a stride that is a multiple of 2 and >= T (lane_tiles_f64.cuh;
+// dsp/loops.py mpsk_loop_f64_lanes copies other rails into rows of one
+// such stride), lane l on row row_of_lane[l] < R; params (12, L),
+// PLL_PARAMS then pd_gain, pd_granularity; the two (256,) tables;
+// pd_tables (n_tables, g*g) int32, lane l's table pd_index[l] < n_tables,
+// staged in shared memory as doubles (pd_shared = 1) or read through the
+// read-only cache (0); out_re, out_im (L, T) rows ``out_stride`` apart,
+// aligned as the inputs.
 extern "C" int mpsk_loop_f64_lanes(const double* re, const double* im,
                                    int in_stride, const int* row_of_lane,
                                    int R, const double* params,
@@ -205,29 +344,25 @@ extern "C" int mpsk_loop_f64_lanes(const double* re, const double* im,
                                    const int* pd_tables, const int* pd_index,
                                    double* out_re, double* out_im,
                                    int out_stride, int L, int T, int g,
-                                   int n_tables, void* stream) {
-  if (in_stride < T || out_stride < T || R < 1 || g < 1 || n_tables < 1) {
+                                   int n_tables, int pd_shared,
+                                   void* stream) {
+  if ((R < 1 && L > 0) || g < 1 || n_tables < 1 ||
+      !rows_ok(re, in_stride, T) || !rows_ok(im, in_stride, T) ||
+      !rows_ok(out_re, out_stride, T) || !rows_ok(out_im, out_stride, T)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (L + kLanes - 1) / kLanes;
-  if (blocks > 0 && T > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const size_t pd_bytes =
-        sizeof(int) * static_cast<size_t>(n_tables) * g * g;
-    if (pd_bytes <= static_cast<size_t>(kPdSharedMax)) {
-      cudaError_t err = cudaFuncSetAttribute(
-          mpsk_loop_f64_kernel<true>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(pd_bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      mpsk_loop_f64_kernel<true><<<blocks, kLanes, pd_bytes, s>>>(
-          re, im, in_stride, row_of_lane, params, sine, cosine, pd_tables,
-          pd_index, out_re, out_im, out_stride, L, T, g, n_tables);
-    } else {
-      mpsk_loop_f64_kernel<false><<<blocks, kLanes, 0, s>>>(
-          re, im, in_stride, row_of_lane, params, sine, cosine, pd_tables,
-          pd_index, out_re, out_im, out_stride, L, T, g, n_tables);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return pd_shared
+             ? launch_mpsk<true>(re, im, in_stride, row_of_lane, R, params,
+                                 sine, cosine, pd_tables, pd_index, out_re,
+                                 out_im, out_stride, L, T, g, n_tables, s)
+             : launch_mpsk<false>(re, im, in_stride, row_of_lane, R, params,
+                                  sine, cosine, pd_tables, pd_index, out_re,
+                                  out_im, out_stride, L, T, g, n_tables, s);
+}
+
+// K15's dynamic shared memory a block without detector tables, bytes (8
+// more an entry when they are staged)
+extern "C" int mpsk_loop_f64_smem_bytes() {
+  return static_cast<int>(mpsk_smem_bytes(0));
 }

@@ -1,6 +1,7 @@
-// Staged double tiles for the float64 lane kernels K10 and K11
-// (binary_slicer_f64.cu, coherent_loop_f64.cu): lane_tiles.cuh's stage
-// barriers and bulk copies (TMA) at 8 bytes a sample.
+// Staged double tiles for the float64 lane kernels K10, K11, K15 and K16
+// (binary_slicer_f64.cu, coherent_loop_f64.cu, iq_loop_f64.cu,
+// quadrature_slicer_f64.cu): lane_tiles.cuh's stage barriers and bulk
+// copies (TMA) at 8 bytes a sample.
 //
 // Layout: a shared tile of n samples (n a multiple of 16) holds one row of
 // n + 2 doubles per lane.  A thread reading a double2 of its own row then
@@ -12,7 +13,8 @@
 // addresses, so rows start 16-byte aligned, a multiple of 2 doubles apart
 // (``stride`` >= T, checked by ``rows_ok``), and a tile of n samples moves
 // ``padded2(n)`` of them: the last tile of a row whose T is odd reaches
-// into the row's padding (the wrappers pad such rows, _ext.lane_rows).
+// into the row's padding (the wrappers pad such rows, _ext.lane_rows; the
+// two-rail K15 and K16 take both rails at one stride, _ext.lane_rows_pair).
 
 #pragma once
 

@@ -5,15 +5,15 @@
 // (``Loop``), in the plain twins' op order.
 //
 // Those kernels replace lax.scan recurrences that the JAX package runs at
-// float64 (it runs no Pallas kernel at f64).  K11 stages its rows in
-// shared memory (lane_tiles_f64.cuh, as K10 does) and takes only the
-// structs' pieces from here; K12-K16 run one thread a lane: the lane's
+// float64 (it runs no Pallas kernel at f64).  K11, K15 and K16 stage their
+// rows in shared memory (lane_tiles_f64.cuh, as K10 does) and take only
+// the structs' pieces from here; K12-K14 run one thread a lane: the lane's
 // state in registers, its row read straight from global memory a chunk of
-// kChunk samples at a time (the loads of a chunk are independent of the
-// state, so they are in flight together), and every step in the plain
-// twin's op order, so that a build with -fmad=false and no fast math
-// equals the twin bitwise.  32 lanes a block, so that the lanes spread
-// over as many SMs as there are warps.
+// kChunk samples at a time (``for_each_sample``: the loads of a chunk are
+// independent of the state, so they are in flight together), and every
+// step in the plain twin's op order, so that a build with -fmad=false and
+// no fast math equals the twin bitwise.  32 lanes a block, so that the
+// lanes spread over as many SMs as there are warps.
 
 #pragma once
 
@@ -91,26 +91,15 @@ struct Loop {
         limit(rows[8 * stride]),
         integral(rows[9 * stride]) {}
 
-  // phase + phase_scale * (set_freq + control), wrapped by +-2pi twice
-  // each way in that order, then the table index truncated through a
-  // 64-bit conversion (the twins' .long())
-  __device__ __forceinline__ int nco() {
-    double ph = phase + phase_scale * (set_freq + control);
-    ph = ph >= kTwoPi ? ph - kTwoPi : ph;
-    ph = ph >= kTwoPi ? ph - kTwoPi : ph;
-    ph = ph < 0.0 ? ph + kTwoPi : ph;
-    ph = ph < 0.0 ? ph + kTwoPi : ph;
-    phase = ph;
-    return static_cast<int>(__double2ll_rz(ph * index_scale)) &
-           (kTableSize - 1);
-  }
-
-  // nco() with its four conditional wraps as selects among candidates
-  // computed side by side, in fewer dependent steps: a phase at or above
-  // 2pi never ends below 0 (p - 2pi >= 0 exactly or after rounding, as
-  // rounding is monotone), and one below 0 is never wrapped down, so the
-  // taken path does nco()'s arithmetic and the phase and index are
-  // nco()'s bit for bit (K11's lane thread)
+  // The NCO's step: phase + phase_scale * (set_freq + control), wrapped
+  // as the twins wrap it (by -2pi while >= 2pi, twice, then by +2pi while
+  // < 0, twice), then the table index truncated through a 64-bit
+  // conversion (the twins' .long()).  The wraps are selects among
+  // candidates computed side by side, in fewer dependent steps than four
+  // conditional wraps in turn: a phase at or above 2pi never ends below 0
+  // (p - 2pi >= 0 exactly or after rounding, as rounding is monotone), and
+  // one below 0 is never wrapped down, so the taken path does the twins'
+  // arithmetic and the phase and index are theirs bit for bit.
   __device__ __forceinline__ int nco_select() {
     const double p = phase + phase_scale * (set_freq + control);
     const double d1 = p - kTwoPi;
@@ -185,25 +174,6 @@ __device__ __forceinline__ void for_each_sample(const double* row, int T,
     for (int j = 0; j < kChunk; ++j) step(t0 + j, xv[j]);
   }
   for (int t = t0; t < T; ++t) step(t, row[t]);
-}
-
-// for_each_sample over two rows side by side: step(t, a, b).
-template <typename Step>
-__device__ __forceinline__ void for_each_pair(const double* row_a,
-                                              const double* row_b, int T,
-                                              Step&& step) {
-  int t0 = 0;
-  for (; t0 + kChunk <= T; t0 += kChunk) {
-    double av[kChunk], bv[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      av[j] = row_a[t0 + j];
-      bv[j] = row_b[t0 + j];
-    }
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) step(t0 + j, av[j], bv[j]);
-  }
-  for (int t = t0; t < T; ++t) step(t, row_a[t], row_b[t]);
 }
 
 }  // namespace f64

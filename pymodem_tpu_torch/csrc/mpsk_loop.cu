@@ -257,9 +257,10 @@ int launch(const float* re, const float* im, int in_stride,
 
 }  // namespace
 
-// Input rows ``in_stride`` floats apart, outputs ``out_stride`` apart,
-// both 16-byte aligned with strides that are multiples of 4 and >= T
-// (lane_tiles.cuh; dsp/loops.py mpsk_loop_lanes pads other rows).
+// re and im rows ``in_stride`` floats apart, outputs ``out_stride`` apart,
+// all 16-byte aligned with strides that are multiples of 4 and >= T
+// (lane_tiles.cuh; dsp/loops.py mpsk_loop_lanes copies other rails into
+// rows of one such stride).
 // ``pd_shared``: stage the detector tables in shared memory (1) or read
 // them through the read-only cache (0); dsp/loops.py
 // mpsk_tables_staged picks it with the same shared-memory count

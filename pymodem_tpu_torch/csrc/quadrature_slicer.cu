@@ -207,9 +207,9 @@ __global__ void __launch_bounds__(2 * kLanes, 1)
 
 }  // namespace
 
-// Input rows ``in_stride`` floats apart, 16-byte aligned with a stride
-// that is a multiple of 4 and >= T (lane_tiles.cuh; ops/slicers.py
-// quadrature_slice_lanes pads other rows).
+// I and Q rows ``in_stride`` floats apart, both 16-byte aligned with a
+// stride that is a multiple of 4 and >= T (lane_tiles.cuh; ops/slicers.py
+// quadrature_slice_lanes copies other rails into rows of one such stride).
 extern "C" int quadrature_slice_lanes(const float* i_in, const float* q_in,
                                       int in_stride, const float* params,
                                       int* out, unsigned demap, int L, int T,

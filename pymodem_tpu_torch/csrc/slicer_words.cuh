@@ -1,6 +1,6 @@
-// The pieces that the staged symbol-timing slicers K1, K7, K8 and K10
+// The pieces that the staged symbol-timing slicers K1, K7, K8, K10 and K16
 // (binary_slicer.cu, quadrature_slicer.cu, four_level_slicer.cu,
-// binary_slicer_f64.cu) share on top of lane_tiles.cuh: the bit words
+// binary_slicer_f64.cu, quadrature_slicer_f64.cu) share on top of lane_tiles.cuh: the bit words
 // their copy warps pack one tile ahead of the lanes, and the window codes
 // the lanes leave in a shared buffer for the block to store in coalesced
 // runs.
@@ -46,8 +46,9 @@ __device__ __forceinline__ unsigned gt0(float4 a) {
          static_cast<unsigned>(a.w > 0.0f) << 3;
 }
 
-// the same over a double2 (bits 0 and 1), for the float64 slicer K10: the
-// predicates on the doubles themselves, so a negative subnormal is < 0
+// the same over a double2 (bits 0 and 1), for the float64 slicers K10 and
+// K16: the predicates on the doubles themselves, so a negative subnormal
+// is < 0
 __device__ __forceinline__ unsigned ge0(double2 a) {
   return static_cast<unsigned>(a.x >= 0.0) |
          static_cast<unsigned>(a.y >= 0.0) << 1;

@@ -48,10 +48,10 @@ are the reference's own wavetable and table, as the JAX f64 path gathers
 Float64 lanes on the card run the f64 kernels in the twins' op order, the
 JAX package's f64 scans having no Pallas kernel to port: K11
 (``coherent_loop_f64_lanes``), the AGC fused with the AFSK PLL or the BPSK
-Costas loop, staged as K2 and K3 are; and one thread a lane, K14
-(``qpsk_costas_f64_lanes``), the QPSK Costas loop with 17 rows or 12, and
-K15 (``mpsk_loop_f64_lanes``), the MPSK loop on the reference's detector
-table.  ``afsk_pll_lanes``,
+Costas loop, staged as K2 and K3 are; K15 (``mpsk_loop_f64_lanes``), the
+MPSK loop on the reference's detector table, staged as K6 is; and one
+thread a lane, K14 (``qpsk_costas_f64_lanes``), the QPSK Costas loop with
+17 rows or 12.  ``afsk_pll_lanes``,
 ``bpsk_costas_lanes``, ``qpsk_costas_lanes`` and ``mpsk_loop_lanes``
 route a float64 CUDA tensor to them.
 """
@@ -389,16 +389,24 @@ def _check_lanes(name, x, lane_params, n_rows, row_of_lane, *tables):
     return L
 
 
-def _staged_rows(x, L, row_of_lane):
-    """What the staged loop kernels (K2, K3, K5, K6, K11) take for input
-    rows: ``x`` as bulk copies can move it (``_ext.lane_rows``) and each
-    lane's row, the identity when ``row_of_lane`` is None."""
+def _row_map(x, L, row_of_lane):
+    """Each lane's input row for the loop kernels: ``row_of_lane``, or the
+    identity when it is None."""
     from .. import _ext
 
     if row_of_lane is None:
         row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
     _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
-    return _ext.lane_rows(x), row_of_lane
+    return row_of_lane
+
+
+def _staged_rows(x, L, row_of_lane):
+    """What the staged loop kernels of one input rail (K2, K3, K5, K11)
+    take for input rows: ``x`` as bulk copies can move it
+    (``_ext.lane_rows``) and each lane's row (``_row_map``)."""
+    from .. import _ext
+
+    return _ext.lane_rows(x), _row_map(x, L, row_of_lane)
 
 
 _COHERENT_ROWS = (len(PLL_PARAMS) + len(AGC_PARAMS),)
@@ -594,7 +602,7 @@ def qpsk_costas_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     _ext.require(x.device, torch.float64, lane_params=lane_params,
                  sine_table=sine_table, cos_table=cos_table)
     R, T = x.shape
-    row_of_lane = _lane_rows_f64(x, L, row_of_lane)
+    row_of_lane = _row_map(x, L, row_of_lane)
     out_i = torch.empty((L, T), dtype=torch.float64, device=x.device)
     out_q = torch.empty_like(out_i)
     _ext.launch("qpsk_costas_f64_lanes", x.device,
@@ -608,17 +616,6 @@ def qpsk_costas_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
                 int(lane_params.shape[0] > _QPSK_ROWS[0]))
     qpsk_costas_f64_lanes.launches += 1
     return out_i, out_q
-
-
-def _lane_rows_f64(x, L, row_of_lane):
-    """Each lane's input row for the f64 loop kernels K14 and K15,
-    which read rows as they lie: ``row_of_lane``, or the identity."""
-    from .. import _ext
-
-    if row_of_lane is None:
-        row_of_lane = torch.arange(L, dtype=torch.int32, device=x.device)
-    _ext.require(x.device, torch.int32, row_of_lane=row_of_lane)
-    return row_of_lane
 
 
 # K6's dynamic shared memory left for its detector tables on Hopper (227 KB
@@ -635,6 +632,21 @@ def mpsk_tables_staged(pd_ints: int) -> bool:
     return 4 * pd_ints <= MPSK_TABLE_SMEM
 
 
+# K15's dynamic shared memory left for its detector tables, as doubles:
+# csrc/iq_loop_f64.cu stages 3 tiles of 64 + 2 samples of re and im for
+# its 32 lanes and the (cos, -sin) table of double2s, 1 KB held back for
+# its static arrays
+MPSK_F64_TABLE_SMEM = (232_448 - (3 * 2 * 32 * 66 * 8 + 16 * WAVETABLE_SIZE)
+                       - 1024)
+
+
+def mpsk_f64_tables_staged(pd_ints: int) -> bool:
+    """Whether K15 stages its ``pd_ints`` detector-table entries in shared
+    memory, as doubles, beside its tiles (else it reads the int32 tables
+    through the read-only cache)."""
+    return 8 * pd_ints <= MPSK_F64_TABLE_SMEM
+
+
 def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
                     lane_params: torch.Tensor, sine_table: torch.Tensor,
                     cos_table: torch.Tensor, pd_tables: torch.Tensor,
@@ -642,10 +654,11 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
                     row_of_lane: torch.Tensor | None = None):
     """Kernel K6 (``csrc/mpsk_loop.cu``) over L lanes reading (R, T) input
     rows (``row_of_lane`` (L,) int32, None for R == L and lane l on row l);
-    returns (out_re, out_im), each (L, T).  Rows that are not 16-byte
-    aligned, or a T that is not a multiple of 4, go to the kernel through
-    padded copies (``_ext.lane_rows``), and the outputs are then views of
-    padded rows.
+    returns (out_re, out_im), each (L, T).  ``re`` and ``im`` need rows of
+    unit stride; rows that are not 16-byte aligned, or a T that is not a
+    multiple of 4, or rails at two row strides, go to the kernel through
+    padded copies at one row stride (``_ext.lane_rows_pair``), and the
+    outputs are views of rows padded to a multiple of 4 floats.
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``mpsk_loop``.  ``pd_tables``
@@ -663,14 +676,14 @@ def mpsk_loop_lanes(re: torch.Tensor, im: torch.Tensor,
                          pd_tables, pd_index, row_of_lane)
     from .. import _ext
 
-    _ext.require(re.device, torch.float32, re=re, im=im,
-                 lane_params=lane_params, sine_table=sine_table,
-                 cos_table=cos_table)
+    _ext.require_rows(re.device, torch.float32, re=re, im=im)
+    _ext.require(re.device, torch.float32, lane_params=lane_params,
+                 sine_table=sine_table, cos_table=cos_table)
     n_tab, g = _pd_geometry("mpsk_loop_lanes", re.device, pd_tables,
                             pd_index)
     R, T = re.shape
-    re, row_of_lane = _staged_rows(re, L, row_of_lane)
-    im = _ext.lane_rows(im)
+    re, im = _ext.lane_rows_pair(re, im)
+    row_of_lane = _row_map(re, L, row_of_lane)
     out_re = torch.empty((L, -(-T // 4) * 4), dtype=re.dtype,
                          device=re.device)
     out_im = torch.empty_like(out_re)
@@ -723,12 +736,15 @@ def mpsk_loop_f64_lanes(re: torch.Tensor, im: torch.Tensor,
                         pd_index: torch.Tensor,
                         row_of_lane: torch.Tensor | None = None):
     """Kernel K15 (``csrc/iq_loop_f64.cu``): the MPSK loop at float64 over
-    L lanes on (R, T) float64 re and im rows of unit stride, the same row
-    stride (``row_of_lane`` as ``mpsk_loop_lanes``); the NCO tables the
-    reference wavetable and its quarter-turn shift; pd_tables (U, g*g)
-    int32, the reference's ``qpsk_error_table`` at f64.
-    ``mpsk_loop_lanes`` routes float64 CUDA tensors here.  Returns
-    (out_re, out_im), each (L, T) float64.
+    L lanes on (R, T) float64 re and im rows of unit stride
+    (``row_of_lane`` as ``mpsk_loop_lanes``); the NCO tables the reference
+    wavetable and its quarter-turn shift; pd_tables (U, g*g) int32, the
+    reference's ``qpsk_error_table`` at f64, staged as doubles when
+    ``mpsk_f64_tables_staged``.  ``mpsk_loop_lanes`` routes float64 CUDA
+    tensors here.  Rails that are not 16-byte aligned at one row stride, a
+    multiple of 2 doubles, go to the kernel through padded copies
+    (``_ext.lane_rows_pair``).  Returns (out_re, out_im), each (L, T)
+    float64, views of padded rows when T is odd.
 
     Only a CPU tensor takes the plain twin ``mpsk_loop``."""
     L = _check_mpsk("mpsk_loop_f64_lanes", re, im, lane_params, sine_table,
@@ -741,27 +757,26 @@ def mpsk_loop_f64_lanes(re: torch.Tensor, im: torch.Tensor,
     _ext.require_rows(re.device, torch.float64, re=re, im=im)
     _ext.require(re.device, torch.float64, lane_params=lane_params,
                  sine_table=sine_table, cos_table=cos_table)
-    if im.stride(0) != re.stride(0):
-        raise ValueError(f"mpsk_loop_f64_lanes: re and im rows "
-                         f"{re.stride(0)} and {im.stride(0)} apart; the "
-                         "kernel takes one row stride")
     n_tab, g = _pd_geometry("mpsk_loop_f64_lanes", re.device, pd_tables,
                             pd_index)
     R, T = re.shape
-    row_of_lane = _lane_rows_f64(re, L, row_of_lane)
-    out_re = torch.empty((L, T), dtype=torch.float64, device=re.device)
+    re, im = _ext.lane_rows_pair(re, im)
+    row_of_lane = _row_map(re, L, row_of_lane)
+    out_re = torch.empty((L, -(-T // 2) * 2), dtype=torch.float64,
+                         device=re.device)
     out_im = torch.empty_like(out_re)
     _ext.launch("mpsk_loop_f64_lanes", re.device,
                 (ctypes.c_void_p,) * 2 + (ctypes.c_int, ctypes.c_void_p,
                                           ctypes.c_int)
-                + (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5,
+                + (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6,
                 re.data_ptr(), im.data_ptr(), re.stride(0),
                 row_of_lane.data_ptr(), R, lane_params.data_ptr(),
                 sine_table.data_ptr(), cos_table.data_ptr(),
                 pd_tables.data_ptr(), pd_index.data_ptr(), out_re.data_ptr(),
-                out_im.data_ptr(), out_re.stride(0), L, T, g, n_tab)
+                out_im.data_ptr(), out_re.stride(0), L, T, g, n_tab,
+                int(mpsk_f64_tables_staged(pd_tables.numel())))
     mpsk_loop_f64_lanes.launches += 1
-    return out_re, out_im
+    return out_re[:, :T], out_im[:, :T]
 
 
 afsk_pll_lanes.launches = 0

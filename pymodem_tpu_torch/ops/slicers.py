@@ -296,8 +296,8 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
     pairs.  ``demap``, ``state_mask`` and ``bits_per_symbol`` are
     bank-uniform (part of the bank grouping key) and go to the kernel as
     arguments.  Rows that are not 16-byte aligned, or a T that is not a
-    multiple of 4, go to the kernel through padded copies
-    (``_ext.lane_rows``).
+    multiple of 4, or rails at two row strides, go to the kernel through
+    padded copies at one row stride (``_ext.lane_rows_pair``).
 
     A CUDA tensor launches the kernel on the current stream (or raises);
     only a CPU tensor takes the plain twin ``quadrature_slice``.  A float64
@@ -311,14 +311,9 @@ def quadrature_slice_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
     if i_lanes.device.type == "cpu":
         return quadrature_slice(i_lanes, q_lanes, lane_params, demap,
                                 state_mask, bits_per_symbol, window)
-    from .. import _ext
-
-    _ext.require(i_lanes.device, torch.float32, i_lanes=i_lanes,
-                 q_lanes=q_lanes, lane_params=lane_params)
-    i_rows, q_rows = _ext.lane_rows(i_lanes), _ext.lane_rows(q_lanes)
-    out = _launch_quadrature("quadrature_slice_lanes", i_rows, q_rows,
-                             lane_params, demap, i_lanes.shape[1], state_mask,
-                             bits_per_symbol, window)
+    out = _launch_quadrature("quadrature_slice_lanes", torch.float32,
+                             i_lanes, q_lanes, lane_params, demap,
+                             state_mask, bits_per_symbol, window)
     quadrature_slice_lanes.launches += 1
     return out
 
@@ -345,13 +340,19 @@ def _check_quadrature(i_lanes, q_lanes, lane_params, demap, state_mask: int,
     return demap
 
 
-def _launch_quadrature(entry, i_rows, q_rows, lane_params, demap, T: int,
+def _launch_quadrature(entry, dtype, i_lanes, q_lanes, lane_params, demap,
                        state_mask: int, bits_per_symbol: int, window: int):
-    """Launch K7 or K16 (``entry``) over I and Q rows of one row stride;
-    returns the (L, ceil(T/window)) int32 emission stream."""
+    """Launch K7 or K16 (``entry``, rails of ``dtype``) over the (L, T) I
+    and Q rails of unit stride, taken at one row stride
+    (``_ext.lane_rows_pair``); returns the (L, ceil(T/window)) int32
+    emission stream."""
     from .. import _ext
 
-    L = i_rows.shape[0]
+    _ext.require(i_lanes.device, dtype, lane_params=lane_params)
+    _ext.require_rows(i_lanes.device, dtype, i_lanes=i_lanes,
+                      q_lanes=q_lanes)
+    i_rows, q_rows = _ext.lane_rows_pair(i_lanes, q_lanes)
+    L, T = i_rows.shape
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
                       device=i_rows.device)
     packed = sum(v << (2 * s) for s, v in enumerate(demap))  # 2 bits each
@@ -370,27 +371,19 @@ def quadrature_slice_f64_lanes(i_lanes: torch.Tensor, q_lanes: torch.Tensor,
                                state_mask: int, bits_per_symbol: int,
                                window: int = 1) -> torch.Tensor:
     """Kernel K16 (``csrc/quadrature_slicer_f64.cu``), the float64
-    quadrature slicer, over (L, T) float64 I/Q lane pairs of unit stride,
-    one row stride for both (taken as they lie), with (2, L) float64 rows
-    (sps, lock_rate); ``quadrature_slice_lanes`` routes float64 CUDA
-    tensors here.  Its emissions are K7's.  Only a CPU tensor takes the
-    plain twin ``quadrature_slice``."""
+    quadrature slicer, over (L, T) float64 I/Q lane pairs of unit stride
+    with (2, L) float64 rows (sps, lock_rate); ``quadrature_slice_lanes``
+    routes float64 CUDA tensors here.  Its emissions are K7's.  Rails that
+    are not 16-byte aligned at one row stride, a multiple of 2 doubles, go
+    to the kernel through padded copies (``_ext.lane_rows_pair``).  Only a
+    CPU tensor takes the plain twin ``quadrature_slice``."""
     demap = _check_quadrature(i_lanes, q_lanes, lane_params, demap,
                               state_mask, bits_per_symbol, window)
     if i_lanes.device.type == "cpu":
         return quadrature_slice(i_lanes, q_lanes, lane_params, demap,
                                 state_mask, bits_per_symbol, window)
-    from .. import _ext
-
-    _ext.require(i_lanes.device, torch.float64, lane_params=lane_params)
-    _ext.require_rows(i_lanes.device, torch.float64, i_lanes=i_lanes,
-                      q_lanes=q_lanes)
-    if q_lanes.stride(0) != i_lanes.stride(0):
-        raise ValueError(f"quadrature_slice_f64_lanes: I and Q rows "
-                         f"{i_lanes.stride(0)} and {q_lanes.stride(0)} apart;"
-                         " the kernel takes one row stride")
-    out = _launch_quadrature("quadrature_slice_f64_lanes", i_lanes, q_lanes,
-                             lane_params, demap, i_lanes.shape[1],
+    out = _launch_quadrature("quadrature_slice_f64_lanes", torch.float64,
+                             i_lanes, q_lanes, lane_params, demap,
                              state_mask, bits_per_symbol, window)
     quadrature_slice_f64_lanes.launches += 1
     return out

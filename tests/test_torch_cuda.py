@@ -385,6 +385,47 @@ def test_lane_kernels_take_unaligned_rows(cuda):
     assert torch.equal(got_q, want_q)
 
 
+def _wider(x, extra):
+    """A view of ``x``'s samples in rows ``extra`` elements longer."""
+    wide = x.new_zeros((x.shape[0], x.shape[1] + extra))
+    wide[:, :x.shape[1]] = x
+    return wide[:, :x.shape[1]]
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_two_rail_kernels_take_rails_at_two_strides(cuda, kernel):
+    """K6 and K7 read both rails at one row stride: a first rail of
+    contiguous rows of 4096 floats and a second that is a view of rows of
+    4100 (both 16-byte aligned, at two strides) go to the kernel at the
+    first rail's stride (one padded copy of the second), and the results
+    equal the twins' bitwise."""
+    from pymodem_tpu_torch import _ext
+
+    T = 4096
+    copies = _ext.lane_rows.copies
+    if kernel == "K6":
+        re, im, lp, tables, index, row_of_lane = _mpsk_inputs(
+            200, T, 1, True, cuda, seed=17)
+        rails = (re, _wider(im, 4))
+        sine, cosine = _tables(cuda)
+        args = (lp, sine, cosine, tables, index, row_of_lane)
+        got = tloops.mpsk_loop_lanes(*rails, *args)
+        want = tloops.mpsk_loop(*rails, *args)
+    else:
+        i_l, lp = _lanes(18, 200, T, cuda)
+        q_l, _ = _lanes(19, 200, T, cuda)
+        rails = (i_l, _wider(q_l, 4))
+        demap, mask = _quad_demap(2)
+        got = (tsl.quadrature_slice_lanes(*rails, lp, demap, mask, 2, 32),)
+        want = (tsl.quadrature_slice(*rails, lp, demap, mask, 2, 32),)
+    torch.cuda.synchronize()
+    assert all(_ext.rows_aligned(r) for r in rails)
+    assert rails[0].stride(0) != rails[1].stride(0)
+    assert _ext.lane_rows.copies == copies + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_quadrature_slicer_kernel_nan_and_signed_zero(cuda):
     """NaN samples cross nothing and decide 0 on their rail; -0.0 is >= 0
     (a sign bit would say otherwise); kernel and twin agree."""
@@ -1183,27 +1224,67 @@ def test_qpsk_costas_f64_kernel_special_rows(cuda, n_rows):
         assert _same_bits(g, w)
 
 
-@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
-@pytest.mark.parametrize("rows", ["identity", "shared"])
-@pytest.mark.parametrize("n_gains", [1, 2, 24],
-                         ids=["1_gain", "2_gains", "24_gains"])
-def test_mpsk_loop_f64_kernel_matches_twin(cuda, n_gains, rows, T):
+def _f64_specials(x, seed):
+    """``x`` with NaN, +-inf, negative subnormals, +-1e300 (past every int
+    range once scaled) and -0.0 sprinkled over its samples."""
+    g = np.random.default_rng(seed)
+    x = x.clone()
+    for value, frac in ((float("nan"), 0.01), (float("inf"), 0.005),
+                        (-float("inf"), 0.005), (-4.9e-324, 0.02),
+                        (-2.5e-310, 0.02), (1e300, 0.005), (-1e300, 0.005),
+                        (-0.0, 0.02)):
+        x[torch.from_numpy(g.random(tuple(x.shape)) < frac)
+          .to(x.device)] = value
+    return x
+
+
+def _two_strides(a, b):
+    """``a`` and ``b`` as views of rows 16-byte aligned at two strides, T
+    rounded up to 2 doubles and 2 more."""
+    T = a.shape[1]
+    return _wider(a, T % 2), _wider(b, T % 2 + 2)
+
+
+# K15's cases: (rows, detector tables); 3 tables of 4096 doubles are the
+# most its shared memory stages beside the tiles, 4 and 24 are read
+# through the read-only cache
+_K15_CASES = [("identity", 1), ("identity", 3), ("identity", 4),
+              ("identity", 24), ("shared", 2), ("one_lane", 1),
+              ("two_strides", 1), ("special", 1)]
+# T at the edges of K15's 64-sample tiles
+_K15_T_EDGES = [1, 63, 64, 65, 129]
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5, *_K15_T_EDGES])
+@pytest.mark.parametrize("rows,n_gains", _K15_CASES,
+                         ids=[f"{r}_{n}_gains" for r, n in _K15_CASES])
+def test_mpsk_loop_f64_kernel_matches_twin(cuda, rows, n_gains, T):
     """K15 on lanes of one or several detector tables (the reference's
-    qpsk_error_table; 24 tables of 16 KB pass the shared-memory cap and
-    stay in device memory), on their own rows or rows shared by 8 chains:
-    bitwise equal to the f64 twin; mpsk_loop_lanes routes float64 to it,
-    never to K6."""
+    qpsk_error_table; staged as doubles up to the shared-memory cap, past
+    it read through the cache), on their own rows (200 lanes, not a
+    multiple of 32, or one lane), rows shared by 8 chains, rails at two
+    aligned strides (one padded copy) or rows with NaN, +-inf, negative
+    subnormals and values past the int range: bitwise equal to the f64
+    twin (NaNs equal as NaNs); mpsk_loop_lanes routes float64 to it, never
+    to K6."""
+    from pymodem_tpu_torch import _ext
     from pymodem_tpu_torch.dsp import window_design as wd
 
-    L = 200
+    L = 1 if rows == "one_lane" else 200
     re, im, lp, _, index, row_of_lane = _mpsk_inputs(
         L, T, n_gains, rows == "shared", cuda)
     re, im, lp = re.double(), im.double(), lp.double()
+    if rows == "two_strides":
+        re, im = _two_strides(re, im)
+    elif rows == "special":
+        re, im = _f64_specials(re, 41), _f64_specials(im, 42)
     tables = torch.from_numpy(np.stack([
         wd.qpsk_error_table(64, 8.0 + 2.0 * k).astype(np.int32).reshape(-1)
         for k in range(n_gains)])).to(cuda)
+    assert tloops.mpsk_f64_tables_staged(tables.numel()) == (n_gains <= 3)
     k6 = tloops.mpsk_loop_lanes.launches
     k15 = tloops.mpsk_loop_f64_lanes.launches
+    copies = _ext.lane_rows.copies
     got = tloops.mpsk_loop_lanes(re, im, lp, *_f64_tables(cuda), tables,
                                  index, row_of_lane)
     want = tloops.mpsk_loop(re, im, lp, *_f64_tables(cuda), tables, index,
@@ -1211,40 +1292,61 @@ def test_mpsk_loop_f64_kernel_matches_twin(cuda, n_gains, rows, T):
     torch.cuda.synchronize()
     assert tloops.mpsk_loop_lanes.launches == k6
     assert tloops.mpsk_loop_f64_lanes.launches == k15 + 1
+    assert _ext.lane_rows.copies == copies + (
+        0 if _ext.pair_aligned(re, im) else 1 if rows == "two_strides"
+        else 2)
     for g, w in zip(got, want):
         assert g.shape == (L, T) and g.dtype == torch.float64
-        assert torch.isfinite(g).all() and torch.equal(g, w)
+        if rows == "special":
+            assert _same_bits(g, w) and bool(g.isnan().any() or T < 64)
+        else:
+            assert torch.isfinite(g).all() and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("T", [3000, 3 * 128 + 5])
+# T at the edges of K16's 128-sample tiles
+_K16_T_EDGES = [1, 127, 128, 129, 257]
+
+
+@pytest.mark.parametrize("T", [3000, 3 * 128 + 5, *_K16_T_EDGES])
 @pytest.mark.parametrize("window", [1, 8, 32, 256])
 @pytest.mark.parametrize("bps", [1, 2])
-@pytest.mark.parametrize("rows", ["as_they_are", "strided"])
+@pytest.mark.parametrize("rows", ["as_they_are", "strided", "one_lane",
+                                  "two_strides", "special"])
 def test_quadrature_slicer_f64_kernel_matches_twin(cuda, rows, bps, window,
                                                    T):
-    """K16 on 300 lanes (not a multiple of 32), rows as they are or a view
-    of wider rows: bitwise equal to the f64 twin (and the twin on the
-    CPU); quadrature_slice_lanes routes float64 to it, never to K7."""
-    i_l, lp = _f64_rows(300, rows, T, cuda)
-    q_l, _ = _lanes(7, 300, T, cuda)
-    if rows == "strided":
-        wide = i_l.new_zeros((300, T + 5))
-        wide[:, :T] = q_l.double()
-        q_l = wide[:, :T]
-    else:
-        q_l = q_l.double()
+    """K16 on 300 lanes (not a multiple of 32) or one lane, rows as they
+    are, a view of wider rows, rails at two aligned strides (one padded
+    copy) or with NaN, +-inf and negative subnormals (which decide and
+    cross as negatives): bitwise equal to the f64 twin (and the twin on
+    the CPU); quadrature_slice_lanes routes float64 to it, never to K7."""
+    from pymodem_tpu_torch import _ext
+
+    L = 1 if rows == "one_lane" else 300
+    i_l, lp = _f64_rows(L, "strided" if rows == "strided" else
+                        "as_they_are", T, cuda)
+    q_l, _ = _lanes(7, L, T, cuda)
+    q_l = _wider(q_l.double(), 5) if rows == "strided" else q_l.double()
+    if rows == "two_strides":
+        i_l, q_l = _two_strides(i_l, q_l)
+    elif rows == "special":
+        i_l, q_l = _f64_specials(i_l, 43), _f64_specials(q_l, 44)
     demap, mask = _quad_demap(bps)
     k7 = tsl.quadrature_slice_lanes.launches
     k16 = tsl.quadrature_slice_f64_lanes.launches
+    copies = _ext.lane_rows.copies
     got = tsl.quadrature_slice_lanes(i_l, q_l, lp, demap, mask, bps, window)
     want = tsl.quadrature_slice(i_l, q_l, lp, demap, mask, bps, window)
     torch.cuda.synchronize()
     assert tsl.quadrature_slice_lanes.launches == k7
     assert tsl.quadrature_slice_f64_lanes.launches == k16 + 1
+    assert _ext.lane_rows.copies == copies + (
+        0 if _ext.pair_aligned(i_l, q_l) else 1 if rows == "two_strides"
+        else 2)
     assert torch.equal(got, want)
     assert torch.equal(want.cpu(), tsl.quadrature_slice(
         i_l.cpu(), q_l.cpu(), lp.cpu(), demap, mask, bps, window))
-    assert bool(((got & 0x100) != 0).any())
+    if T >= 3 * 128 + 5 and L > 1:
+        assert bool(((got & 0x100) != 0).any())
 
 
 def test_f64_run_plan_on_the_card_matches_cpu(cuda):

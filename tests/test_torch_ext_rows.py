@@ -1,7 +1,9 @@
 """The row-alignment helpers of the staged lane kernels (``_ext.rows_aligned``,
-``_ext.lane_rows``), which count 16-byte bulk-copy units by element size:
-float32 rows (K1-K8) as before, float64 rows (K10, K11) at 2 doubles a
-unit.  CPU only: the helpers read strides and addresses, not the card."""
+``_ext.lane_rows``, and for the two-rail kernels ``_ext.pair_aligned`` and
+``_ext.lane_rows_pair``), which count 16-byte bulk-copy units by element
+size: float32 rows (K1-K8) as before, float64 rows (K10, K11, K15, K16) at
+2 doubles a unit.  CPU only: the helpers read strides and addresses, not
+the card."""
 
 import numpy as np
 import pytest
@@ -84,3 +86,42 @@ def test_float64_rows_count_two_doubles_a_unit(T, layout):
         assert rows.dtype == torch.float64
         assert not rows[:, T:].any()
     assert torch.equal(rows[:, :T], x)
+
+
+# (I or re rail, Q or im rail) layouts: one stride, two strides, one rail or
+# both off the bulk copies' rule
+_PAIRS = [("contiguous", "contiguous"), ("unit_stride", "unit_stride"),
+          ("contiguous", "unit_stride"), ("unit_stride", "contiguous"),
+          ("offset", "contiguous"), ("unit_stride", "odd_stride"),
+          ("odd_stride", "offset")]
+
+
+@pytest.mark.parametrize("pair", _PAIRS, ids=["-".join(p) for p in _PAIRS])
+@pytest.mark.parametrize("T", [1, 127, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_two_rails_go_to_the_kernels_at_one_stride(dtype, T, pair):
+    """The two-rail kernels (K6, K7, K15, K16) take one row stride for both
+    rails: ``lane_rows_pair`` hands over both rails as they are when they
+    are aligned at one stride; else it keeps a rail that is aligned and
+    copies the other into rows of its stride, or copies both into rows of
+    T rounded up to 16 bytes; the samples are unchanged and the padding
+    zero."""
+    a = _rows(dtype, pair[0], T)
+    b = -_rows(dtype, pair[1], T)
+    a_ok, b_ok = _ext.rows_aligned(a), _ext.rows_aligned(b)
+    same = a_ok and b_ok and a.stride(0) == b.stride(0)
+    assert _ext.pair_aligned(a, b) == same
+    copies = _ext.lane_rows.copies
+    ra, rb = _ext.lane_rows_pair(a, b)
+    kept = (True, True) if same else (a_ok, not a_ok and b_ok)
+    assert _ext.lane_rows.copies == copies + kept.count(False)
+    assert ((ra is a), (rb is b)) == kept
+    assert ra.stride(0) == rb.stride(0)
+    assert _ext.pair_aligned(ra, rb)
+    for got, want, keep in ((ra, a, kept[0]), (rb, b, kept[1])):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(got, want)
+        if not keep:
+            whole = got.as_strided((got.shape[0], got.stride(0)),
+                                   (got.stride(0), 1))
+            assert not whole[:, T:].any()
