@@ -171,7 +171,7 @@ Phases, each printing one line with its seconds:
     ``mpsk_bpsk1200_pair`` and ``qpsk_costas2400_sweep8`` (their own
     inputs: shared rows and ``row_of_lane``, analytic rows, detector
     tables, basebands, windows); each kernel timed at full shape, the
-    twins at 4101 samples on the banks; the staged K10, K11, K15 and K16
+    twins at 4101 samples on the banks; the staged K10, K11 and K13-K16
     also on views of 4100 samples at the rows' own stride (the timed
     call's route), with their dynamic shared memory and whether each full
     shape's rows went through a padded copy;
@@ -187,7 +187,7 @@ Phases, each printing one line with its seconds:
     kernel (K1-K8); walls beside the same plans at f32 (the banks' min /
     median / max of WARM_RUNS warm runs), the packets that differ between
     the two, peak device memory, the padded-row copies made for the
-    staged K10, K11, K15 and K16;
+    staged K10, K11 and K13-K16;
 27. the CLI as a subprocess with ``PYMODEM_TPU_TORCH_X64=1`` on the PLL
     pair's config and a few seconds of audio (2 frames): exit 0 and the report of the same
     decode on the CPU twins (``run_decode`` with
@@ -247,6 +247,7 @@ FSK-9600 sweeps' shapes, K10-K16 at their other phase 25 shapes) and
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -334,6 +335,9 @@ F64_BEFORE_MS = {
             "afsk300_pll": 21.868},
     "K11": {"pll_sweep8": 41.230, "bpsk1200_sweep8": 114.359,
             "afsk300_pll": 116.756},
+    "K13": {"qpsk2400_sweep8": 56.579, "mpsk_bpsk1200_pair": 79.353,
+            "mpsk_qpsk2400": 386.721, "lane (mpsk_bpsk1200": 386.323},
+    "K14": {"qpsk_costas2400_sweep8": 91.574, "qpsk2400_costas": 699.207},
     "K15": {"qpsk2400_sweep8": 90.461, "mpsk_bpsk1200_pair": 119.350,
             "mpsk_qpsk2400": 664.278},
     "K16": {"qpsk2400_sweep8": 42.590, "mpsk_bpsk1200_pair": 53.378,
@@ -784,7 +788,7 @@ def _rows_route(*rails) -> bool:
 
 
 def _same_route(what: str, *rows, aligned: bool) -> None:
-    """Raise unless the staged lane kernels (K1-K8, K10, K11, K15, K16)
+    """Raise unless the staged lane kernels (K1-K8, K10, K11, K13-K16)
     take ``rows`` as they are (``aligned``) or through padded copies (not
     ``aligned``)."""
     if _rows_route(*rows) != aligned:
@@ -813,8 +817,6 @@ def _tree_f64(tree):
 
 def _cublas_version() -> str:
     """The version of the cuBLAS library torch loaded."""
-    import ctypes
-
     import torch
 
     name = f"libcublas.so.{(torch.version.cuda or '12').split('.')[0]}"
@@ -1928,8 +1930,11 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
     smem = {key: _ext.kernel(entry, ())() for key, entry in (
         ("K10", "binary_slice_f64_smem_bytes"),
         ("K11", "coherent_loop_f64_smem_bytes"),
+        ("K13", "agc_f64_smem_bytes"),
         ("K15", "mpsk_loop_f64_smem_bytes"),
         ("K16", "quadrature_slice_f64_smem_bytes"))}
+    k14_smem = _ext.kernel("qpsk_costas_f64_smem_bytes", (ctypes.c_int,))
+    smem["K14"] = {rows: k14_smem(int(rows == 17)) for rows in (17, 12)}
     designs = {
         "K10": "K1's design at f64: a lane warp and a copy warp a block of "
                "32 lanes, 128-sample tiles in 3 stages by bulk copies, sign "
@@ -1941,6 +1946,19 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                "(AGC quotients a tile ahead) a block of 32 lanes, "
                f"64-sample tiles in 5 stages of 2 rails; {smem['K11']} B of "
                "dynamic shared memory",
+        "K13": "K4's design at f64: a lane warp (the AGC follower, "
+               "envelopes into a second rail), a copy warp (bulk copies) "
+               "and four gain warps (AGC quotients a tile behind) a block "
+               "of 32 lanes, 64-sample tiles in 4 stages of 2 rails; "
+               f"{smem['K13']} B of dynamic shared memory",
+        "K14": "K5's loop with K11's split of the AGC: with 17 rows a "
+               "lane warp, a copy warp (bulk copies, the AGC follower a "
+               "tile ahead) and one gain warp (AGC quotients a tile ahead) "
+               "a block of 32 lanes, 64-sample tiles in 5 stages of 2 "
+               f"rails, {smem['K14'][17]} B of dynamic shared memory; with "
+               "12 rows a lane warp and a copy warp, 3 stages, "
+               f"{smem['K14'][12]} B; I and Q in place, stored by the copy "
+               "warp",
         "K15": "K6's design at f64: a lane warp and a copy warp a block of "
                "32 lanes, 64-sample tiles in 3 stages of 2 rails by bulk "
                "copies, outputs in place stored by the copy warp, the NCO "
@@ -1953,16 +1971,18 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                "copies, sign and crossing words of both rails packed a "
                "tile ahead, window codes stored in coalesced runs; "
                f"{smem['K16']} B of dynamic shared memory"}
-    print(f"K10, K11, K15 and K16, staged: dynamic shared memory {smem} B "
-          "a block (K15: 8 B more a staged detector-table entry); K11's "
-          "gain warps: 1 (csrc/coherent_loop_f64.cu kGainWarps)")
+    print(f"K10, K11 and K13-K16, staged: dynamic shared memory {smem} B "
+          "a block (K14 by its rows; K15: 8 B more a staged detector-table "
+          "entry); gain warps: K11 1 (csrc/coherent_loop_f64.cu "
+          "kGainWarps), K13 4 (kAgcGainWarps), K14 1 "
+          "(csrc/iq_loop_f64.cu kGainWarps)")
 
     def hold(key, where, kernel, twin, x, n_lanes, n_bytes, ops_a_step):
         """``kernel`` against ``twin`` on the first F64_CUT samples of the
         rows ``x`` (or of each rail of a tuple of them) at the full lane
         count: bitwise; the kernel timed at full shape (3 runs a bank's
         lanes, 1 the executor's lane), the twin's call on the cut.  The
-        staged K10, K11, K15 and K16 are held on two cuts, as K1-K8 are:
+        staged K10, K11 and K13-K16 are held on two cuts, as K1-K8 are:
         views of the first ALIGNED_CUT samples, which the kernel reads at
         the rows' own stride, by the route of the timed call (as they lie,
         or through ``_ext.lane_rows``' or ``_ext.lane_rows_pair``' padded
@@ -2206,7 +2226,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         fails unless it launched each of ``need`` and no f32 loop or
         slicer kernel (K1-K8).  Returns the result, the wall, the peak
         device memory, the launches and the padded-row copies made for the
-        staged K10, K11, K15 and K16 (``_ext.lane_rows.copies``)."""
+        staged K10, K11 and K13-K16 (``_ext.lane_rows.copies``)."""
         zero_counts()
         _ext.lane_rows.copies = 0
         torch.cuda.reset_peak_memory_stats()
@@ -2280,7 +2300,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         print(f"f64 executor {name}: {len(chains)} chain(s) x "
               f"{len(wave) / rate:.0f} s, {len(sent)} frames decoded, 0 "
               f"rejected; launches {launched}, padded-row copies for the "
-              f"staged K10, K11, K15, K16 {copies}; wall {wall:.3f} s at f64, "
+              f"staged K10, K11, K13-K16 {copies}; wall {wall:.3f} s at f64, "
               f"{wall32:.3f} s at f32; packets differing between f64 and "
               f"f32: {len(a ^ b)} of {len(a | b)}; peak device memory "
               f"{peak / 2**30:.2f} GiB [{smi}]")
@@ -2351,7 +2371,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
               f"{-(-plan_b.n_blocks // tbank.blocks_per_group(bank_, plan_b))}"
               f" group(s)), {len(sent)} "
               f"frames decoded, 0 rejected; launches {launched}, padded-row "
-              f"copies for the staged K10, K11, K15, K16 {copies}; warm walls of {WARM_RUNS}, "
+              f"copies for the staged K10, K11, K13-K16 {copies}; warm walls of {WARM_RUNS}, "
               f"min / median / max, {_spread(walls64)} s at f64, "
               f"{_spread(walls32)} s at f32; packets "
               f"differing between f64 and f32: {len(a ^ b)} of "

@@ -160,7 +160,7 @@ BULK_BYTES = 16
 
 
 def rows_aligned(t) -> bool:
-    """Whether the staged lane kernels (K1-K8, K10, K11, K15, K16) can copy
+    """Whether the staged lane kernels (K1-K8, K10, K11, K13-K16) can copy
     the rows of the (n, T) tensor ``t`` (rows of unit stride) as they are,
     by bulk copies: 16-byte aligned starts a multiple of 16 bytes apart (4
     floats, 2 doubles).  For a contiguous ``t``: T floats a multiple of 4,
@@ -183,11 +183,11 @@ def _padded(t, stride: int):
 
 def lane_rows(t):
     """The rows of the (n, T) tensor ``t`` (rows of unit stride) as the
-    staged lane kernels of one input rail (K1-K5, K8, K10, K11) copy them:
-    ``t`` itself when ``rows_aligned``, else a copy into rows of T rounded
-    up to a multiple of 16 bytes (4 floats, 2 doubles), zero-padded.  The
-    kernels take the row stride, ``.stride(0)``, and read T samples a row.
-    ``lane_rows.copies`` counts the copies."""
+    staged lane kernels of one input rail (K1-K5, K8, K10, K11, K13, K14)
+    copy them: ``t`` itself when ``rows_aligned``, else a copy into rows of
+    T rounded up to a multiple of 16 bytes (4 floats, 2 doubles),
+    zero-padded.  The kernels take the row stride, ``.stride(0)``, and read
+    T samples a row.  ``lane_rows.copies`` counts the copies."""
     if rows_aligned(t):
         return t
     per = BULK_BYTES // t.element_size()

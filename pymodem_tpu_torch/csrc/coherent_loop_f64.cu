@@ -35,9 +35,7 @@
 // streams.  K11's step on one thread was ~40 dependent f64 operations:
 // the AGC follower (~10: compares, selects, NaN-propagating min and max),
 // the IEEE f64 divide target * x / env (a reciprocal seed, Newton steps
-// and a branch to its slow path, the longest latency of the step, not
-// timed alone: K13, the follower and the divide on one thread, takes
-// 154.5 ns a step at one lane), then
+// and a branch to its slow path, the longest latency of the step), then
 // the NCO (~10 with its four wraps), the table read, the mixer, the IIR
 // and PI (~15); 243 ns a step at one lane, 303 ns on bank lanes, whose
 // rows a warp read 8 samples at a time, one memory round trip a chunk.
@@ -63,9 +61,20 @@
 // the twins' op order, so the outputs equal the plain twins (dsp/loops.py
 // afsk_pll, bpsk_costas) bitwise.
 //
-// K13 (AGC alone) keeps the one-thread-a-lane design of lanes_f64.cuh:
-// lane l reads its row straight from global memory in chunks, ~10
-// dependent operations and the divide a step.
+// Design of K13 (K4's at f64, lane_tiles_f64.cuh): with no loop behind
+// it, the follower is the lane's whole chain (~10 dependent operations a
+// step: compares, selects, NaN-propagating min and max) and stays on the
+// lane warp; the divides leave it.  A block serves 32 lanes with a lane
+// warp, a copy warp and kAgcGainWarps gain warps (four: one warp's
+// divides do not keep up with the follower; at 118 lanes on an H100 one
+// gain warp took 93.5 ns a step, two 48.3, four 43.6 and eight 44.2,
+// tools/k13_gain_warps.py), and walks time in tiles of 64 samples over
+// four stages of two rails, 135,168 B (128-sample tiles would need 266
+// KB).  While lane thread l runs Agc::follow over
+// tile k of row l and writes each envelope into the stage's second rail,
+// the gain warps form Agc::gain, target * x / env, of tile k - 1 in place
+// over its input, and the copy warp stores tile k - 2 and loads tile
+// k + 1, one bulk copy a lane each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,6 +96,13 @@ constexpr int kStages = 5;
 constexpr int kRail = kLanes * kStride;  // doubles of one rail of a stage
 // dynamic shared memory: kStages stages of two rails
 constexpr int kSmemBytes = 8 * 2 * kStages * kRail;
+
+// K13: tile k + 1 loads while tile k follows, k - 1 gains and k - 2
+// stores
+constexpr int kAgcStages = 4;
+constexpr int kAgcGainWarps = 4;  // warps forming K13's quotients
+constexpr int kAgcThreads = (2 + kAgcGainWarps) * kLanes;
+constexpr int kAgcSmemBytes = 8 * 2 * kAgcStages * kRail;
 
 // afsk_pll: the mixer x * sin; the output is prop
 struct AfskPll {
@@ -187,30 +203,14 @@ __global__ void __launch_bounds__((2 + kGainWarps) * kLanes, 1)
   auto follow = [&](int k) {
     pymodem::mbar_wait(&bars[k % kStages], (k / kStages) & 1);
     double* xr = row_at(k);
-    const int n = tile_n(k);
-#pragma unroll 4
-    for (int c = 0; c < n; c += 2) {
-      const double2 a = *reinterpret_cast<const double2*>(xr + c);
-      double2 e;
-      e.x = agc.follow(a.x);
-      e.y = agc.follow(a.y);
-      *reinterpret_cast<double2*>(xr + kRail + c) = e;
-    }
+    agc.follow_tile(xr, xr + kRail, tile_n(k));
   };
   // gain warp g: target * x / env over its columns of tile k, in place
   auto gain = [&](int k, int g) {
     // long passed: orders the bulk load before these reads
     pymodem::mbar_wait(&bars[k % kStages], (k / kStages) & 1);
     double* xr = row_at(k);
-    const double* er = xr + kRail;
-    const int n = tile_n(k);
-#pragma unroll 2
-    for (int c = 2 * g; c < n; c += 2 * kGainWarps) {
-      const double2 a = *reinterpret_cast<const double2*>(xr + c);
-      const double2 e = *reinterpret_cast<const double2*>(er + c);
-      *reinterpret_cast<double2*>(xr + c) =
-          make_double2(agc.gain(a.x, e.x), agc.gain(a.y, e.y));
-    }
+    agc.gain_tile(xr, xr + kRail, tile_n(k), 2 * g, 2 * kGainWarps);
     // ordered before the bulk copies that later refill the stage
     pymodem::fence_proxy_async();
   };
@@ -251,17 +251,88 @@ __global__ void __launch_bounds__((2 + kGainWarps) * kLanes, 1)
   if (warp == 1) pymodem::bulk_wait_all();
 }
 
-// K13: one thread a lane (lanes_f64.cuh)
-__global__ void __launch_bounds__(kLanes)
+// K13: warp 0 is the lanes (the follower), warp 1 the copy warp, warps 2
+// and up the gain warps: gain warp g forms the quotients of the tile's
+// double2 columns c with c % kAgcGainWarps == g.
+__global__ void __launch_bounds__(kAgcThreads, 1)
     agc_f64_kernel(const double* __restrict__ x, int in_stride,
                    const double* __restrict__ params,
                    double* __restrict__ out, int out_stride, int L, int T) {
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
-  if (lane >= L) return;
-  Agc agc(params + lane, L);
-  double* orow = out + static_cast<size_t>(lane) * out_stride;
-  for_each_sample(x + static_cast<size_t>(lane) * in_stride, T,
-                  [&](int t, double v) { orow[t] = agc.step(v); });
+  // [stage][rail][lane][kStride] tiles (rail 0: the input, then the
+  // outputs in place; rail 1: the envelopes)
+  extern __shared__ __align__(16) double smem[];
+  __shared__ uint64_t bars[kAgcStages];
+  const int tid = threadIdx.x;
+  const int warp = tid / kLanes;
+  const int r = tid % kLanes;  // the lane row this thread serves
+  const int lane0 = blockIdx.x * kLanes;
+  const int lane = lane0 + r;
+  const bool active = lane < L;
+  const int n_active = min(kLanes, L - lane0);
+  if (tid < kAgcStages) pymodem::mbar_init(&bars[tid]);
+  __syncthreads();
+
+  const int pl = active ? lane : 0;
+  const double* row = x + static_cast<size_t>(pl) * in_stride;
+  Agc agc(params + pl, L);
+  auto tile_n = [&](int k) { return min(kTile, T - k * kTile); };
+  auto row_at = [&](int k) {
+    return smem + 2 * (k % kAgcStages) * kRail + r * kStride;
+  };
+
+  // copy warp: tile k to rail 0 of its stage by one bulk copy a lane,
+  // completing on the stage's barrier
+  auto fetch = [&](int k) {
+    const unsigned bytes = tile_bytes(tile_n(k));
+    uint64_t* bar = &bars[k % kAgcStages];
+    if (r == 0) pymodem::mbar_expect(bar, bytes * n_active);
+    if (active) pymodem::bulk_load(row_at(k), row + k * kTile, bytes, bar);
+  };
+  // copy warp: the outputs of tile k to the (L, T) output
+  auto store = [&](int k) {
+    if (active) {
+      pymodem::bulk_store(
+          out + static_cast<size_t>(lane) * out_stride + k * kTile,
+          row_at(k), tile_bytes(tile_n(k)));
+    }
+    pymodem::bulk_commit();
+  };
+  // lane warp: the envelopes of tile k into rail 1, two steps at a time;
+  // past T (the last tile of a row whose T is odd) the step makes only an
+  // output in the rows' padding
+  auto follow = [&](int k) {
+    pymodem::mbar_wait(&bars[k % kAgcStages], (k / kAgcStages) & 1);
+    double* xr = row_at(k);
+    agc.follow_tile(xr, xr + kRail, tile_n(k));
+  };
+  // gain warp g: target * x / env over its columns of tile k, in place
+  auto gain = [&](int k, int g) {
+    // long passed: orders the bulk load before these reads
+    pymodem::mbar_wait(&bars[k % kAgcStages], (k / kAgcStages) & 1);
+    double* xr = row_at(k);
+    agc.gain_tile(xr, xr + kRail, tile_n(k), 2 * g, 2 * kAgcGainWarps);
+    // the bulk store reads what these generic stores wrote
+    pymodem::fence_proxy_async();
+  };
+
+  const int n_tiles = (T + kTile - 1) / kTile;
+  if (warp == 1 && n_tiles > 0) fetch(0);
+  for (int k = 0; k < n_tiles + 2; ++k) {
+    // the lanes are done with k - 1, the gains with k - 2
+    __syncthreads();
+    if (warp == 1) {
+      // store tile k - 2, then load tile k + 1 into the stage of tile
+      // k - 3 once its store has read it
+      if (k >= 2) store(k - 2);
+      pymodem::bulk_wait_read<1>();
+      if (k + 1 < n_tiles) fetch(k + 1);
+    } else if (warp >= 2) {
+      if (active && k >= 1 && k <= n_tiles) gain(k - 1, warp - 2);
+    } else if (active && k < n_tiles) {
+      follow(k);
+    }
+  }
+  if (warp == 1) pymodem::bulk_wait_all();
 }
 
 using LoopKernel = void (*)(const double*, int, const int*, int,
@@ -306,19 +377,28 @@ extern "C" int coherent_loop_f64_lanes(const double* x, int in_stride,
 // K11's dynamic shared memory a block, bytes
 extern "C" int coherent_loop_f64_smem_bytes() { return kSmemBytes; }
 
-// K13.  Input rows ``in_stride`` doubles apart (any stride >= T), lane l
-// on row l; params (5, L), AGC_PARAMS (dsp/agc.py); out (L, T) rows
-// ``out_stride`` apart.
+// K13.  Input rows ``in_stride`` doubles apart, lane l on row l; params
+// (5, L), AGC_PARAMS (dsp/agc.py); out (L, T) rows ``out_stride`` apart;
+// rows 16-byte aligned with strides that are multiples of 2 and >= T
+// (lane_tiles_f64.cuh; dsp/agc.py pads other rows).
 extern "C" int agc_f64_lanes(const double* x, int in_stride,
                              const double* params, double* out,
                              int out_stride, int L, int T, void* stream) {
-  if (in_stride < T || out_stride < T) {
+  if (!rows_ok(x, in_stride, T) || !rows_ok(out, out_stride, T)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaFuncSetAttribute(
+      agc_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kAgcSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (L + kLanes - 1) / kLanes;
   if (blocks > 0 && T > 0) {
-    agc_f64_kernel<<<blocks, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+    agc_f64_kernel<<<blocks, kAgcThreads, kAgcSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
         x, in_stride, params, out, out_stride, L, T);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// K13's dynamic shared memory a block, bytes
+extern "C" int agc_f64_smem_bytes() { return kAgcSmemBytes; }

@@ -1,7 +1,8 @@
-// Staged double tiles for the float64 lane kernels K10, K11, K15 and K16
-// (binary_slicer_f64.cu, coherent_loop_f64.cu, iq_loop_f64.cu,
-// quadrature_slicer_f64.cu): lane_tiles.cuh's stage barriers and bulk
-// copies (TMA) at 8 bytes a sample.
+// Staged double tiles for the float64 lane kernels K10, K11 and K13-K16
+// (binary_slicer_f64.cu, coherent_loop_f64.cu for K11 and K13,
+// iq_loop_f64.cu for K14 and K15, quadrature_slicer_f64.cu):
+// lane_tiles.cuh's stage barriers and bulk copies (TMA) at 8 bytes a
+// sample.
 //
 // Layout: a shared tile of n samples (n a multiple of 16) holds one row of
 // n + 2 doubles per lane.  A thread reading a double2 of its own row then

@@ -5,15 +5,16 @@
 // (``Loop``), in the plain twins' op order.
 //
 // Those kernels replace lax.scan recurrences that the JAX package runs at
-// float64 (it runs no Pallas kernel at f64).  K11, K15 and K16 stage their
+// float64 (it runs no Pallas kernel at f64).  K11 and K13-K16 stage their
 // rows in shared memory (lane_tiles_f64.cuh, as K10 does) and take only
-// the structs' pieces from here; K12-K14 run one thread a lane: the lane's
-// state in registers, its row read straight from global memory a chunk of
-// kChunk samples at a time (``for_each_sample``: the loads of a chunk are
-// independent of the state, so they are in flight together), and every
-// step in the plain twin's op order, so that a build with -fmad=false and
-// no fast math equals the twin bitwise.  32 lanes a block, so that the
-// lanes spread over as many SMs as there are warps.
+// the structs' pieces from here.  K12 alone runs one thread a lane: the
+// lane's state in registers, its row read straight from global memory a
+// chunk of kChunk samples at a time (``for_each_sample``: the loads of a
+// chunk are independent of the state, so they are in flight together),
+// its window codes written by ``Emitter``, and every step in the plain
+// twin's op order, so that a build with -fmad=false and no fast math
+// equals the twin bitwise.  32 lanes a block, so that the lanes spread
+// over as many SMs as there are warps.
 
 #pragma once
 
@@ -66,9 +67,32 @@ struct Agc {
     return e != 0.0 ? target * x / e : x;
   }
 
-  // one step: follow, then gain
-  __device__ __forceinline__ double step(double x) {
-    return gain(x, follow(x));
+  // follow over n samples of a staged row x (lane_tiles_f64.cuh), two a
+  // double2, the envelopes into env; past an odd n the last step reads the
+  // row's padding and writes only env's
+  __device__ __forceinline__ void follow_tile(const double* x, double* env,
+                                              int n) {
+#pragma unroll 4
+    for (int c = 0; c < n; c += 2) {
+      const double2 a = *reinterpret_cast<const double2*>(x + c);
+      double2 e;
+      e.x = follow(a.x);
+      e.y = follow(a.y);
+      *reinterpret_cast<double2*>(env + c) = e;
+    }
+  }
+
+  // gain in place over the double2 columns c0, c0 + step, ... of n samples
+  // of a staged row x whose envelopes are env
+  __device__ __forceinline__ void gain_tile(double* x, const double* env,
+                                            int n, int c0, int step) const {
+#pragma unroll 2
+    for (int c = c0; c < n; c += step) {
+      const double2 a = *reinterpret_cast<const double2*>(x + c);
+      const double2 e = *reinterpret_cast<const double2*>(env + c);
+      *reinterpret_cast<double2*>(x + c) =
+          make_double2(gain(a.x, e.x), gain(a.y, e.y));
+    }
   }
 };
 
@@ -124,13 +148,6 @@ struct Loop {
     return gp * y;
   }
 };
-
-// Copy ``n`` values from global to shared memory, the block's threads
-// striding; the caller synchronises.
-template <typename V>
-__device__ __forceinline__ void stage(V* dst, const V* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
 
 // The zero crossing of the slicers' twins (ops/slicers.py _crossings):
 // last = 0 before a row's first sample; a NaN crosses nothing.

@@ -122,11 +122,4 @@ struct Loop {
   }
 };
 
-// Copy ``n`` values from global to shared memory, the block's threads
-// striding; the caller synchronises.
-template <typename V>
-__device__ __forceinline__ void stage(V* dst, const V* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
 }  // namespace pymodem

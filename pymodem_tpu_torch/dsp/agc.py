@@ -16,8 +16,8 @@ the Pallas kernel that runs it over lanes on the TPU,
 The follower runs fused inside the AFSK-PLL and BPSK loop kernels
 (``dsp/loops.py``) and on its own, as kernel K4, ahead of the MPSK Hilbert
 FIR; at float64, the JAX package's parity mode, as kernel K13
-(``agc_f64_lanes``, the JAX package's f64 ``agc_apply`` scan having no
-Pallas kernel).  ``agc_step`` is the one copy of its op order, shared by
+(``agc_f64_lanes``, staged as K4 is; the JAX package's f64 ``agc_apply``
+scan has no Pallas kernel).  ``agc_step`` is the one copy of its op order, shared by
 ``agc_follower`` (the twin of K4 and K13, the port's ``agc_apply`` over
 lanes) and the loops' twins.
 """
@@ -96,10 +96,12 @@ def agc_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
 
 def agc_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
     """Kernel K13 (``csrc/coherent_loop_f64.cu``), the follower alone at
-    float64, over (L, T) float64 lanes of unit stride (any row stride,
-    taken as they lie) with (5, L) float64 rows; ``agc_lanes`` routes
-    float64 CUDA tensors here.  Returns (L, T) float64.  Only a CPU tensor
-    takes the plain twin ``agc_follower``."""
+    float64, over (L, T) float64 lanes of unit stride with (5, L) float64
+    rows; ``agc_lanes`` routes float64 CUDA tensors here.  Rows that are
+    not 16-byte aligned a multiple of 2 doubles apart go to the kernel
+    through a padded copy (``_ext.lane_rows``).  Returns (L, T) float64, a
+    view of padded rows when T is odd.  Only a CPU tensor takes the plain
+    twin ``agc_follower``."""
     _check_shapes(x, lane_params)
     if x.device.type == "cpu":
         return agc_follower(x, lane_params)
@@ -108,14 +110,16 @@ def agc_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor) -> torch.Tensor:
     _ext.require_rows(x.device, torch.float64, x=x)
     _ext.require(x.device, torch.float64, lane_params=lane_params)
     L, T = x.shape
-    out = torch.empty((L, T), dtype=torch.float64, device=x.device)
+    x = _ext.lane_rows(x)
+    out = torch.empty((L, -(-T // 2) * 2), dtype=torch.float64,
+                      device=x.device)
     _ext.launch("agc_f64_lanes", x.device,
                 (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_void_p) + (ctypes.c_int,) * 3,
                 x.data_ptr(), x.stride(0), lane_params.data_ptr(),
                 out.data_ptr(), out.stride(0), L, T)
     agc_f64_lanes.launches += 1
-    return out
+    return out[:, :T]
 
 
 def _check_shapes(x, lane_params) -> None:

@@ -49,9 +49,9 @@ Float64 lanes on the card run the f64 kernels in the twins' op order, the
 JAX package's f64 scans having no Pallas kernel to port: K11
 (``coherent_loop_f64_lanes``), the AGC fused with the AFSK PLL or the BPSK
 Costas loop, staged as K2 and K3 are; K15 (``mpsk_loop_f64_lanes``), the
-MPSK loop on the reference's detector table, staged as K6 is; and one
-thread a lane, K14 (``qpsk_costas_f64_lanes``), the QPSK Costas loop with
-17 rows or 12.  ``afsk_pll_lanes``,
+MPSK loop on the reference's detector table, staged as K6 is; and K14
+(``qpsk_costas_f64_lanes``), the QPSK Costas loop with 17 rows or 12,
+staged as K5 is with K11's split of the AGC.  ``afsk_pll_lanes``,
 ``bpsk_costas_lanes``, ``qpsk_costas_lanes`` and ``mpsk_loop_lanes``
 route a float64 CUDA tensor to them.
 """
@@ -401,8 +401,8 @@ def _row_map(x, L, row_of_lane):
 
 
 def _staged_rows(x, L, row_of_lane):
-    """What the staged loop kernels of one input rail (K2, K3, K5, K11)
-    take for input rows: ``x`` as bulk copies can move it
+    """What the staged loop kernels of one input rail (K2, K3, K5, K11,
+    K14) take for input rows: ``x`` as bulk copies can move it
     (``_ext.lane_rows``) and each lane's row (``_row_map``)."""
     from .. import _ext
 
@@ -587,8 +587,10 @@ def qpsk_costas_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     unit stride (``row_of_lane`` as ``qpsk_costas_lanes``), 17 rows with
     the AGC fused or 12 without; the tables are the reference wavetable
     and its quarter-turn shift (``f64_nco_tables``).
-    ``qpsk_costas_lanes`` routes float64 CUDA tensors here.  Returns (i,
-    q), each (L, T) float64.
+    ``qpsk_costas_lanes`` routes float64 CUDA tensors here.  Rows that are
+    not 16-byte aligned a multiple of 2 doubles apart go to the kernel
+    through a padded copy (``_ext.lane_rows``).  Returns (i, q), each
+    (L, T) float64, views of padded rows when T is odd.
 
     Only a CPU tensor takes the plain twin ``qpsk_costas``."""
     L = _check_lanes("qpsk_costas_f64_lanes", x, lane_params, _QPSK_ROWS,
@@ -602,8 +604,9 @@ def qpsk_costas_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     _ext.require(x.device, torch.float64, lane_params=lane_params,
                  sine_table=sine_table, cos_table=cos_table)
     R, T = x.shape
-    row_of_lane = _row_map(x, L, row_of_lane)
-    out_i = torch.empty((L, T), dtype=torch.float64, device=x.device)
+    x, row_of_lane = _staged_rows(x, L, row_of_lane)
+    out_i = torch.empty((L, -(-T // 2) * 2), dtype=torch.float64,
+                        device=x.device)
     out_q = torch.empty_like(out_i)
     _ext.launch("qpsk_costas_f64_lanes", x.device,
                 (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -615,7 +618,7 @@ def qpsk_costas_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
                 out_i.stride(0), L, T,
                 int(lane_params.shape[0] > _QPSK_ROWS[0]))
     qpsk_costas_f64_lanes.launches += 1
-    return out_i, out_q
+    return out_i[:, :T], out_q[:, :T]
 
 
 # K6's dynamic shared memory left for its detector tables on Hopper (227 KB

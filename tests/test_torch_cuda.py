@@ -1156,57 +1156,122 @@ def _f64_tables(device):
                  tloops.f64_nco_tables(wd.nco_wavetable(256, 1.0)))
 
 
-@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
-@pytest.mark.parametrize("rows", ["as_they_are", "strided", "special"])
-@pytest.mark.parametrize("lanes", [1, 45, 118])
+# T at the edges of the 64-sample tiles of K13 and K14: 1 sample, a tile
+# less 1, a tile, a tile and 1, two tiles and 1
+_TILE64_T_EDGES = [1, 63, 64, 65, 129]
+# rows of the f64 lanes as the card tests hand them to K13 and K14: ``odd
+# stride`` always goes through a padded copy, ``wider`` (a view of rows
+# padded to an even stride, and 2 doubles more) never
+_F64_ROW_FORMS = ("odd_stride", "wider")
+
+
+def _f64_row_form(x, form):
+    """``x`` (n, T) as a view of rows at an odd stride (T, or T + 1 where T
+    is even), or of rows at an even stride past T (``_F64_ROW_FORMS``)."""
+    T = x.shape[1]
+    width = T | 1 if form == "odd_stride" else -(-T // 2) * 2 + 2
+    wide = x.new_zeros((x.shape[0], width))
+    wide[:, :T] = x
+    return wide[:, :T]
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5, *_TILE64_T_EDGES])
+@pytest.mark.parametrize("rows", ["as_they_are", "strided", "special",
+                                  *_F64_ROW_FORMS, "f64_specials"])
+@pytest.mark.parametrize("lanes", [1, 45, 118, 33])
 def test_agc_f64_kernel_matches_twin(cuda, lanes, rows, T):
-    """K13 equals the f64 twin bitwise (NaN, -0.0 and zero samples too);
-    agc_lanes routes float64 to it, never to K4; rows a view of wider
-    rows are taken as they lie."""
+    """K13 equals the f64 twin bitwise (NaN, -0.0 and zero samples too;
+    ``f64_specials``: +-inf, +-1e300 and negative subnormals as well);
+    agc_lanes routes float64 to it, never to K4.  Rows a view of wider
+    rows (``strided``, T + 5 doubles apart) are taken as they lie where
+    that stride is even and through a padded copy where it is odd, rows at
+    an odd stride always through the copy, a view of rows at an even
+    stride never; the output is then a view of padded rows."""
+    from pymodem_tpu_torch import _ext
+
     x = _carrier(3, lanes, T, cuda).double() * 7.0
     if rows == "special" and lanes >= 6:
         x = _special(x, 31)
+    elif rows == "f64_specials":
+        x = _f64_specials(x, 33)
     if rows == "strided":
         wide = x.new_zeros((lanes, T + 5))
         wide[:, :T] = x
         x = wide[:, :T]
+    elif rows in _F64_ROW_FORMS:
+        x = _f64_row_form(x, rows)
+        assert _ext.rows_aligned(x) == (rows == "wider")
     lp = _f64_psk_rows(_AGC_ROWS, lanes, cuda)
     k4, k13 = tagc.agc_lanes.launches, tagc.agc_f64_lanes.launches
+    copies = _ext.lane_rows.copies
     got = tagc.agc_lanes(x, lp)
     want = tagc.agc_follower(x, lp)
     torch.cuda.synchronize()
     assert tagc.agc_lanes.launches == k4
     assert tagc.agc_f64_lanes.launches == k13 + 1
+    assert _ext.rows_aligned(x) == (x.stride(0) % 2 == 0)
+    assert _ext.lane_rows.copies == copies + (not _ext.rows_aligned(x))
     assert got.dtype == torch.float64 and got.shape == (lanes, T)
     assert _same_bits(got, want)
 
 
-@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
-@pytest.mark.parametrize("chains", [0, 1, 8],
-                         ids=["identity", "shared_1", "shared_8"])
+# K14's cases: C chains of 37 lanes on 37 shared rows (0: 200 lanes on
+# their own rows), one lane, 33 lanes (a block and one lane), and 2 chains
+# on shared rows at an odd stride, as a view of wider rows, or with NaN,
+# +-inf, +-1e300, negative subnormals and -0.0
+_K14_CASES = [0, 1, 8, "one_lane", "33_lanes", *_F64_ROW_FORMS,
+              "f64_specials"]
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5, *_TILE64_T_EDGES])
+@pytest.mark.parametrize("chains", _K14_CASES,
+                         ids=["identity", "shared_1", "shared_8", "one_lane",
+                              "33_lanes", "odd_stride", "wider_rows",
+                              "f64_specials"])
 @pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
 def test_qpsk_costas_f64_kernel_matches_twin(cuda, n_rows, chains, T):
-    """K14 in both row forms, on lanes of their own rows or C chains of 37
-    lanes on 37 shared rows (``row_of_lane``): bitwise equal to the f64
-    twin; qpsk_costas_lanes routes float64 to it, never to K5."""
-    n_in = 200 if chains == 0 else 37
-    L = 200 if chains == 0 else 37 * chains
+    """K14 in both row forms (17 rows: three warps, the AGC off the lanes'
+    chain; 12: two), on lanes of their own rows or C chains of 37 lanes on
+    37 shared rows (``row_of_lane``), one lane or 33: bitwise equal to the
+    f64 twin (NaNs equal as NaNs); qpsk_costas_lanes routes float64 to
+    it, never to K5.  Rows at an odd stride, and any of odd T, go through
+    a padded copy, and the outputs are then views of padded rows; a view
+    of rows at an even stride is taken as it lies."""
+    from pymodem_tpu_torch import _ext
+
+    if chains in ("one_lane", "33_lanes"):
+        n_in = L = 1 if chains == "one_lane" else 33
+    else:
+        n_in = 200 if chains == 0 else 37
+        L = 200 if chains == 0 else 37 * (chains if isinstance(chains, int)
+                                          else 2)
     re, _ = _carrier(9, n_in, T, cuda, iq=True)
     x = (re * 3.0).double().contiguous()
-    row_of_lane = None if chains == 0 else torch.arange(
-        n_in, dtype=torch.int32, device=cuda).repeat(chains)
+    if chains in _F64_ROW_FORMS:
+        x = _f64_row_form(x, chains)
+        assert _ext.rows_aligned(x) == (chains == "wider")
+    elif chains == "f64_specials":
+        x = _f64_specials(x, 45)
+    row_of_lane = None if n_in == L else torch.arange(
+        n_in, dtype=torch.int32, device=cuda).repeat(L // n_in)
     lp = _f64_psk_rows((_QPSK_ROWS + _AGC_ROWS)[:n_rows], L, cuda, vary=1)
     tables = _f64_tables(cuda)
     k5 = tloops.qpsk_costas_lanes.launches
     k14 = tloops.qpsk_costas_f64_lanes.launches
+    copies = _ext.lane_rows.copies
     got = tloops.qpsk_costas_lanes(x, lp, *tables, row_of_lane)
     want = tloops.qpsk_costas(x, lp, *tables, row_of_lane)
     torch.cuda.synchronize()
     assert tloops.qpsk_costas_lanes.launches == k5
     assert tloops.qpsk_costas_f64_lanes.launches == k14 + 1
+    assert _ext.rows_aligned(x) == (x.stride(0) % 2 == 0)
+    assert _ext.lane_rows.copies == copies + (not _ext.rows_aligned(x))
     for g, w in zip(got, want):
         assert g.shape == (L, T) and g.dtype == torch.float64
-        assert torch.isfinite(g).all() and torch.equal(g, w)
+        if chains == "f64_specials":
+            assert _same_bits(g, w) and bool(g.isnan().any() or T < 64)
+        else:
+            assert torch.isfinite(g).all() and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("n_rows", [17, 12], ids=["agc_fused", "loop_only"])
