@@ -106,10 +106,14 @@ Phases, each printing one line with its seconds:
     packet slots a block, 64 candidate slots) on dense AFSK-1200 traffic:
     every frame, packets equal to a roomy run's;
 14. K9 against its twin, every output bitwise, on the AX.25 sweep bank's
-    own byte rows at its full row count and on edge rows (stuffed zeros,
+    own byte rows at its full row count, on edge rows (stuffed zeros,
     aborts, a frame over 1023 bytes, more closing flags than packet slots;
-    8 and 2 slots, length caps 1023 and 200); kernel and twin timed at the
-    bank's full shape;
+    8 and 2 slots, length caps 1023 and 200) and on the scan's edge rows
+    at an odd K of 1571 bytes (runs of ones across 32-bit words and the
+    threads', warps' and tiles' spans, all ones, closing flags at every bit
+    of a word, back-to-back frames; counts full, 0, short and past K);
+    kernel and twin timed at the bank's full shape, the time before the
+    redesign beside it;
 15. the AX.25 path end to end as in 5, counters set to 0 just before and
     read just after: ``ax25_afsk1200_sweep8`` (8 ``afsk`` "1200" chains,
     space gains 0.9 + 0.025 i, binary slicer 1200 Bd, AX.25, NRZI; 60-byte
@@ -171,10 +175,10 @@ Phases, each printing one line with its seconds:
     ``mpsk_bpsk1200_pair`` and ``qpsk_costas2400_sweep8`` (their own
     inputs: shared rows and ``row_of_lane``, analytic rows, detector
     tables, basebands, windows); each kernel timed at full shape, the
-    twins at 4101 samples on the banks; the staged K10, K11 and K13-K16
-    also on views of 4100 samples at the rows' own stride (the timed
-    call's route), with their dynamic shared memory and whether each full
-    shape's rows went through a padded copy;
+    twins at 4101 samples on the banks; the staged K10-K16 also on views
+    of 4100 samples at the rows' own stride (the timed call's route), with
+    their dynamic shared memory and whether each full shape's rows went
+    through a padded copy;
 26. the float64 mode end to end, the launch counters set to 0 before each
     run and read after: the executor (the mode's default route) on 60 s
     of the PLL pair (``afsk_300_pll``), the AFSK-300 correlator,
@@ -187,7 +191,7 @@ Phases, each printing one line with its seconds:
     kernel (K1-K8); walls beside the same plans at f32 (the banks' min /
     median / max of WARM_RUNS warm runs), the packets that differ between
     the two, peak device memory, the padded-row copies made for the
-    staged K10, K11 and K13-K16;
+    staged K10-K16;
 27. the CLI as a subprocess with ``PYMODEM_TPU_TORCH_X64=1`` on the PLL
     pair's config and a few seconds of audio (2 frames): exit 0 and the report of the same
     decode on the CPU twins (``run_decode`` with
@@ -290,6 +294,17 @@ K5_BEFORE_MS = 147.222
 K6_BEFORE_MS = 130.771
 K7_BEFORE_MS = 68.236
 K8_BEFORE_MS = 109.962
+# K9 before its redesign (one thread a row; PERF.md, H100 80GB HBM3 at
+# 700 W), ms at the AX.25 sweep's 920 rows of 1568 bytes
+K9_BEFORE_MS = 0.700
+K9_DESIGN = ("a bit-parallel scan, a block of 4 warps a row, 16 bytes a "
+             "thread a tile, bytes stored in coalesced runs")
+# the row length of K9's scan edge rows: odd, so rows start off a 4-byte
+# boundary
+AX25_SCAN_K = 1571
+# ~25 ms of the card's clock, longer than the host takes to queue 20 calls
+# of a kernel wrapper (``_time_ms``'s ``queued``)
+SLEEP_CYCLES = 50_000_000
 # peak device memory of each bank on the host-codec route, before the
 # device codec (PERF.md, GiB)
 PEAK_HOST_ROUTE_GIB = {
@@ -327,7 +342,7 @@ FULL_POWER_W = 700.0
 # decodes every frame)
 F64_CUT = SLICE + 5
 F64_SWEEP_GAINS = [0.97 + 0.01 * i for i in range(8)]
-# the staged f64 kernels before their redesign (one thread a lane; PERF.md,
+# the f64 kernels before their redesign (one thread a lane; PERF.md,
 # H100 80GB HBM3 at 700 W): ms at full shape on the banks at f64 and on
 # the executor's lane of a chain
 F64_BEFORE_MS = {
@@ -341,7 +356,8 @@ F64_BEFORE_MS = {
     "K15": {"qpsk2400_sweep8": 90.461, "mpsk_bpsk1200_pair": 119.350,
             "mpsk_qpsk2400": 664.278},
     "K16": {"qpsk2400_sweep8": 42.590, "mpsk_bpsk1200_pair": 53.378,
-            "mpsk_qpsk2400": 238.487}}
+            "mpsk_qpsk2400": 238.487},
+    "K12": {"fsk4_9600_sweep8": 114.072, "lane (fsk4_9600": 663.325}}
 
 
 def _phase(n: int, what: str, t0: float) -> None:
@@ -702,11 +718,16 @@ def _dense_afsk1200():
     return chain, [bytes(p) for p in sent], np.asarray(audio, np.float32)
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+def _time_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events).
+    ``queued``: the calls wait behind a sleep on the card until the host
+    has queued them all, so that the events time the card's work alone,
+    for a kernel that takes less time than its wrapper's host work."""
     import torch
 
     fn()  # warm
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -788,7 +809,7 @@ def _rows_route(*rails) -> bool:
 
 
 def _same_route(what: str, *rows, aligned: bool) -> None:
-    """Raise unless the staged lane kernels (K1-K8, K10, K11, K13-K16)
+    """Raise unless the staged lane kernels (K1-K8, K10-K16)
     take ``rows`` as they are (``aligned``) or through padded copies (not
     ``aligned``)."""
     if _rows_route(*rows) != aligned:
@@ -1930,6 +1951,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
     smem = {key: _ext.kernel(entry, ())() for key, entry in (
         ("K10", "binary_slice_f64_smem_bytes"),
         ("K11", "coherent_loop_f64_smem_bytes"),
+        ("K12", "four_level_slice_f64_smem_bytes"),
         ("K13", "agc_f64_smem_bytes"),
         ("K15", "mpsk_loop_f64_smem_bytes"),
         ("K16", "quadrature_slice_f64_smem_bytes"))}
@@ -1946,6 +1968,13 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                "(AGC quotients a tile ahead) a block of 32 lanes, "
                f"64-sample tiles in 5 stages of 2 rails; {smem['K11']} B of "
                "dynamic shared memory",
+        "K12": "K8's design at f64: a lane warp, a copy warp (bulk "
+               "copies, x > 0 and crossing words packed a tile ahead) and "
+               "two value warps (|x| * 2 / 3 a tile ahead) a block of 32 "
+               "lanes, 64-sample tiles in 3 stages of 2 rails, the ring a "
+               "shared row a lane summed every step, window codes stored "
+               f"in coalesced runs; {smem['K12']} B of dynamic shared "
+               "memory",
         "K13": "K4's design at f64: a lane warp (the AGC follower, "
                "envelopes into a second rail), a copy warp (bulk copies) "
                "and four gain warps (AGC quotients a tile behind) a block "
@@ -1971,18 +2000,18 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                "copies, sign and crossing words of both rails packed a "
                "tile ahead, window codes stored in coalesced runs; "
                f"{smem['K16']} B of dynamic shared memory"}
-    print(f"K10, K11 and K13-K16, staged: dynamic shared memory {smem} B "
-          "a block (K14 by its rows; K15: 8 B more a staged detector-table "
-          "entry); gain warps: K11 1 (csrc/coherent_loop_f64.cu "
-          "kGainWarps), K13 4 (kAgcGainWarps), K14 1 "
-          "(csrc/iq_loop_f64.cu kGainWarps)")
+    print(f"K10-K16, staged: dynamic shared memory {smem} B a block (K14 "
+          "by its rows; K15: 8 B more a staged detector-table entry); gain "
+          "warps: K11 1 (csrc/coherent_loop_f64.cu kGainWarps), K13 4 "
+          "(kAgcGainWarps), K14 1 (csrc/iq_loop_f64.cu kGainWarps); value "
+          "warps: K12 2 (csrc/four_level_slicer_f64.cu kValueWarps)")
 
     def hold(key, where, kernel, twin, x, n_lanes, n_bytes, ops_a_step):
         """``kernel`` against ``twin`` on the first F64_CUT samples of the
         rows ``x`` (or of each rail of a tuple of them) at the full lane
         count: bitwise; the kernel timed at full shape (3 runs a bank's
         lanes, 1 the executor's lane), the twin's call on the cut.  The
-        staged K10, K11 and K13-K16 are held on two cuts, as K1-K8 are:
+        staged K10-K16 are held on two cuts, as K1-K8 are:
         views of the first ALIGNED_CUT samples, which the kernel reads at
         the rows' own stride, by the route of the timed call (as they lie,
         or through ``_ext.lane_rows``' or ``_ext.lane_rows_pair``' padded
@@ -1991,19 +2020,16 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         copy; for them, the full rows' route (the copy's time inside the
         kernel's) and the time before the redesign are printed."""
         rails = x if isinstance(x, tuple) else (x,)
-        staged = key in designs
         # (samples, whether the cut is a view of the rows as they lie)
-        cuts = (((ALIGNED_CUT, True),) if staged else ()) + ((F64_CUT,
-                                                             False),)
+        cuts = ((ALIGNED_CUT, True), (F64_CUT, False))
         err = 0.0
         for n, view in cuts:
             # a fresh copy: .contiguous() keeps a single row's stride
             cut = tuple(r[:, :n] if view else
                         r[:, :n].clone(memory_format=torch.contiguous_format)
                         for r in rails)
-            if staged:
-                _same_route(f"{key} on {where}, {n} samples", *cut,
-                            aligned=view and _rows_route(*rails))
+            _same_route(f"{key} on {where}, {n} samples", *cut,
+                        aligned=view and _rows_route(*rails))
             got = kernel(*cut)
             cut = tuple(c.contiguous() for c in cut)
             # the twin's one call, timed by CUDA events (4101 steps of its
@@ -2024,26 +2050,22 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
                     ops_a_step * n_lanes * T, (n_lanes, T),
                     (n_lanes, F64_CUT), smi, ops_per_s=F64_OPS_PER_S)
         held.setdefault(key, []).append((where, k))
-        equal_on = f"{n_lanes}x{F64_CUT}"
-        extra = ""
-        if staged:
-            aligned = _rows_route(*rails)
-            equal_on = (f"{n_lanes}x{ALIGNED_CUT} (views of the rows, "
-                        f"{'as they lie' if aligned else 'padded'}) and "
-                        f"{n_lanes}x{PADDED_CUT} (padded rows)")
-            before = next((v for name_, v in F64_BEFORE_MS[key].items()
-                           if name_ in where), None)
-            route = ("as they lie" if aligned else
-                     f"through padded copies ({_copy_ms(*rails):.3f} ms "
-                     "of the kernel's time)")
-            extra = f"; full rows {route}"
-            if before is not None:
-                extra += f"; {before:.3f} ms before the redesign"
+        aligned = _rows_route(*rails)
+        equal_on = (f"{n_lanes}x{ALIGNED_CUT} (views of the rows, "
+                    f"{'as they lie' if aligned else 'padded'}) and "
+                    f"{n_lanes}x{PADDED_CUT} (padded rows)")
+        before = next((v for name_, v in F64_BEFORE_MS[key].items()
+                       if name_ in where), None)
+        route = ("as they lie" if aligned else
+                 f"through padded copies ({_copy_ms(*rails):.3f} ms "
+                 "of the kernel's time)")
+        extra = f"; full rows {route}"
+        if before is not None:
+            extra += f"; {before:.3f} ms before the redesign"
         print(f"{key} on {where}: lanes {n_lanes} T {T}: bitwise equal to "
               f"its f64 twin on {equal_on}; twin {plain:.1f} ms at "
               f"{n_lanes}x{F64_CUT}; kernel {ms:.3f} ms at full "
-              f"{n_lanes}x{T}, {ms * 1e6 / T:.1f} ns a step, "
-              f"{designs.get(key, 'one thread a lane, 32 lanes a block')}"
+              f"{n_lanes}x{T}, {ms * 1e6 / T:.1f} ns a step, {designs[key]}"
               f"{extra}; bound {k['bound_ms']:.3f} ms ({k['bound_by']}) "
               f"[{smi}]")
 
@@ -2226,7 +2248,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         fails unless it launched each of ``need`` and no f32 loop or
         slicer kernel (K1-K8).  Returns the result, the wall, the peak
         device memory, the launches and the padded-row copies made for the
-        staged K10, K11 and K13-K16 (``_ext.lane_rows.copies``)."""
+        staged K10-K16 (``_ext.lane_rows.copies``)."""
         zero_counts()
         _ext.lane_rows.copies = 0
         torch.cuda.reset_peak_memory_stats()
@@ -2300,7 +2322,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
         print(f"f64 executor {name}: {len(chains)} chain(s) x "
               f"{len(wave) / rate:.0f} s, {len(sent)} frames decoded, 0 "
               f"rejected; launches {launched}, padded-row copies for the "
-              f"staged K10, K11, K13-K16 {copies}; wall {wall:.3f} s at f64, "
+              f"staged K10-K16 {copies}; wall {wall:.3f} s at f64, "
               f"{wall32:.3f} s at f32; packets differing between f64 and "
               f"f32: {len(a ^ b)} of {len(a | b)}; peak device memory "
               f"{peak / 2**30:.2f} GiB [{smi}]")
@@ -2371,7 +2393,7 @@ def _f64_phases(dev, smi, banks, afsk, psk_chains, psk_audio, fsk_chains,
               f"{-(-plan_b.n_blocks // tbank.blocks_per_group(bank_, plan_b))}"
               f" group(s)), {len(sent)} "
               f"frames decoded, 0 rejected; launches {launched}, padded-row "
-              f"copies for the staged K10, K11, K13-K16 {copies}; warm walls of {WARM_RUNS}, "
+              f"copies for the staged K10-K16 {copies}; warm walls of {WARM_RUNS}, "
               f"min / median / max, {_spread(walls64)} s at f64, "
               f"{_spread(walls32)} s at f32; packets "
               f"differing between f64 and f32: {len(a ^ b)} of "
@@ -3021,6 +3043,7 @@ def _sharded_phases(dev, smi) -> dict:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -3055,6 +3078,7 @@ def main() -> int:
         quadrature_slice_lanes,
     )
     from pymodem_tpu_torch.runtime import bank as tbank
+    from pymodem_tpu_torch.synth.fixtures import ax25_edge_rows
 
     # 1. environment
     t0 = time.time()
@@ -3757,23 +3781,50 @@ def main() -> int:
     if not dropped:
         raise AssertionError("K9's edge rows held no more closing flags "
                              "than packet slots")
+    # the scan's edge rows (synth/fixtures.ax25_edge_rows) at odd K: runs
+    # of ones across words and the threads', warps' and tiles' spans, all
+    # ones, closing flags at every bit of a word, back-to-back frames; at
+    # full counts, and at 0, short and past K
+    scan_rows, scan_names = ax25_edge_rows(AX25_SCAN_K,
+                                           np.random.default_rng(SEED))
+    scan_rows = torch.from_numpy(scan_rows).to(dev)
+    n_scan = scan_rows.shape[0]
+    scan_counts = torch.full((n_scan,), AX25_SCAN_K, dtype=torch.int32,
+                             device=dev)
+    scan_counts[1::4] = 0
+    scan_counts[2::4] = AX25_SCAN_K + 9
+    scan_counts[3::4] = 3 + 97 * torch.arange(
+        len(scan_counts[3::4]), dtype=torch.int32, device=dev)
+    scan_closes = 0
+    for counts_ in (torch.full_like(scan_counts, AX25_SCAN_K), scan_counts):
+        for slots in (8, 2):
+            got = ax25_deframe_rows(scan_rows, counts_, slots, 18, 1023)
+            err = max(err, _same(f"K9 on the scan's edge rows, {slots} "
+                                 "slots", got, ax25_deframe(
+                                     scan_rows, counts_, slots, 18, 1023)))
+            scan_closes = max(scan_closes, int(got[6].sum()))
     plain = _time_ms(lambda: ax25_deframe(rows, counts, mp, 18, 1023), 1)
-    ms = _time_ms(lambda: ax25_deframe_rows(rows, counts, mp, 18, 1023), 5)
+    ms = _time_ms(lambda: ax25_deframe_rows(rows, counts, mp, 18, 1023), 20,
+                  queued=True)
     n_in = int(counts.clamp(0, K).sum())
+    # ~8 integer operations a bit: classes, the bit-sliced counts, bytes
     kernels["K9"] = _kernel(
         "ax25_deframe", "ax25_deframe.cu",
         "pymodem_tpu/codecs/ax25_device.py:128", err, ms, plain,
         n_in + 4 * N + 8 * N * K + 4 * N + 12 * N * mp + 4 * N,
-        20 * 8 * n_in, (N, K), (N, K), smi)
+        8 * 8 * n_in, (N, K), (N, K), smi)
     kernels["K9"]["replaces_kind"] = "lax.scan (no Pallas kernel)"
     print(f"K9 rows {N} K {K} ({n_in} bytes in, {8 * n_in / N:.0f} bits a "
           f"row on average): bitwise equal to its twin on the bank's rows "
           f"and on {edge_rows.shape[0]} edge rows (stuffing, aborts, a frame"
           f" over 1023 bytes, {dropped} rows with more closing flags than "
-          f"slots; 8 and 2 slots, caps 1023 and 200); twin {plain:.1f} ms "
-          f"at full {N}x{K}; kernel {ms:.3f} ms, one thread a row, 32 rows "
-          f"a block; bound {kernels['K9']['bound_ms']:.4f} ms [{smi}]")
-    del rows, counts, edge_rows, edge_counts
+          f"slots; 8 and 2 slots, caps 1023 and 200) and on {n_scan} scan "
+          f"edge rows of {AX25_SCAN_K} bytes ({scan_closes} closing flags; "
+          f"{', '.join(scan_names[:2])}, ...); twin {plain:.1f} ms at full "
+          f"{N}x{K}; kernel {ms:.4f} ms, {K9_DESIGN}; "
+          f"{K9_BEFORE_MS:.3f} ms before the redesign; bound "
+          f"{kernels['K9']['bound_ms']:.4f} ms [{smi}]")
+    del rows, counts, edge_rows, edge_counts, scan_rows, scan_counts
     _phase(14, "K9 AX.25 deframer == twin", t0)
 
     # 15. the AX.25 path end to end

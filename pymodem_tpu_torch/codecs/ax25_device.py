@@ -8,7 +8,8 @@ Port of ``pymodem_tpu.codecs.ax25_device``.  The reference deframer
 into a dense byte stream tagged with segment ids (flags start new
 segments) plus the closing flags' positions.  Here the scan and that
 compaction are one step, ``ax25_deframe_rows``: kernel K9
-(``csrc/ax25_deframe.cu``, one thread per (chain, block) row) on the card,
+(``csrc/ax25_deframe.cu``, a bit-parallel scan, a block of 4 warps a
+(chain, block) row) on the card,
 the plain twin ``ax25_deframe`` (a loop over bits with the JAX step's
 selects, vectorized across rows, then the JAX compaction) on the CPU.
 Packet extraction is then plain tensor work, as in the JAX package: each

@@ -1,6 +1,7 @@
-// Staged double tiles for the float64 lane kernels K10, K11 and K13-K16
+// Staged double tiles for the float64 lane kernels K10-K16
 // (binary_slicer_f64.cu, coherent_loop_f64.cu for K11 and K13,
-// iq_loop_f64.cu for K14 and K15, quadrature_slicer_f64.cu):
+// four_level_slicer_f64.cu, iq_loop_f64.cu for K14 and K15,
+// quadrature_slicer_f64.cu):
 // lane_tiles.cuh's stage barriers and bulk copies (TMA) at 8 bytes a
 // sample.
 //

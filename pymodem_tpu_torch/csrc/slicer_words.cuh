@@ -1,9 +1,9 @@
-// The pieces that the staged symbol-timing slicers K1, K7, K8, K10 and K16
-// (binary_slicer.cu, quadrature_slicer.cu, four_level_slicer.cu,
-// binary_slicer_f64.cu, quadrature_slicer_f64.cu) share on top of lane_tiles.cuh: the bit words
-// their copy warps pack one tile ahead of the lanes, and the window codes
-// the lanes leave in a shared buffer for the block to store in coalesced
-// runs.
+// The pieces that the staged symbol-timing slicers K1, K7, K8, K10, K12 and
+// K16 (binary_slicer.cu, quadrature_slicer.cu, four_level_slicer.cu,
+// binary_slicer_f64.cu, four_level_slicer_f64.cu, quadrature_slicer_f64.cu)
+// share on top of lane_tiles.cuh: the bit words their copy warps pack one
+// tile ahead of the lanes, and the window codes the lanes leave in a shared
+// buffer for the block to store in coalesced runs.
 //
 // Bit words: per 32 samples of a rail, bit b of a word is a predicate of
 // sample b, formed as the plain twins (ops/slicers.py) form it: x >= 0,
@@ -46,8 +46,8 @@ __device__ __forceinline__ unsigned gt0(float4 a) {
          static_cast<unsigned>(a.w > 0.0f) << 3;
 }
 
-// the same over a double2 (bits 0 and 1), for the float64 slicers K10 and
-// K16: the predicates on the doubles themselves, so a negative subnormal
+// the same over a double2 (bits 0 and 1), for the float64 slicers K10, K12
+// and K16: the predicates on the doubles themselves, so a negative subnormal
 // is < 0
 __device__ __forceinline__ unsigned ge0(double2 a) {
   return static_cast<unsigned>(a.x >= 0.0) |
@@ -145,7 +145,8 @@ __device__ __forceinline__ Codes codes_for(int window) {
 struct CodeBuffer {
   int* buf;
   int n_out, wshift;
-  int per_tile;  // codes a tile finishes, at least 1
+  int per_tile;  // codes a tile of kTile finishes, at least 1 (K12's
+                 // 64-sample tiles finish no more)
   int ob;        // first window the buffer holds
 
   __device__ int* row(int r) const { return buf + r * kCodeRow; }

@@ -428,18 +428,16 @@ def four_level_slice_lanes(x: torch.Tensor, lane_params: torch.Tensor, demap,
     return out
 
 
-def _f64_slicer(entry, x, lane_params, window, *args, staged=False):
+def _f64_slicer(entry, x, lane_params, window, *args):
     """Launch K10 or K12 (``entry``) over the (L, T) float64 rows of ``x``
-    (unit stride); returns the (L, ceil(T/window)) int32 emission stream.
-    K12 takes rows as they lie, at any row stride >= T; K10 (``staged``)
-    takes them as bulk copies can move them (``_ext.lane_rows``)."""
+    (unit stride), taken as bulk copies can move them (``_ext.lane_rows``);
+    returns the (L, ceil(T/window)) int32 emission stream."""
     from .. import _ext
 
     _ext.require(x.device, torch.float64, lane_params=lane_params)
     _ext.require_rows(x.device, torch.float64, x=x)
     L, T = x.shape
-    if staged:
-        x = _ext.lane_rows(x)
+    x = _ext.lane_rows(x)
     out = torch.empty((L, -(-T // window)), dtype=torch.int32,
                       device=x.device)
     _ext.launch(entry, x.device,
@@ -465,8 +463,7 @@ def binary_slice_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
     _check_window(window)
     if x.device.type == "cpu":
         return binary_slice(x, lane_params, window)
-    out = _f64_slicer("binary_slice_f64_lanes", x, lane_params, window,
-                      staged=True)
+    out = _f64_slicer("binary_slice_f64_lanes", x, lane_params, window)
     binary_slice_f64_lanes.launches += 1
     return out
 
@@ -475,8 +472,11 @@ def four_level_slice_f64_lanes(x: torch.Tensor, lane_params: torch.Tensor,
                                demap, window: int = 1) -> torch.Tensor:
     """Kernel K12 (``csrc/four_level_slicer_f64.cu``), the float64
     four-level slicer, over (L, T) float64 lanes; ``four_level_slice_lanes``
-    routes float64 CUDA tensors here.  Its emissions are K8's.  Only a CPU
-    tensor takes the plain twin ``four_level_slice``."""
+    routes float64 CUDA tensors here.  Its emissions are K8's.  ``x``'s
+    rows need unit stride; rows that are not 16-byte aligned a multiple of
+    2 doubles apart go to the kernel through a padded copy
+    (``_ext.lane_rows``).  Only a CPU tensor takes the plain twin
+    ``four_level_slice``."""
     demap = tuple(int(v) for v in demap)
     if x.ndim != 2 or lane_params.shape != (2, x.shape[0]):
         raise ValueError(f"bad shapes x {tuple(x.shape)} "

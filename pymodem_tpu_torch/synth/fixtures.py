@@ -96,3 +96,63 @@ def synthesize_for_chain(chain, rate: float, rng: np.random.Generator,
                                                  chain.slicer.symbol_rate)
         return sent, mod.fsk_modulate(line, rate, modem.symbol_rate)
     raise ValueError(f"no fixture for modem {modem.kind!r}")
+
+
+_FLAG = [0, 1, 1, 1, 1, 1, 1, 0]
+
+
+def ax25_edge_rows(K: int, rng: np.random.Generator):
+    """Byte rows of K bytes (MSB first on the wire) for the AX.25 deframer's
+    edge cases, with their names; the port's own (kernel K9 splits the bit
+    FSM into scans over 32-bit words, and over 16-byte, 512-byte and
+    2048-byte spans of a row).  Rows: runs of 5-70 ones (stuffing, flags,
+    aborts) across the 32-bit words and those spans, where K reaches them;
+    all ones; all zeros; frames whose closing flag ends at each of the 32
+    bits of a word (so at each of the 8 bits of a byte); frames back to
+    back behind single flags (more closing flags than a few packet slots
+    where K holds them); frames among noise.  Frames are AX.25 UI frames
+    of 2-byte payloads (20 bytes with header and CRC).  Returns
+    (rows (N, K) uint8, names)."""
+    n_bits = 8 * K
+
+    def row(bits):
+        bits = list(bits)[:n_bits]
+        while len(bits) < n_bits:
+            bits += _FLAG
+        return np.packbits(np.array(bits[:n_bits], np.uint8))
+
+    def frame():
+        payload = bytes(rng.integers(32, 127, 2).astype(np.uint8))
+        return enc.hdlc_encode(enc.ax25_ui_frame("KI5ABC", "N0CALL",
+                                                 payload), flag_count=1)
+
+    rows, names = [], []
+    for edge in (32, 128, 4096, 16384):
+        for run in (5, 6, 7, 8, 9, 13, 33, 70):
+            start = edge - run // 2 - 1
+            if start < 0 or start + run + 8 > n_bits:
+                continue
+            bits = [int(b) for b in rng.integers(0, 2, start)]
+            bits += [1] * run + [0] + frame()
+            rows.append(row(bits))
+            names.append(f"ones{run}_across_bit{edge}")
+    rows.append(np.full(K, 0xFF, np.uint8))
+    names.append("all_ones")
+    rows.append(np.zeros(K, np.uint8))
+    names.append("all_zeros")
+    for end in range(32):
+        bits = frame()
+        rows.append(row([0] * ((end - len(bits) + 1) % 32) + bits))
+        names.append(f"close_at_bit{end}")
+    bits = []
+    while len(bits) < n_bits:
+        bits += frame()[8:] if bits else frame()
+    rows.append(row(bits))
+    names.append("back_to_back")
+    bits = []
+    while len(bits) < n_bits:
+        bits += [int(b) for b in rng.integers(0, 2, int(rng.integers(1, 90)))]
+        bits += frame()
+    rows.append(row(bits))
+    names.append("frames_in_noise")
+    return np.stack(rows), names

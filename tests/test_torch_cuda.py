@@ -825,13 +825,42 @@ def _ax25_rows(n_rows, seed):
     return torch.from_numpy(data), torch.from_numpy(counts)
 
 
-@pytest.mark.parametrize("n_rows,max_packets", [(1, 8), (45, 8), (300, 2)])
+def _ax25_edge_case(case, seed):
+    """K9's edge rows (``synth/fixtures.ax25_edge_rows``) at an odd K: 1571
+    bytes, one tile of the block (``edges``, and each count among full,
+    0, short and past K), or 4099, past a tile (``two_tiles``); or one row
+    alone (``one_edge_row``: a run of ones across a warp's span)."""
+    from pymodem_tpu_torch.synth.fixtures import ax25_edge_rows
+
+    g = np.random.default_rng(seed)
+    K = 4099 if case == "two_tiles" else 1571
+    data, names = ax25_edge_rows(K, g)
+    if case == "one_edge_row":
+        data = data[names.index("ones9_across_bit4096")][None]
+    counts = np.full(len(data), K, np.int32)
+    if case == "edges":
+        counts[::4] = g.integers(-3, K, len(counts[::4]))
+        counts[1::4] = 0
+        counts[2::4] = K + 7
+    return torch.from_numpy(data), torch.from_numpy(counts)
+
+
+@pytest.mark.parametrize("n_rows,max_packets",
+                         [(1, 8), (45, 8), (300, 2), ("edges", 8),
+                          ("edges", 2), ("two_tiles", 8),
+                          ("one_edge_row", 8)])
 def test_ax25_deframe_kernel_matches_twin(cuda, n_rows, max_packets):
     """K9 against its plain twin on the card, every output bitwise, and
-    ax25_decode_blocks on the card against the CPU."""
+    ax25_decode_blocks on the card against the CPU; also on the edge rows
+    at odd K (runs of ones across words, threads' and warps' spans and
+    tiles, all ones, closing flags at every bit of a word, more closing
+    flags than packet slots, counts of 0 and past K) and on one row."""
     from pymodem_tpu_torch.codecs import ax25_device as tax
 
-    data, counts = _ax25_rows(n_rows, 13 + n_rows)
+    if isinstance(n_rows, str):
+        data, counts = _ax25_edge_case(n_rows, 29)
+    else:
+        data, counts = _ax25_rows(n_rows, 13 + n_rows)
     d, c = data.to(cuda), counts.to(cuda)
     before = tax.ax25_deframe_rows.launches
     got = tax.ax25_deframe_rows(d, c, max_packets, 18, 1023)
@@ -847,8 +876,10 @@ def test_ax25_deframe_kernel_matches_twin(cuda, n_rows, max_packets):
                                     max_packets=max_packets)
     for key, value in on_cpu.items():
         assert torch.equal(on_card[key].cpu(), value), key
-    if max_packets == 2:
+    if max_packets == 2 or n_rows == "two_tiles":
         assert int(on_cpu["dropped"].max()) > 0
+    if isinstance(n_rows, str):
+        assert int(on_cpu["crc_ok"].sum()) > 0
 
 
 def _pll_stream_case():
@@ -1021,22 +1052,56 @@ def test_binary_slicer_f64_kernel_matches_twin(cuda, window, lanes, rows, T):
         assert int((got != 0).sum()) > 0
 
 
-@pytest.mark.parametrize("T", [4000, 3 * 128 + 5])
+# T at the edges of the 64-sample tiles of K12-K15: 1 sample, a tile less
+# 1, a tile, a tile and 1, two tiles and 1
+_TILE64_T_EDGES = [1, 63, 64, 65, 129]
+# rows of the f64 lanes as the card tests hand them to K12-K14: ``odd
+# stride`` always goes through a padded copy, ``wider`` (a view of rows
+# padded to an even stride, and 2 doubles more) never
+_F64_ROW_FORMS = ("odd_stride", "wider")
+
+
+@pytest.mark.parametrize("T", [4000, 3 * 128 + 5, *_TILE64_T_EDGES])
 @pytest.mark.parametrize("lanes,rows", [(300, "as_they_are"),
-                                        (45, "strided")])
-@pytest.mark.parametrize("window", [1, 16])
+                                        (45, "strided"),
+                                        (1, "as_they_are"),
+                                        (33, "as_they_are"),
+                                        *((45, f) for f in _F64_ROW_FORMS),
+                                        (70, "f64_specials")])
+@pytest.mark.parametrize("window", [1, 16, 256])
 def test_four_level_slicer_f64_kernel_matches_twin(cuda, window, lanes, rows,
                                                    T):
-    """K12 equals the f64 twin bitwise (and the twin on the CPU)."""
-    x, lp = _f64_rows(lanes, rows, T, cuda)
+    """K12 equals the f64 twin bitwise (and the twin on the CPU);
+    four_level_slice_lanes routes float64 to it, never to K8.  Rows at an
+    odd stride (``odd_stride``; ``strided``, T + 5 doubles apart, where T
+    is even; any of odd T) go through a padded copy, the others
+    (``wider``: a view of rows at an even stride) as they lie; NaN, +-inf,
+    +-1e300, negative subnormals and -0.0 (``f64_specials``) reach the ring
+    and the threshold."""
+    from pymodem_tpu_torch import _ext
+
+    x, lp = _f64_rows(lanes, "strided" if rows == "strided" else
+                      "as_they_are", T, cuda)
+    if rows in _F64_ROW_FORMS:
+        x = _f64_row_form(x, rows)
+        assert _ext.rows_aligned(x) == (rows == "wider")
+    elif rows == "f64_specials":
+        x = _f64_specials(x, 47)
     demap = (2, 0, 3, 1)
     k8 = tsl.four_level_slice_lanes.launches
+    k12 = tsl.four_level_slice_f64_lanes.launches
+    copies = _ext.lane_rows.copies
     got = tsl.four_level_slice_lanes(x, lp, demap, window)
     assert tsl.four_level_slice_lanes.launches == k8
+    assert tsl.four_level_slice_f64_lanes.launches == k12 + 1
+    assert _ext.rows_aligned(x) == (x.stride(0) % 2 == 0)
+    assert _ext.lane_rows.copies == copies + (not _ext.rows_aligned(x))
     want = tsl.four_level_slice(x, lp, demap, window)
     assert torch.equal(got, want)
     assert torch.equal(want.cpu(), tsl.four_level_slice(
         x.cpu(), lp.cpu(), demap, window))
+    if T >= 3 * 128 + 5 and rows != "f64_specials":
+        assert int((got != 0).sum()) > 0
 
 
 def _f64_loop_case(device, lanes, n_rows, T, seed=5):
@@ -1154,15 +1219,6 @@ def _f64_tables(device):
 
     return tuple(torch.from_numpy(t).to(device) for t in
                  tloops.f64_nco_tables(wd.nco_wavetable(256, 1.0)))
-
-
-# T at the edges of the 64-sample tiles of K13 and K14: 1 sample, a tile
-# less 1, a tile, a tile and 1, two tiles and 1
-_TILE64_T_EDGES = [1, 63, 64, 65, 129]
-# rows of the f64 lanes as the card tests hand them to K13 and K14: ``odd
-# stride`` always goes through a padded copy, ``wider`` (a view of rows
-# padded to an even stride, and 2 doubles more) never
-_F64_ROW_FORMS = ("odd_stride", "wider")
 
 
 def _f64_row_form(x, form):
