@@ -20,9 +20,10 @@ JAX package's environment variables, read under the
 * ``PYMODEM_TPU_TORCH_SERVER``: the socket of a running decode server
   (``python -m pymodem_tpu_torch.serve <socket>``); the request goes
   there, and this process imports no torch;
-* ``PYMODEM_TPU_TORCH_PROFILE``: print the stage timings after the
-  reports (``profiling.report``); a value other than 1, true or yes is a
-  directory for a ``torch.profiler`` trace of the decode.
+* ``PYMODEM_TPU_TORCH_PROFILE``: print the stage timings and the
+  counters after the reports (``profiling.report``); a value other than
+  1, true or yes is a directory for a ``torch.profiler`` trace of the
+  decode, the stages in it as ``pymodem.*`` ranges.
 """
 
 from __future__ import annotations

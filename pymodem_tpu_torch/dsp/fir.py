@@ -35,6 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
+
 _MM_TILE = 128
 
 
@@ -86,8 +88,9 @@ def _band(taps: torch.Tensor) -> torch.Tensor:
 def _matmul(x: torch.Tensor, band: torch.Tensor, t: int) -> torch.Tensor:
     """Banded-Toeplitz FIR: x (..., n) @ band (..., K, 128*k) ->
     (..., n_tiles*128*k) laid out per tile, trimmed by the caller."""
-    frames, n_tiles, nout = _frames(x, t)
-    return torch.matmul(frames, band), n_tiles, nout
+    with profiling.timed("fir"):
+        frames, n_tiles, nout = _frames(x, t)
+        return torch.matmul(frames, band), n_tiles, nout
 
 
 def fir_valid_nd(x: torch.Tensor, taps) -> torch.Tensor:

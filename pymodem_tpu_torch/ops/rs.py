@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from ..device import constant, upload
 from .gf import GF256, GFTables, gf_mul, np_gf_mul, torch_tables
 
@@ -105,26 +106,27 @@ def rs_decode(data: torch.Tensor, block_size: torch.Tensor, num_roots: int,
     return is then (corrected, result, overflow), ``overflow`` marking
     failing rows past the budget (result -1, data untouched).
     """
-    B = data.shape[0]
-    data = data.to(torch.int64)
-    block_size = block_size.to(torch.int64)
-    if B > chunk_size:
-        pad = -B % chunk_size
-        data_p = torch.nn.functional.pad(data, (0, 0, 0, pad))
-        bs_p = torch.nn.functional.pad(block_size, (0, pad), value=1)
-        outs = [
-            _rs_decode_batch(data_p[lo : lo + chunk_size],
-                             bs_p[lo : lo + chunk_size], num_roots,
-                             first_root, min_distance, gf, fail_budget)
-            for lo in range(0, B + pad, chunk_size)
-        ]
-        out = tuple(torch.cat(parts)[:B] for parts in zip(*outs))
-    else:
-        out = _rs_decode_batch(data, block_size, num_roots, first_root,
-                               min_distance, gf, fail_budget)
-    if fail_budget is None:
-        return out[0], out[1]
-    return out
+    with profiling.timed("rs_decode"):
+        B = data.shape[0]
+        data = data.to(torch.int64)
+        block_size = block_size.to(torch.int64)
+        if B > chunk_size:
+            pad = -B % chunk_size
+            data_p = torch.nn.functional.pad(data, (0, 0, 0, pad))
+            bs_p = torch.nn.functional.pad(block_size, (0, pad), value=1)
+            outs = [
+                _rs_decode_batch(data_p[lo : lo + chunk_size],
+                                 bs_p[lo : lo + chunk_size], num_roots,
+                                 first_root, min_distance, gf, fail_budget)
+                for lo in range(0, B + pad, chunk_size)
+            ]
+            out = tuple(torch.cat(parts)[:B] for parts in zip(*outs))
+        else:
+            out = _rs_decode_batch(data, block_size, num_roots, first_root,
+                                   min_distance, gf, fail_budget)
+        if fail_budget is None:
+            return out[0], out[1]
+        return out
 
 
 _BITMAT_CACHE: dict = {}

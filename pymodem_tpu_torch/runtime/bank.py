@@ -75,7 +75,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import modems
+from .. import modems, profiling
 from ..config import ChainSpec
 from ..convert import bank_params_from_jax
 from ..device import constant, resolve, resolve_dtype, upload
@@ -999,8 +999,6 @@ def _submit_banked(chains: list[ChainSpec], audio,
     on the device, and collect() waits for its own readback only, not for
     work queued after it (run_banked_many pipelines recordings on this).
     ``codec="host"`` collectors read the byte streams back in collect()."""
-    from .. import profiling
-
     _check_codec(codec)
     dev = resolve(device)
     dtype = resolve_dtype(dtype)
@@ -1164,34 +1162,33 @@ def host_codec_collect(bank: Bank, plan: BlockPlan, sync_tol: int, arrays):
     """Read a bank's byte streams back and run the reference-exact state
     machines (AX.25 or IL2P, per chain) per block, keeping packets inside
     each block's range."""
-    from .. import profiling
     from ..codecs.host import il2p_seeded_sync_any
 
-    with profiling.timed("transfer"):
+    with profiling.timed("transfer"), profiling.timed("host_wait"):
         data, addr, count, sync = (t.cpu().numpy() for t in arrays)
     # a block without any sync candidate (and no possible seeded-history
     # sync in its first 32 bits) emits nothing
     has_cand = sync.any(axis=2) | il2p_seeded_sync_any(data[:, :, :4],
                                                        sync_tol)
     results: dict[str, list] = {}
-    for ci, chain in enumerate(bank.specs):
-        # only an IL2P chain's blocks need a sync candidate
-        skippable = chain.codec.kind == "il2p"
-        packets = []
-        for b in range(plan.n_blocks):
-            n = int(count[ci, b])
-            if n == 0 or (skippable and not has_cand[ci, b]):
-                continue
-            # addresses are 1-based within the block's demod range, which
-            # starts at absolute index b*block_len - overlap
-            offset = b * plan.block_len - plan.overlap
-            with profiling.timed("host_codec"):
+    with profiling.timed("host_codec"):
+        for ci, chain in enumerate(bank.specs):
+            # only an IL2P chain's blocks need a sync candidate
+            skippable = chain.codec.kind == "il2p"
+            packets = []
+            for b in range(plan.n_blocks):
+                n = int(count[ci, b])
+                if n == 0 or (skippable and not has_cand[ci, b]):
+                    continue
+                # addresses are 1-based within the block's demod range,
+                # which starts at absolute index b*block_len - overlap
+                offset = b * plan.block_len - plan.overlap
                 pkts = host_decode_block(
                     chain, data[ci, b, :n].astype(np.int64),
                     addr[ci, b, :n].astype(np.int64) + offset, sync[ci, b])
-            lo, hi = plan.keep_range(b)
-            packets.extend(p for p in pkts if lo < p.streamaddress <= hi)
-        results[chain.name] = _dedup_block_boundary(packets, chain)
+                lo, hi = plan.keep_range(b)
+                packets.extend(p for p in pkts if lo < p.streamaddress <= hi)
+            results[chain.name] = _dedup_block_boundary(packets, chain)
     return results
 
 
@@ -1382,7 +1379,8 @@ def _popcount_stats(sync: torch.Tensor) -> torch.Tensor:
 
 def _host_ints(t: torch.Tensor) -> list[int]:
     """A small integer tensor's values on the host (one readback)."""
-    return [int(v) for v in t.cpu().tolist()]
+    with profiling.timed("host_wait"):
+        return [int(v) for v in t.cpu().tolist()]
 
 
 def auto_candidate_budget_device(sync, ints=_host_ints
@@ -1580,15 +1578,17 @@ def _start_readback(t: torch.Tensor):
     before the copy, not on what was queued after it (a blocking
     ``.cpu()`` waits for the whole stream, the next recording's kernels
     included).  On the CPU wait() gives the tensor itself."""
-    if t.device.type != "cuda":
-        return t.numpy
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(t.device))
+    host, done = t, None
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
 
     def wait():
-        done.synchronize()
+        with profiling.timed("host_wait"):
+            if done is not None:
+                done.synchronize()
         return host.numpy()
 
     return wait
@@ -1652,8 +1652,11 @@ class CodecReadback:
         into pinned memory.  Returns a wait() giving (n_ok, n_ok_max,
         max_len, comp, dropped): valid packets in ``comp``, the count
         ``meta_budget`` must hold, the longest packet."""
-        fetch = (lambda: packed.cpu().numpy()) if now else \
-            _start_readback(packed)
+        def fetch_now():
+            with profiling.timed("host_wait"):
+                return packed.cpu().numpy()
+
+        fetch = fetch_now if now else _start_readback(packed)
 
         def wait():
             (n_ok, _bytes, max_len), comp, dropped = _read_compact(
@@ -1704,8 +1707,6 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
     (``io.device_block0``), whose readback is already global.  ``io``:
     how results are read back (``CodecReadback``); every branch below is
     decided from what it returns."""
-    from .. import profiling
-
     if io.device_block0 is None:
         device_keep, dev_block0 = host_plan is None and block0 == 0, 0
     else:
@@ -1719,6 +1720,8 @@ def _device_codec_submit(bank, plan, codec_key, data, addr, count, sync,
     if total_candidates is None:
         with _CODEC_BUDGET_LOCK:
             cached = io.cache.get(cache_key)
+        profiling.count("codec_budget_miss" if cached is None
+                        else "codec_budget_hit")
 
     def dispatch(mp, cand_budget, scan_cap, rs_frac, pay_budget):
         with profiling.timed(f"{io.stage}_step"):
@@ -1875,13 +1878,12 @@ def _fallback_block_packets(per_chain, bank, plan, fallback, data, addr,
     streams back only when such blocks exist.  ``fallback`` holds local
     (chain, block) indices; ``block0`` shifts them to their global stream
     position (streaming steps)."""
-    from .. import profiling
-
     if not fallback:
         return
     profiling.count("packet_fallback_blocks", len(fallback))
-    data, addr, count, sync = (t.cpu().numpy()
-                               for t in (data, addr, count, sync))
+    with profiling.timed("host_wait"):
+        data, addr, count, sync = (t.cpu().numpy()
+                                   for t in (data, addr, count, sync))
     for ci, b in sorted(fallback):
         chain = bank.specs[ci]
         n = int(count[ci, b])
@@ -1907,7 +1909,6 @@ def packets_from_compact(bank, plan, comp, n_ok, dropped, data, addr, count,
     index of the buffers' block 0 (streaming steps address their blocks
     locally on the device; addresses and keep windows shift by whole
     blocks here)."""
-    from .. import profiling
     from ..packets import Packet
 
     with profiling.timed("packet_objects"):
@@ -2034,17 +2035,21 @@ def run_plans_banked_pipelined(jobs, depth: int = 1,
     dtype = resolve_dtype(dtype)
     out = []
     queue: deque = deque()
-    for plan, audio, rate in jobs:
-        queue.append((plan, rate, _submit_banked(
-            plan.chains, audio, block_seconds, overlap_seconds, codec,
-            max_packet_seconds=max_packet_seconds, device=device,
-            dtype=dtype)))
+
+    def collect(i, plan, rate, collectors):
+        with profiling.timed("plan_collect", i):
+            out.append(_finish_plan(plan, _drain(collectors), rate))
+
+    for i, (plan, audio, rate) in enumerate(jobs):
+        with profiling.timed("plan_submit", i):
+            queue.append((i, plan, rate, _submit_banked(
+                plan.chains, audio, block_seconds, overlap_seconds, codec,
+                max_packet_seconds=max_packet_seconds, device=device,
+                dtype=dtype)))
         if len(queue) > depth:
-            plan_, rate_, collectors = queue.popleft()
-            out.append(_finish_plan(plan_, _drain(collectors), rate_))
+            collect(*queue.popleft())
     while queue:
-        plan_, rate_, collectors = queue.popleft()
-        out.append(_finish_plan(plan_, _drain(collectors), rate_))
+        collect(*queue.popleft())
     return out
 
 
@@ -2089,20 +2094,31 @@ def _finish_plan(plan, by_name: dict, sample_rate: float) -> RunResult:
     cross-chain correlate, rendered reports)."""
     from ..packets import PacketAggregate
 
-    aggregate = PacketAggregate()
-    for chain in plan.chains:
-        aggregate.add(by_name.get(chain.name, []))
-    aggregate.validate_all()
-    # cross-chain dedup window: the reference's rate/40 (pymodem.py:175)
-    # widened by two byte-phase quanta (block slicers restart their byte
-    # counter per block)
-    max_sps = max(
-        (c.slicer.sample_rate / c.slicer.symbol_rate for c in plan.chains),
-        default=1.0,
-    )
-    aggregate.correlate(address_distance=sample_rate / 40 + 16 * max_sps)
-    reports = [
-        aggregate.render_raw_bad() + aggregate.render_report(r.style)
-        for r in plan.reports
-    ]
-    return RunResult(aggregate=aggregate, reports=reports)
+    with profiling.timed("finish_plan"):
+        aggregate = PacketAggregate()
+        for chain in plan.chains:
+            aggregate.add(by_name.get(chain.name, []))
+        with profiling.timed("aggregate_validate"):
+            aggregate.validate_all()
+        if profiling.ENABLED:  # the sums walk every packet: only counted
+            packets = [p for chain in aggregate.chains for p in chain]
+            profiling.count("aggregate_packets", len(packets))
+            profiling.count("aggregate_valid", sum(
+                p.valid_crc and p.valid_header for p in packets))
+        # cross-chain dedup window: the reference's rate/40 (pymodem.py:175)
+        # widened by two byte-phase quanta (block slicers restart their
+        # byte counter per block)
+        max_sps = max(
+            (c.slicer.sample_rate / c.slicer.symbol_rate
+             for c in plan.chains),
+            default=1.0,
+        )
+        with profiling.timed("aggregate_correlate"):
+            aggregate.correlate(
+                address_distance=sample_rate / 40 + 16 * max_sps)
+        with profiling.timed("aggregate_reports"):
+            reports = [
+                aggregate.render_raw_bad() + aggregate.render_report(r.style)
+                for r in plan.reports
+            ]
+        return RunResult(aggregate=aggregate, reports=reports)

@@ -208,9 +208,10 @@ def gather_to_host(x, mesh) -> np.ndarray:
     n_time, *x.shape) numpy stack, rank order row-major (the JAX package's
     ``process_allgather(tiled=True)``)."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-    t = t.detach().cpu().contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
+    with profiling.timed("host_wait"):
+        t = t.detach().cpu().contiguous()
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t)
     return torch.stack(parts).reshape(*mesh.mesh.shape, *t.shape).numpy()
 
 
@@ -227,8 +228,9 @@ def _gather_grid(x, mesh) -> torch.Tensor:
 def _world_max(t: torch.Tensor) -> list[int]:
     """A local integer reduction's values, each the largest over every
     rank (one MAX all-reduce of the host copy)."""
-    v = t.detach().cpu().to(torch.int64).reshape(-1)
-    dist.all_reduce(v, op=dist.ReduceOp.MAX)
+    with profiling.timed("host_wait"):
+        v = t.detach().cpu().to(torch.int64).reshape(-1)
+        dist.all_reduce(v, op=dist.ReduceOp.MAX)
     return [int(a) for a in v.tolist()]
 
 
