@@ -1,14 +1,16 @@
 """CRC-16 (X.25 / CRC-CCITT reflected, poly 0x8408), on the host and the
 device.
 
-Port of ``pymodem_tpu.ops.crc``: numpy copies of its host functions, and
-its masked device CRC (``crc16_masked``) on torch tensors, which imports
-torch when called (the host half serves the torch-free synthesizer).  The reference
-computes the
-CRC bit-serially per packet (crc_functions.py:44-55, init 0xFFFF, final xor
-0xFFFF, LSB-first) and declares a packet valid when the carried CRC --
-little-endian in the last two bytes -- exactly equals the calculated one.
-The byte-at-a-time table form here is algebraically identical.
+Port of ``pymodem_tpu.ops.crc``: its host functions on numpy, where every
+host CRC is a row of one batched table pass (``crc16_rows``; a recording's
+packets are checked in one call, ``np_check_packets``), and its masked
+device CRC (``crc16_masked``) on torch tensors, which imports torch when
+called (the host half serves the torch-free synthesizer).  The reference
+computes the CRC bit-serially per packet (crc_functions.py:44-55, init
+0xFFFF, final xor 0xFFFF, LSB-first) and declares a packet valid when the
+carried CRC -- little-endian in the last two bytes -- exactly equals the
+calculated one.  The byte-at-a-time table form here is algebraically
+identical.
 """
 
 from __future__ import annotations
@@ -31,30 +33,101 @@ def _build_table() -> np.ndarray:
 CRC_TABLE = _build_table()
 
 
+# The byte step tabulated over every 16-bit value of ``crc ^ byte``: a byte
+# is below 256, so ``(crc ^ byte) >> 8 == crc >> 8`` and
+# ``(crc >> 8) ^ CRC_TABLE[(crc ^ byte) & 0xFF] == _STEP[crc ^ byte]``.
+_WORDS = np.arange(1 << 16, dtype=np.uint32)
+_STEP = ((_WORDS >> 8) ^ CRC_TABLE[_WORDS & 0xFF]).astype(np.uint16)
+_POPCOUNT8 = np.array([bin(b).count("1") for b in range(256)], dtype=np.uint8)
+del _WORDS
+
+
+def gather_rows(datas) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(flat, starts, lengths)``: the byte sequences ``datas`` (lists of
+    ints 0-255, bytes, or arrays, which are cast to uint8 as
+    ``np.asarray(data, dtype=np.uint8)`` casts) end to end in one uint8
+    buffer, with each one's offset into it and its length (int64)."""
+    buf = bytearray()
+    for data in datas:
+        if isinstance(data, np.ndarray):
+            data = np.ascontiguousarray(data, dtype=np.uint8)
+        buf.extend(data)
+    lengths = np.fromiter(map(len, datas), dtype=np.int64, count=len(datas))
+    starts = np.cumsum(lengths) - lengths
+    return np.frombuffer(buf, dtype=np.uint8), starts, lengths
+
+
+def crc16_rows(flat: np.ndarray, starts: np.ndarray,
+               lengths: np.ndarray) -> np.ndarray:
+    """CRC of every row ``flat[starts[i] : starts[i] + lengths[i]]`` (host),
+    as int64.
+
+    One table step a byte position, over the rows still that long: with
+    the rows ordered longest first those are a prefix, so the work is the
+    total bytes plus one short numpy step a position of the longest row,
+    and one long frame among many short ones pads none of them.  Positions
+    where the number of live rows stays the same form one run, whose bytes
+    are gathered at once, one line a position.
+    """
+    order = np.argsort(-lengths)
+    row_lengths = lengths[order]
+    row_starts = starts[order]
+    crc = np.full(len(order), 0xFFFF, dtype=np.uint16)
+    spare = np.empty_like(crc)
+    ends = np.unique(row_lengths[row_lengths > 0]).tolist()
+    for j0, j1 in zip([0, *ends], ends):
+        live = int(np.searchsorted(-row_lengths, -j1, side="right"))
+        run = flat[row_starts[:live] + np.arange(j0, j1)[:, None]].astype(
+            np.uint16)
+        state, word = crc[:live], spare[:live]
+        for line in run:
+            np.bitwise_xor(state, line, out=word)
+            # mode="clip" writes ``out`` unbuffered; a word never exceeds
+            # the table
+            _STEP.take(word, out=state, mode="clip")
+    out = np.empty(len(order), dtype=np.int64)
+    out[order] = crc ^ 0xFFFF
+    return out
+
+
+def check_rows(flat: np.ndarray, starts: np.ndarray, lengths: np.ndarray,
+               max_distance: int = 0):
+    """``(carried, calculated, valid)`` arrays for the gathered packets of
+    ``gather_rows``, each carrying its CRC little-endian in its last two
+    bytes (crc_functions.py:9-61): valid where the carried and calculated
+    CRCs differ in at most ``max_distance`` bits, the reference's near-miss
+    knob, 0 (equality) in its shipped CheckCRC.  A packet of fewer than 2
+    bytes raises IndexError, as indexing its CRC bytes does."""
+    if lengths.size and int(lengths.min()) < 2:
+        raise IndexError("a packet of fewer than 2 bytes carries no CRC")
+    last = starts + lengths - 1
+    carried = flat[last].astype(np.int64) * 256 + flat[last - 1]
+    calculated = crc16_rows(flat, starts, lengths - 2)
+    diff = carried ^ calculated
+    distance = _POPCOUNT8[diff & 0xFF] + _POPCOUNT8[diff >> 8]
+    return carried, calculated, distance <= max_distance
+
+
+def np_check_packets(datas, max_distance: int = 0):
+    """``check_rows`` over the byte sequences ``datas`` (lists or uint8
+    arrays): numpy arrays ``(carried, calculated, valid)``, one entry a
+    packet."""
+    return check_rows(*gather_rows(datas), max_distance)
+
+
 def np_crc16(data: np.ndarray) -> int:
-    """CRC over a byte array (host)."""
-    crc = np.uint16(0xFFFF)
-    table = CRC_TABLE
-    for byte in np.asarray(data, dtype=np.uint8):
-        crc = np.uint16(crc >> 8) ^ table[np.uint8(crc) ^ byte]
-    return int(crc ^ np.uint16(0xFFFF))
-
-
-def crc_bit_distance(carried: int, calculated: int) -> int:
-    """Hamming distance between a packet's carried and calculated CRCs
-    (the reference's ``Distance8`` near-miss metric, crc_functions.py:14-61)."""
-    return int(bin((carried ^ calculated) & 0xFFFF).count("1"))
+    """CRC over a byte array (host): one row of ``crc16_rows``."""
+    data = np.asarray(data, dtype=np.uint8)
+    return int(crc16_rows(data, np.zeros(1, dtype=np.int64),
+                          np.array([len(data)], dtype=np.int64))[0])
 
 
 def np_check_packet(data: np.ndarray,
                     max_distance: int = 0) -> tuple[int, int, bool]:
-    """(carried, calculated, valid) for a packet whose last two bytes carry
-    the CRC little-endian (crc_functions.py:9-61); ``max_distance`` is the
-    reference's near-miss knob, 0 (equality) in its shipped CheckCRC."""
-    data = np.asarray(data)
-    carried = int(data[-1]) * 256 + int(data[-2])
-    calc = np_crc16(data[:-2])
-    return carried, calc, crc_bit_distance(carried, calc) <= max_distance
+    """(carried, calculated, valid) for one packet: one row of
+    ``np_check_packets``."""
+    carried, calculated, valid = np_check_packets([data], max_distance)
+    return int(carried[0]), int(calculated[0]), bool(valid[0])
 
 
 def np_append_crc(data: list[int]) -> None:

@@ -12,26 +12,33 @@ from __future__ import annotations
 from collections import Counter
 from dataclasses import dataclass, field
 
-from .ops.crc import np_check_packet
+import numpy as np
+
+from .ops.crc import check_rows, gather_rows
 
 
-def printable_header(frame) -> bool:
-    """AX.25 address-field sanity check (packet_meta.py:21-41).
+def printable_headers(flat: np.ndarray, starts: np.ndarray,
+                      lengths: np.ndarray) -> np.ndarray:
+    """AX.25 address-field sanity check of every packet gathered by
+    ``ops.crc.gather_rows`` (packet_meta.py:21-41), as a bool array.
 
     Every callsign character (first 7 bytes of each address subfield,
     shifted right once) must be printable ASCII or NUL.  Note the reference
     checks *all* bytes of the frame this way with subfield_character_index
-    never reset, so in effect only the first 7 bytes are constrained.
+    never reset, so in effect only the first 7 bytes are constrained, and a
+    frame of 15 bytes or fewer fails.
     """
-    if len(frame) <= 15:
-        return False
-    subfield_char = 0
-    for value in frame:
-        ch = int(value) >> 1
-        if subfield_char < 7 and (ch < 32 or ch > 126) and ch != 0:
-            return False
-        subfield_char += 1
-    return True
+    long_enough = lengths > 15
+    chars = flat[starts[long_enough, None] + np.arange(7)] >> 1
+    printable = ((chars == 0) | ((chars >= 32) & (chars <= 126))).all(axis=1)
+    out = np.zeros(len(lengths), dtype=bool)
+    out[long_enough] = printable
+    return out
+
+
+def printable_header(frame) -> bool:
+    """``printable_headers`` of one frame."""
+    return bool(printable_headers(*gather_rows([frame]))[0])
 
 
 @dataclass
@@ -47,8 +54,25 @@ class Packet:
     correlated_decoders: list = field(default_factory=list)
 
     def validate(self) -> None:
-        self.carried_crc, self.calculated_crc, self.valid_crc = np_check_packet(self.data)
-        self.valid_header = printable_header(self.data)
+        validate_packets([self])
+
+
+def validate_packets(packets: list[Packet]) -> int:
+    """Set every packet's carried and calculated CRC, ``valid_crc`` and
+    ``valid_header`` (Python ints and bools) from one batched CRC and
+    header pass over all of them; returns the bytes the pass covered.  No
+    packets, no numpy call."""
+    if not packets:
+        return 0
+    flat, starts, lengths = gather_rows([p.data for p in packets])
+    carried, calculated, valid = check_rows(flat, starts, lengths)
+    header = printable_headers(flat, starts, lengths)
+    for packet, c, k, v, h in zip(packets, carried.tolist(),
+                                  calculated.tolist(), valid.tolist(),
+                                  header.tolist()):
+        packet.carried_crc, packet.calculated_crc = c, k
+        packet.valid_crc, packet.valid_header = v, h
+    return len(flat)
 
 
 _U_CONTROL_NAMES = {
@@ -144,10 +168,11 @@ class PacketAggregate:
     def add(self, packets: list[Packet]) -> None:
         self.chains.append(packets)
 
-    def validate_all(self) -> None:
-        for chain in self.chains:
-            for packet in chain:
-                packet.validate()
+    def validate_all(self) -> int:
+        """Validate every chain's packets, in config order, in one batched
+        pass (``validate_packets``); returns the bytes it covered."""
+        return validate_packets(
+            [packet for chain in self.chains for packet in chain])
 
     def correlate(self, address_distance: float) -> None:
         """Dedup valid packets by (|address delta| < distance, equal CRC,

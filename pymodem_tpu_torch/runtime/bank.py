@@ -2099,10 +2099,11 @@ def _finish_plan(plan, by_name: dict, sample_rate: float) -> RunResult:
         for chain in plan.chains:
             aggregate.add(by_name.get(chain.name, []))
         with profiling.timed("aggregate_validate"):
-            aggregate.validate_all()
+            crc_bytes = aggregate.validate_all()
         if profiling.ENABLED:  # the sums walk every packet: only counted
             packets = [p for chain in aggregate.chains for p in chain]
             profiling.count("aggregate_packets", len(packets))
+            profiling.count("aggregate_crc_bytes", crc_bytes)
             profiling.count("aggregate_valid", sum(
                 p.valid_crc and p.valid_header for p in packets))
         # cross-chain dedup window: the reference's rate/40 (pymodem.py:175)

@@ -82,9 +82,11 @@ def runs(one_thread):
         profiling.reset()
     assert len(off) == 1
     assert [len(r[0].aggregate.unique) for r in (cold, warm)] == [1, 1]
+    cold_bytes = sum(len(p.data) for chain in cold[0].aggregate.chains
+                     for p in chain)
     return SimpleNamespace(events=_events(prof), off_stats=off_stats,
                            cold=cold_counts, warm=warm_counts, report=report,
-                           hooked=hooked)
+                           hooked=hooked, cold_bytes=cold_bytes)
 
 
 def _spans(runs, name):
@@ -139,3 +141,10 @@ def test_report_lists_the_counters(runs):
     for name in ("aggregate_packets", "aggregate_valid", "codec_budget_miss"):
         assert name in counters
     assert "host_wait" not in counters
+
+
+def test_the_crc_byte_count_covers_every_packet(runs):
+    """``aggregate_crc_bytes``: the bytes of every packet the traced run's
+    batched validation covered, listed among the report's counters."""
+    assert runs.cold["aggregate_crc_bytes"] == runs.cold_bytes > 0
+    assert "aggregate_crc_bytes" in runs.report.split("counters:")[1]
