@@ -2,9 +2,12 @@
 
 ``BENCHMARK.json`` names each cell's configuration (``configs/``) and
 traffic mix (``traffic/``); the mix names its entry kind (``entries/``);
-each per-layer metric is read by ``metrics/<name>.py``; each cell's check
-limits are ``limits/<cell>.json``.  A new cell, mix, configuration or
-metric is new files and new entries, never an edit here.
+the configuration's transmitter names its modulation
+(``transmitters/<modulation>.py``) and its chains their reference stages
+(``reference/{modems,slicers,streams,codecs}/<kind>.py``); each per-layer
+metric is read by ``metrics/<name>.py``; each cell's check limits are
+``limits/<cell>.json``.  A new cell, mix, configuration, modem family,
+transmitter or metric is new files and new entries, never an edit here.
 
 A run: set-up (torch, the CUDA context, the recordings from the seed, one
 warm batch that builds or loads the kernel library and fills the codec's

@@ -23,16 +23,25 @@ Arrivals (``frames.<codec>.arrivals`` in the mix):
 A segment of ``segment_seconds`` is tiled to ``seconds`` where the mix says
 so; every recording is distinct.  Only numpy and the benchmark's frozen
 copies of the synthesizer are used.
+
+Transmitters are found by the configuration's ``transmitter.modulation``:
+``transmitters/<modulation>.py`` holds one function, ``modulate(tx,
+line_bits, rate)``, which turns the scrambled line bits of one
+transmission into a float64 waveform at ``rate`` samples a second whose
+mean power over the transmission is 1/2, the power of a sine of unit
+amplitude.  The SNR drawn for a frame then sets the same signal power for
+every family.  A new modem family is a new file there, not an edit here.
 """
 
 from __future__ import annotations
 
+import importlib
 import math
+from pathlib import Path
 
 import numpy as np
 
 from .synth import encode as enc
-from .synth import modulate as mod
 
 NOISE_RMS = 500.0
 _ALPHABET = np.frombuffer(
@@ -67,12 +76,18 @@ def _frame_bits(tx: dict, payload: bytes, dest: str, source: str,
     return bits + _FLAG * tx["tail_flags"]
 
 
+def transmitter(modulation: str):
+    """The module of ``transmitters/<modulation>.py``."""
+    path = Path(__file__).parent / "transmitters" / f"{modulation}.py"
+    if not path.is_file():
+        raise ValueError(f"no transmitter for modulation {modulation!r}: "
+                         f"{path} does not exist")
+    return importlib.import_module(f".transmitters.{modulation}", __package__)
+
+
 def _modulate(tx: dict, bits: list[int], rate: float) -> np.ndarray:
     line = enc.scramble_bits(bits, int(tx["poly"], 16), bool(tx["invert"]))
-    if tx["modulation"] != "afsk":
-        raise ValueError(f"no modulation {tx['modulation']!r}")
-    return mod.afsk_modulate(line, rate, tx["bit_rate"], tx["mark_freq"],
-                             tx["space_freq"], amplitude=1.0)
+    return transmitter(tx["modulation"]).modulate(tx, line, rate)
 
 
 def _segment(tx: dict, mix: dict, rate: float, seconds: float,

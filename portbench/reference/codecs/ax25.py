@@ -7,10 +7,10 @@ import numpy as np
 from ..frozen.codecs_host import ax25_decode_host
 
 
-def max_packet_seconds(spec, symbol_rate: float) -> float:
+def max_packet_seconds(spec, bit_rate: float) -> float:
     """max_packet_length decoded bytes at the worst-case HDLC stuffing of
     6/5, plus flags."""
-    return (spec.max_packet_length * 8 * 1.2 + 32) / symbol_rate
+    return (spec.max_packet_length * 8 * 1.2 + 32) / bit_rate
 
 
 def decode(spec, raw, addresses):

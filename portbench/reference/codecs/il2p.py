@@ -7,11 +7,11 @@ import numpy as np
 from ..frozen.codecs_host import il2p_decode_host
 
 
-def max_packet_seconds(spec, symbol_rate: float) -> float:
+def max_packet_seconds(spec, bit_rate: float) -> float:
     """sync(3) + header(15) + 1023 payload + 16 parity per 239-byte block
     + CRC(4) bytes."""
     payload = 1023
-    return (3 + 15 + payload + -(-payload // 239) * 16 + 4) * 8 / symbol_rate
+    return (3 + 15 + payload + -(-payload // 239) * 16 + 4) * 8 / bit_rate
 
 
 def decode(spec, raw, addresses):

@@ -15,7 +15,7 @@ nothing else without decoding every lane.
 
 from __future__ import annotations
 
-from . import aggregate
+from . import aggregate, decode
 
 
 def lane_mismatch(ref: dict, port: list[list], lanes: list, geo, chains,
@@ -25,20 +25,21 @@ def lane_mismatch(ref: dict, port: list[list], lanes: list, geo, chains,
     ref: {(chain, block): [(bytes, address)]}; port: per chain
     [(bytes, address, corrected)].  A packet pairs with one of the same
     bytes whose stream address lies within one byte of line bits
-    (8 symbol periods): a packet's address is that of its last byte's
-    emission, so it carries the slicer's bit phase within the byte, which
-    a coherent loop's path through noise before the frame sets.  A
-    reference packet that the port dropped as a block-boundary duplicate
-    (the same bytes within the dedup window of a packet it kept outside
-    this block) counts as paired.  Returns the counts: ``missing`` (no
-    partner), ``moved`` (paired at another address), ``paired`` and
-    ``total`` (packets on both sides)."""
+    (8 / bits per symbol symbol periods): a packet's address is that of
+    its last byte's emission, so it carries the slicer's bit phase within
+    the byte, which a coherent loop's path through noise before the frame
+    sets.  A reference packet that the port dropped as a block-boundary
+    duplicate (the same bytes within the dedup window, 16 symbol periods,
+    of a packet it kept outside this block) counts as paired.  Returns the
+    counts: ``missing`` (no partner), ``moved`` (paired at another
+    address), ``paired`` and ``total`` (packets on both sides)."""
     out = dict(missing=0, moved=0, paired=0, total=0)
     for c, b in lanes:
         lo, hi = geo.keep_range(b)
         sl = chains[c].slicer
         sps = sl.sample_rate / sl.symbol_rate
-        quantum, window = 8.0 * sps, 16.0 * sps
+        quantum = 8.0 / decode.bits_per_symbol(sl) * sps
+        window = 16.0 * sps
         r = sorted(ref[(c, b)], key=lambda x: x[1])
         p = sorted(((d, a) for d, a, _ in port[c] if lo < a <= hi),
                    key=lambda x: x[1])

@@ -7,9 +7,11 @@ chain specs, the filter taps, the block geometry, the AGC normal of each
 block group, each lane's demod, timing slicer, descrambler, codec state
 machine and the block's keep range.  The block semantics are the port's
 banked runtime's (the geometry rules are frozen from
-``pymodem_tpu_torch/runtime/bank.py`` at commit 0117b87): the recording is
-cut into overlapped blocks, every block starts its loops from rest, and a
-packet belongs to the block whose keep range holds its stream address.
+``pymodem_tpu_torch/runtime/bank.py`` at commit b13223a, for every family:
+a packet's wire time, the byte capacity and the acquisition floors follow
+the chain's bits per slicer decision): the recording is cut into
+overlapped blocks, every block starts its loops from rest, and a packet
+belongs to the block whose keep range holds its stream address.
 
 The stages are found by the chain spec's kinds: ``modems/<kind>.py``,
 ``slicers/<kind>.py``, ``streams/<kind>.py`` and ``codecs/<kind>.py``, so a
@@ -35,10 +37,12 @@ from scipy.signal import fftconvolve
 from .arith import Arith
 from .frozen import config as fcfg
 
-# Geometry rules of the banked runtime (frozen, runtime/bank.py at 0117b87)
+# Geometry rules of the banked runtime (frozen, runtime/bank.py at b13223a)
 _ACQ_SECONDS_FLOOR = 0.35
 _ACQ_SYMBOLS = 192.0
 _ACQ_COHERENT_FLOOR = 1.25
+# the four-level slicer learns its threshold on absolute time scales too
+_ACQ_FLOOR_BY_SLICER = {"4level": 1.2}
 _TARGET_LANES = 2048
 _LANE_BUDGET_BYTES = 3e9
 _GROUP_BUDGET_BYTES = 16e9
@@ -57,9 +61,16 @@ def stage(family: str, kind: str):
     return importlib.import_module(f".{family}.{kind}", __package__)
 
 
+def bits_per_symbol(slicer) -> int:
+    """Bits per slicer decision: the quadrature slicer's field, 2 for the
+    four-level slicer, else 1."""
+    return getattr(slicer, "bits_per_symbol",
+                   2 if slicer.kind == "4level" else 1)
+
+
 def _max_packet_seconds(chain) -> float:
     return stage("codecs", chain.codec.kind).max_packet_seconds(
-        chain.codec, chain.slicer.symbol_rate)
+        chain.codec, chain.slicer.symbol_rate * bits_per_symbol(chain.slicer))
 
 
 @dataclass(frozen=True)
@@ -101,7 +112,9 @@ def geometry(chains: list, n_audio: int, sample_rate: float,
     modem = stage("modems", chains[0].modem.kind)
     trim = modem.trim(modem.params(chains[0].modem))
     floor = _ACQ_COHERENT_FLOOR if modem.COHERENT else _ACQ_SECONDS_FLOOR
-    acq = max(floor, max(_ACQ_SYMBOLS / c.slicer.symbol_rate for c in chains))
+    acq = max(max(_ACQ_FLOOR_BY_SLICER.get(c.slicer.kind, floor)
+                  for c in chains),
+              max(_ACQ_SYMBOLS / c.slicer.symbol_rate for c in chains))
     packet = (max(_max_packet_seconds(c) for c in chains)
               if max_packet_seconds is None else float(max_packet_seconds))
     auto_overlap = acq + packet
@@ -125,7 +138,8 @@ def geometry(chains: list, n_audio: int, sample_rate: float,
     cap = 16
     for c in chains:
         sps = c.slicer.sample_rate / c.slicer.symbol_rate
-        cap = max(cap, int((block_len + overlap) / sps / 8.0 * 1.5) + 16)
+        nominal = (block_len + overlap) / sps * bits_per_symbol(c.slicer) / 8.0
+        cap = max(cap, int(nominal * 1.5) + 16)
     return Geometry(n_audio, trim, block_len, overlap, per_group,
                     -(-cap // 8) * 8)
 

@@ -30,15 +30,17 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 def test_reference_and_generator_import_nothing_of_the_port():
     for path in [*(SRC / "reference").rglob("*.py"), *(SRC / "synth").rglob("*.py"),
+                 *(SRC / "transmitters").glob("*.py"),
                  SRC / "loadgen.py"] + list((SRC / "roofline").glob("*.py")):
         assert "pymodem_tpu_torch" not in set(_imports(path)), path
 
 
 def test_loaded_modules_of_the_reference():
     code = ("import sys, importlib, pkgutil, portbench.reference as r, "
-            "portbench.loadgen\n"
-            "for m in pkgutil.walk_packages(r.__path__, r.__name__ + '.'):\n"
-            "    importlib.import_module(m.name)\n"
+            "portbench.transmitters as t, portbench.loadgen\n"
+            "for p in (r, t):\n"
+            "    for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "        importlib.import_module(m.name)\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True).stdout

@@ -7,13 +7,15 @@ import numpy as np
 import pytest
 
 from portbench import loadgen
+from portbench.tests import tiny_bench
 from portbench.tests.tiny_bench import SRC
 
 SEED = 2**33 + 17
 
 
 def _small(config: str, mix: str) -> tuple[dict, dict]:
-    cfg = json.loads((SRC / f"configs/{config}.json").read_text())
+    cfg = (tiny_bench.qpsk2400_sweep() if config == "qpsk2400" else
+           json.loads((SRC / f"configs/{config}.json").read_text()))
     m = json.loads((SRC / f"traffic/{mix}.json").read_text())
     m["seconds"] = m["segment_seconds"] = 120
     return cfg, m
@@ -23,6 +25,7 @@ def _small(config: str, mix: str) -> tuple[dict, dict]:
     ("afsk300_pll_sweep64", "busy_10min"),
     ("afsk1200_ax25_sweep8", "busy_10min"),
     ("afsk300_pll_sweep64", "quiet_hour"),
+    ("qpsk2400", "busy_10min"),
 ])
 def test_deterministic_for_a_seed(config, mix):
     cfg, m = _small(config, mix)

@@ -16,6 +16,44 @@ PLL = "tiny_pll.tiny"
 AX25 = "tiny_ax25.tiny"
 
 
+def _line(name: str, modem: str, preset: str, slicer: str, options: dict,
+          poly: str, slicer_options: dict | None = None) -> dict:
+    return {"object_name": name, "object_type": "demod_chain",
+            "modem": {"type": modem, "config": preset, "options": options},
+            "slicer": {"type": slicer, "config": preset,
+                       "options": slicer_options or {}},
+            "stream": {"type": "lfsr",
+                       "options": {"poly": poly, "invert": "no"}},
+            "codec": {"type": "il2p", "options": {"crc": "yes"}}}
+
+
+def qpsk2400_sweep(chains: int = 8) -> dict:
+    """A configuration of another family, built in the tests only: upstream
+    ``configs/qpsk_2400.json``'s chain (``mpsk`` and the quadrature slicer,
+    preset ``qpsk_2400``, IL2P+CRC, poly 0x1) sweeping its carrier over
+    +-25 Hz at 44.1 kHz, with a QPSK transmitter on 1500 Hz."""
+    step = 50.0 / max(chains - 1, 1)
+    lines = [_line(f"QPSK 2400 Il2Pc c{i:02d}", "mpsk", "qpsk_2400",
+                   "quadrature", {"carrier_freq": str(1475.0 + step * i)},
+                   "0x1") for i in range(chains)]
+    return {"sample_rate": 44100,
+            "transmitter": {"modulation": "qpsk", "symbol_rate": 1200.0,
+                            "carrier_freq": 1500.0, "codec": "il2p",
+                            "poly": "0x1", "invert": False, "lead_bits": 240,
+                            "tail_bits": 32},
+            "lines": lines + [{"object_name": "Raw", "object_type": "report",
+                               "options": {"style": "raw"}}]}
+
+
+def fsk4_sweep(chains: int = 8) -> dict:
+    """The 4FSK chain (``fsk`` preset 4800 with the four-level slicer,
+    IL2P+CRC) sweeping the slicer's lock rate at 48 kHz: geometry only."""
+    lines = [_line(f"4FSK 9600 Il2Pc l{i}", "fsk", "4800", "4level", {},
+                   "0x1", {"lock_rate": str(0.975 + 0.002 * i)})
+             for i in range(chains)]
+    return {"sample_rate": 48000, "lines": lines}
+
+
 def build(root: Path) -> dict:
     """Write the tiny benchmark under ``root``; returns its BENCHMARK.json."""
     pb = root / "pb"
